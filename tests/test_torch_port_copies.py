@@ -1,0 +1,135 @@
+"""The port's copies of the JAX package's numpy code stay equal to it.
+
+The port never imports ``videosd_tpu``, so it carries its own copies of the
+weight plans, the CLIP tokenizer, the alphas table and the safetensors
+reader.  Each is held equal to the original here, and the port's modules
+own exactly the state-dict keys their plan names.  Also: the port imports
+with JAX unavailable.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from videosd_tpu.io import safetensors as JS
+from videosd_tpu.io import weights as JW
+from videosd_tpu.models.clip_text import CLIP_PRESETS as J_CLIP
+from videosd_tpu.models.taesd import TAESDConfig as JTAESDConfig
+from videosd_tpu.models.unet import UNET_PRESETS as J_UNET
+from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
+from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
+from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
+from videosd_tpu_torch.io import safetensors as PS
+from videosd_tpu_torch.io import weights as PW
+from videosd_tpu_torch.models import (
+    CLIP_PRESETS,
+    UNET_PRESETS,
+    AutoencoderTiny,
+    CLIPTextModel,
+    ControlNetModel,
+    TAESDConfig,
+    UNet2DConditionModel,
+)
+from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
+from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_TAESD = {"sd15": {}, "tiny": {"hidden": 16, "blocks_per_stage": 1}}
+
+# (plan, port module, JAX config table, port config table)
+_MODELS = {
+    "unet": (PW.unet_plan, JW.unet_plan, UNet2DConditionModel, J_UNET, UNET_PRESETS),
+    "controlnet": (PW.controlnet_plan, JW.controlnet_plan, ControlNetModel, J_UNET, UNET_PRESETS),
+    "clip": (PW.clip_plan, JW.clip_plan, CLIPTextModel, J_CLIP, CLIP_PRESETS),
+}
+
+
+def _configs(name, family):
+    if name == "taesd":
+        return JTAESDConfig(**_TAESD[family]), TAESDConfig(**_TAESD[family])
+    _, _, _, jtab, ptab = _MODELS[name]
+    return jtab[family], ptab[family]
+
+
+def _plans(name, family):
+    jcfg, pcfg = _configs(name, family)
+    if name == "taesd":
+        return JW.taesd_plan(jcfg), PW.taesd_plan(pcfg), lambda: AutoencoderTiny(pcfg)
+    pplan, jplan, ctor, _, _ = _MODELS[name]
+    return jplan(jcfg), pplan(pcfg), lambda: ctor(pcfg)
+
+
+@pytest.mark.parametrize("family", ["tiny", "sd15"])
+@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd"])
+def test_plan_copy_equals_original(name, family):
+    jplan, pplan, _ = _plans(name, family)
+    assert pplan == jplan
+
+
+@pytest.mark.parametrize("family", ["tiny", "sd15"])
+@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd"])
+def test_module_keys_equal_plan_keys(name, family):
+    _, pplan, ctor = _plans(name, family)
+    with torch.device("meta"):
+        keys = list(ctor().state_dict())
+    assert len(keys) == len(set(keys))
+    assert set(keys) == {tk for _, tk, _ in pplan}
+
+
+@pytest.mark.parametrize("vocab_size", [1000, 49408])
+def test_tokenizer_copy_matches_original(vocab_size):
+    texts = ["portrait, pixar, cg", "a photo of a CAT &amp; dog", "", "x " * 100, "naïve café 42"]
+    ours = CLIPTokenizer(None, vocab_size=vocab_size)
+    theirs = JTok(None, vocab_size=vocab_size)
+    assert ours.is_fallback and theirs.is_fallback
+    np.testing.assert_array_equal(ours(texts), theirs(texts))
+    assert (ours.BOT, ours.EOT, ours.pad_id) == (theirs.BOT, theirs.EOT, theirs.pad_id)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{}, {"beta_schedule": "linear"}, {"beta_schedule": "squaredcos_cap_v2"},
+     {"rescale_betas_zero_snr": True}],
+    ids=["scaled_linear", "linear", "cosine", "zero_snr"],
+)
+def test_alphas_cumprod_copy_matches_original(kw):
+    ours = make_alphas_cumprod(LCMSchedulerConfig(**kw))
+    theirs = j_alphas(JSched(**kw))
+    assert ours.dtype == theirs.dtype == np.float32
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_safetensors_copy_reads_what_the_original_reads(tmp_path):
+    path = str(tmp_path / "t.safetensors")
+    rng = np.random.default_rng(0)
+    tensors = {
+        "a": rng.standard_normal((3, 4)).astype(np.float32),
+        "b": rng.integers(0, 255, (5,), dtype=np.uint8),
+        "c": rng.standard_normal((2, 2, 2)).astype(np.float16),
+    }
+    PS.write_safetensors(path, tensors)
+    ours, theirs = PS.read_safetensors(path), JS.read_safetensors(path)
+    assert ours.keys() == theirs.keys() == tensors.keys()
+    for k in tensors:
+        np.testing.assert_array_equal(ours[k], theirs[k])
+        np.testing.assert_array_equal(ours[k], tensors[k])
+    ckpt = os.path.join(_REPO, "examples", "toy_tiny_ckpt", "taesd.safetensors")
+    for k, v in JS.read_safetensors(ckpt).items():
+        np.testing.assert_array_equal(PS.read_safetensors(ckpt)[k], v)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['videosd_tpu'] = None\n"
+        "import videosd_tpu_torch.pipelines.lcm_img2img\n"
+        "import videosd_tpu_torch.ops, videosd_tpu_torch.schedulers\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'videosd_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env, check=True, timeout=120)

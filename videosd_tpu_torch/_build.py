@@ -1,0 +1,107 @@
+"""Builds the package's CUDA kernels at first use and loads them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds).  The
+library lands in ``videosd_tpu_torch/_build/`` under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is built when the package is imported:
+:func:`load_library` runs on the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["BuildError", "build", "load_library"]
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(_BUILD_DIR, f"libvideosd_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, str]:
+    """Compile the kernels unless an up-to-date library exists.
+
+    Returns ``(library_path, compiler_log)``; the log holds ptxas's
+    register, shared-memory and spill report per kernel, and is empty when
+    the library was already built.
+    """
+    lib = _library_path()
+    if os.path.isfile(lib):
+        return lib, ""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C signatures."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.videosd_flash_attention_fwd.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp,
+    ]
+    lib.videosd_flash_attention_fwd.restype = ci
+    lib.videosd_flash_block_m.restype = ci
+    lib.videosd_flash_block_n.restype = ci
+    return lib

@@ -1,0 +1,175 @@
+"""Core layer library of the port: NCHW torch ops with the JAX numerics.
+
+Counterpart of ``videosd_tpu/models/layers.py``.  Each op keeps the
+reference's precision points:
+
+* convs and linears are torch's own modules: cuDNN and cuBLAS run bf16
+  products with fp32 accumulation and add the bias in their fp32 epilogue
+  before the one cast to bf16, as the JAX ops do,
+* group_norm: fp32 E[x^2] - E[x]^2 statistics clamped at 0,
+* layer_norm and softmax in fp32,
+* attention routes exactly the shapes the JAX package sends to its Pallas
+  flash kernel to kernel K1 (``ops/cuda/flash_attention.py``); the rest is
+  the plain ``_attention_xla`` math.
+
+``GroupNorm`` and ``LayerNorm`` are torch's modules with these forwards, so
+state-dict keys stay diffusers' own.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from videosd_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+
+__all__ = [
+    "GroupNorm",
+    "LayerNorm",
+    "attention",
+    "avg_pool2d",
+    "geglu",
+    "group_norm",
+    "guidance_embedding",
+    "layer_norm",
+    "routes_to_flash",
+    "timestep_embedding",
+    "upsample_nearest2d",
+]
+
+
+# ---------------------------------------------------------------- norms
+
+
+def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-5):
+    """GroupNorm over the channel axis (dim 1) of NCHW, fp32 statistics."""
+    b, c = x.shape[:2]
+    xf = x.float()
+    xg = xf.reshape(b, groups, -1)
+    mean = xg.mean(-1, keepdim=True)
+    var = torch.clamp((xg * xg).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    xf = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.ndim - 2)
+    xf = xf * weight.float().reshape(cshape) + bias.float().reshape(cshape)
+    return xf.to(x.dtype)
+
+
+def layer_norm(x, weight, bias, *, eps: float = 1e-5):
+    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps).to(
+        x.dtype
+    )
+
+
+class GroupNorm(nn.GroupNorm):
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, groups=self.num_groups, eps=self.eps)
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def routes_to_flash(sq: int, sk: int, masked: bool) -> bool:
+    """The JAX package's rule for sending an attention to its flash kernel
+    (``videosd_tpu/models/layers.py:attention``): unmasked, both sequence
+    lengths multiples of 128, at least 128 queries and 256 keys."""
+    return not masked and sq % 128 == 0 and sk % 128 == 0 and sk >= 256 and sq >= 128
+
+
+def attention(q, k, v, *, num_heads: int, mask=None):
+    """Multi-head scaled-dot-product attention on ``[B, S, H*D]`` tensors.
+
+    Routed shapes (:func:`routes_to_flash`) go to kernel K1; the 77-token
+    cross-attention, CLIP's causal attention and short self-attention use
+    the plain math, as XLA ran them in the JAX package.
+    """
+    if routes_to_flash(q.shape[1], k.shape[1], mask is not None):
+        return flash_attention(q, k, v, num_heads=num_heads)
+    return _attention_plain(q, k, v, num_heads, mask)
+
+
+def _attention_plain(q, k, v, num_heads: int, mask=None):
+    b, sq, d = q.shape
+    sk = k.shape[1]
+    h = num_heads
+    dh = d // h
+
+    def split(x, s):
+        return x.reshape(b, s, h, dh).transpose(1, 2)
+
+    out = flash_attention_reference(
+        split(q, sq), split(k, sk), split(v, sk), 1.0 / math.sqrt(dh), mask
+    )
+    return out.transpose(1, 2).reshape(b, sq, d)
+
+
+# ---------------------------------------------------------------- embeddings
+
+
+def timestep_embedding(
+    timesteps,
+    dim: int,
+    *,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+):
+    """Sinusoidal timestep embedding (diffusers ``get_timestep_embedding``):
+    [B] -> [B, dim] fp32."""
+    t = torch.as_tensor(timesteps).float()
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device)
+    freqs = torch.exp(exponent / (half - downscale_freq_shift))
+    args = t[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def guidance_embedding(w, dim: int = 256):
+    """LCM guidance-scale Fourier embedding: scaled by 1000, sin first, and
+    log(10000)/(half-1) frequencies -- not the timestep convention."""
+    w = torch.as_tensor(w).float() * 1000.0
+    half = dim // 2
+    step = math.log(10000.0) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=w.device) * -step)
+    emb = w[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+# ---------------------------------------------------------------- ffn
+
+
+def geglu(x, proj: nn.Module, out: nn.Module):
+    """GEGLU feed-forward: exact erf gelu in fp32 compute, the tanh form in
+    bf16 (the two differ below bf16 resolution)."""
+    a, gate = proj(x).chunk(2, dim=-1)
+    approx = "tanh" if x.dtype == torch.bfloat16 else "none"
+    h = a * F.gelu(gate.float(), approximate=approx).to(x.dtype)
+    return out(h)
+
+
+# ---------------------------------------------------------------- resize
+
+
+def avg_pool2d(x, window: int = 2):
+    return F.avg_pool2d(x, window)
+
+
+def upsample_nearest2d(x, factor: int = 2):
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
