@@ -14,17 +14,37 @@ Phases, each of which fails the run (nonzero exit, no result line):
    from the same inputs and noise; the outputs must agree;
 5. the main path: a random-weight sd15 bundle in bf16, the prompt encoder,
    and the 512x512 4-step ControlNet + TAESD frame program for a few
-   frames; K1's launch count over those frames must be 84 per frame.
+   frames; K1's launch count over those frames must be 84 per frame;
+6. the ``taesd_pallas`` path: the phase-5 frame program with
+   ``TAESDConfig(pallas_convs=True)``, timed right after phase 5; K3 must
+   launch 60 times and K1 84 times per frame, and the image must stay
+   close to phase 5's;
+7. kernel K2 (the fused preprocess with its Sobel stencil) against its
+   plain version at three frame sizes: equal bit for bit, with both times;
+8. kernel K3 (the TAESD 3x3 conv) against its plain version at the main
+   path's shapes, both epilogues, with its time beside the plain version's
+   and a cuDNN bf16 conv's;
+9. the ``fused_preprocess`` entry on the main path's frame (K2's path);
+10. TAESD encode + decode at 512x512 through K3 against an fp32 copy and
+    the packed library route, and the device time of encode + decode on
+    every route.
 
-The line before the last is a JSON object of per-kernel results; the last
-line is ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
+Each kernel's launch count is set to 0 just before the path that runs it
+and read just after; launches that compare a kernel with its plain version
+are not counted.  The line before the last is a JSON object of per-kernel
+results; the last line is ``{"ok": true, "device": {...}}``.  Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -37,7 +57,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from videosd_tpu_torch import _build  # noqa: E402
 from videosd_tpu_torch.models import layers  # noqa: E402
+from videosd_tpu_torch.models.taesd import taesd_decode, taesd_encode  # noqa: E402
 from videosd_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from videosd_tpu_torch.ops.cuda import preprocess_kernel as k2  # noqa: E402
+from videosd_tpu_torch.ops.cuda import taesd_conv as k3  # noqa: E402
 from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     FrameSpec,
     ModelBundle,
@@ -66,6 +89,34 @@ TINY_LAT_ATOL, TINY_IMG_LEVELS = 1e-3, 1
 # the 16 transformer blocks; 5e-2 leaves room over the measured ~1.1e-2)
 UNET_REL_L2 = 5e-2
 MAIN_FRAMES = 5
+# K2's frame sizes: the main path's, the engine's mailbox frame_hw, and a
+# camera size off the TPU kernel's 128-tiling
+K2_SHAPES = [(512, 512), (768, 768), (480, 640)]
+# K3's shapes on the main path as packed [B, H, W/2, 128], with the number of
+# convs per 512^2 frame at each: TAESD's 20 residual blocks x 3 convs, the
+# third of each with the skip epilogue
+K3_SHAPES = {(1, 512, 256, 128): 6, (1, 256, 128, 128): 18, (1, 128, 64, 128): 18,
+             (1, 64, 32, 128): 18}
+K3_EXTRA = (2, 64, 48, 128)  # batch 2, a width off the 16-column tile
+K3_PER_FRAME = sum(K3_SHAPES.values())  # 60
+# K3 against its plain version in bf16: both take fp32 sums of the same exact
+# bf16 products (in different orders, ~1e-6 relative apart) and round once to
+# bf16, so an output differs only where the two sums straddle a rounding
+# boundary, by one bf16 ulp of its own size: max |d| may be one ulp of the
+# largest output, and such outputs are rare (mean |d| measured ~6e-8)
+K3_MEAN_ABS = 1e-5
+# TAESD at 512^2 in bf16 against an fp32 copy: the K3 route may be no
+# further from fp32 than the default cuDNN route is (it rounds once per conv,
+# the library routes before and after bias, ReLU and skip; measured rel L2
+# 1.5e-2 / 2.4e-2 for encode / decode against the default route's 2.0e-2 /
+# 3.1e-2).  The K3 route against the packed library route adds two such
+# errors (measured 2.4e-2 / 3.8e-2): bound 5e-2
+TAESD_REL_L2 = 5e-2
+# PSNR of the taesd_pallas frame's image against the default route's: the
+# two TAESD routes round differently, so some pixels move by one level
+# (measured 64.92 dB, an MSE of 0.021 levels^2); 50 dB allows 30x that MSE,
+# while a wrong conv gives noise far below 30 dB
+FRAME_PSNR_DB = 50.0
 
 
 def fail(msg: str) -> None:
@@ -82,6 +133,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time of ``fn``'s kernels per call, summed by torch.profiler
+    (the host's enqueue time, which CUDA events would include, is not)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    if us <= 0:
+        fail("torch.profiler saw no device time")
+    return us / iters / 1e3
+
+
+def timed(fn) -> tuple[float, float]:
+    """(CUDA-event ms per call, device ms per call)."""
+    return cuda_ms(fn), device_ms(fn)
 
 
 def phase_card() -> str:
@@ -101,10 +172,19 @@ def phase_build() -> None:
     path, log = _build.build()
     secs = time.perf_counter() - t0
     print(f"build: {secs:.2f} s -> {os.path.relpath(path)}")
-    entry = r"Compiling entry function '\w*?(\w{6})ILi(\d+)E.*?(\d+) bytes spill stores.*?Used (\d+) registers"
-    for name, d, spill, regs in re.findall(entry, log, re.S):  # ptxas -v, one per kernel
-        print(f"  ptxas ...{name}<{d}>: {regs} registers, {spill} bytes spilled")
+    # ptxas -v reports each kernel entry: its properties (spills), then its registers
+    for block in log.split("Compiling entry function '")[1:]:
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        print(f"  ptxas {_demangle(block.split(chr(39))[0])}: {regs and regs.group(1)} registers, "
+              f"{spill.group(1) if spill else 0} bytes spilled")
     _build.load_library()
+
+
+def _demangle(name: str) -> str:
+    if shutil.which("c++filt"):
+        name = subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def phase_k1(card: str) -> dict:
@@ -192,7 +272,7 @@ def phase_main(card: str) -> int:
     img, lat = program(frame, embeds, *args)  # warm-up: cuDNN/cuBLAS plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.launches = k2.launches = k3.launches = 0
     times = []
     for _ in range(MAIN_FRAMES):
         t0 = time.perf_counter()
@@ -200,6 +280,8 @@ def phase_main(card: str) -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = fa.launches
+    if k2.launches or k3.launches:
+        fail(f"the default route launched K2 {k2.launches} and K3 {k3.launches} times")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8:
         fail(f"image {tuple(img.shape)} {img.dtype}")
@@ -212,7 +294,191 @@ def phase_main(card: str) -> int:
           f"{statistics.median(times):.2f} ms/frame over {MAIN_FRAMES} frames "
           f"(min {min(times):.2f}, max {max(times):.2f}), peak allocated {peak:.2f} GiB, "
           f"K1 launches {launches // MAIN_FRAMES}/frame")
+    return launches, (bundle, embeds, frame, args, img)
+
+
+def phase_k2(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    ms = plain_ms = 0.0
+    for hw in K2_SHAPES:
+        frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        img, edge = k2.fused_preprocess(frame)
+        torch.cuda.synchronize()
+        ref_img, ref_edge = k2.fused_preprocess_reference(frame)
+        if not (torch.equal(img, ref_img) and torch.equal(edge, ref_edge)):
+            fail(f"K2 differs from its plain version at {hw}: "
+                 f"{int((img != ref_img).sum())} img and {int((edge != ref_edge).sum())} edge values")
+        t_k = timed(lambda: k2.fused_preprocess(frame))
+        t_p = timed(lambda: k2.fused_preprocess_reference(frame))
+        print(f"K2 [{hw[0]},{hw[1]},3] u8 -> bf16 img + fp32 edge: equal to plain bit for bit; "
+              f"kernel {t_k[0]:.4f} ms (device {t_k[1]:.4f}), plain {t_p[0]:.4f} ms "
+              f"(device {t_p[1]:.4f}) ({card})")
+        ms, plain_ms = ms + t_k[0], plain_ms + t_p[0]
+    print(f"K2 one call at each frame size: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+
+
+def _cudnn_block_conv(w_cl, bias, xp, skip):
+    """The default route's way of doing one block conv: a cuDNN bf16 conv on
+    channels_last views, then the eager epilogue."""
+    y = torch.nn.functional.conv2d(k3._nchw(xp), w_cl, bias, padding=1)
+    return torch.relu(y if skip is None else y + k3._nchw(skip))
+
+
+def phase_k3(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    # the JAX init rule's bound +-1/sqrt(fan_in), and a bias on every block conv
+    w = ((torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0).bfloat16()
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
+    w_cl, bias_bf = w.to(memory_format=torch.channels_last), bias.bfloat16()
+    worst, per_frame = 0.0, {"kernel": [0.0, 0.0], "plain fp32": [0.0, 0.0],
+                             "cuDNN bf16": [0.0, 0.0]}
+    for shape in [*K3_SHAPES, K3_EXTRA]:
+        xp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        times = {}
+        for epi, skip in (("relu", None),
+                          ("skip+relu", torch.randn(shape, generator=gen, device="cuda").bfloat16())):
+            out = k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip)
+            torch.cuda.synchronize()
+            ref = k3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)
+            err = (out.float() - ref.float()).abs()
+            mx, mean = err.max().item(), err.mean().item()
+            ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+            t = times[epi] = (  # each (CUDA events, device) ms
+                timed(lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip)),
+                timed(lambda: k3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)),
+                timed(lambda: _cudnn_block_conv(w_cl, bias_bf, xp, skip)),
+            )
+            gflop = 2 * 9 * 64 * 64 * shape[0] * shape[1] * shape[2] * 2 / 1e9
+            (k_ev, k_dev), (p_ev, p_dev), (c_ev, c_dev) = t
+            print(f"K3 {list(shape)} {epi} bf16: max|d| {mx:.3e} (bound one ulp {ulp:g}) "
+                  f"mean|d| {mean:.3e} (bound {K3_MEAN_ABS:g}); kernel {k_ev:.4f} ms "
+                  f"(device {k_dev:.4f}, {gflop / k_dev:.1f} TFLOP/s), plain fp32 {p_ev:.4f} ms "
+                  f"(device {p_dev:.4f}), cuDNN bf16 + eager epilogue {c_ev:.4f} ms "
+                  f"(device {c_dev:.4f}) ({card})")
+            if not (torch.isfinite(out).all() and mx <= ulp and mean <= K3_MEAN_ABS):
+                fail(f"K3 disagrees with its plain version at {list(shape)} {epi}")
+            worst = max(worst, mx)
+        for i, name in enumerate(per_frame):  # two relu-only convs and one skip conv per block
+            for j in range(2):
+                per_frame[name][j] += K3_SHAPES.get(shape, 0) / 3 * (
+                    2 * times["relu"][i][j] + times["skip+relu"][i][j])
+    print("K3 per 512x512 frame ({} convs), CUDA events / device: ".format(K3_PER_FRAME)
+          + ", ".join(f"{n} {ev:.4f} / {dev:.4f} ms" for n, (ev, dev) in per_frame.items()))
+    return {"max_abs_err": worst, "ms": per_frame["kernel"][0],
+            "plain_ms": per_frame["plain fp32"][0]}
+
+
+def phase_k2_path(frame) -> int:
+    """The fused_preprocess entry on the main path's frame."""
+    k2.launches = 0
+    img, edge = k2.fused_preprocess(frame[0])
+    torch.cuda.synchronize()
+    launches = k2.launches
+    if img.shape != (512, 512, 3) or img.dtype != torch.bfloat16 or edge.shape != (512, 512):
+        fail(f"fused_preprocess gave {tuple(img.shape)} {img.dtype} and {tuple(edge.shape)}")
+    if not (edge.min() >= 0 and edge.max() == 1 and img.float().abs().max() <= 1):
+        fail("fused_preprocess left [-1, 1] or [0, 1]")
+    if launches < 1:
+        fail("the fused_preprocess entry did not launch K2")
+    print(f"fused_preprocess on the main path's 512x512 frame: K2 launches {launches}, "
+          f"edge pixels at 1: {(edge == 1).float().mean().item():.4f}")
     return launches
+
+
+def _psnr(a, b) -> float:
+    mse = ((a.float() - b.float()) ** 2).mean().item()
+    return math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
+
+
+def phase_taesd_pallas(card: str, main) -> int:
+    """The phase-5 frame program on the taesd_pallas path, timed right after
+    phase 5 and before any profiler session."""
+    bundle, embeds, frame, args, img_default = main
+    pallas = dataclasses.replace(bundle, taesd_cfg=_taesd_routes(bundle)["pallas"])
+    program = build_frame_program(pallas, FrameSpec(batch=1, height=512, width=512, steps=4))
+    img, lat = program(frame, embeds, *args)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = k2.launches = k3.launches = 0
+    times = []
+    for _ in range(MAIN_FRAMES):
+        t0 = time.perf_counter()
+        img, lat = program(frame, embeds, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    k1_launches, k3_launches = fa.launches, k3.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8 or not torch.isfinite(lat).all():
+        fail(f"taesd_pallas image {tuple(img.shape)} {img.dtype} or latents not finite")
+    if (k3_launches, k1_launches) != (K3_PER_FRAME * MAIN_FRAMES, K1_PER_FRAME * MAIN_FRAMES):
+        fail(f"taesd_pallas launched K3 {k3_launches} and K1 {k1_launches} times over "
+             f"{MAIN_FRAMES} frames, expected {K3_PER_FRAME} and {K1_PER_FRAME} per frame")
+    psnr = _psnr(img, img_default)
+    print(f"sd15 512x512 4-step CN+TAESD bf16 batch 1, taesd_pallas, on {card}: median "
+          f"{statistics.median(times):.2f} ms/frame over {MAIN_FRAMES} frames "
+          f"(min {min(times):.2f}, max {max(times):.2f}), peak allocated {peak:.2f} GiB, "
+          f"K3 {k3_launches // MAIN_FRAMES}/frame, K1 {k1_launches // MAIN_FRAMES}/frame; "
+          f"image PSNR vs the default route {psnr:.2f} dB (bound {FRAME_PSNR_DB:g})")
+    if psnr < FRAME_PSNR_DB:
+        fail("the taesd_pallas image drifted from the default route's")
+    return k3_launches
+
+
+def _taesd_routes(bundle) -> dict:
+    return {name: dataclasses.replace(bundle.taesd_cfg, **kw) for name, kw in (
+        ("default", {}), ("packed", {"packed_convs": True}), ("pallas", {"pallas_convs": True}))}
+
+
+def phase_taesd_routes(card: str, bundle) -> None:
+    """TAESD at 512x512 on each route: K3 against an fp32 copy and the
+    packed library route, and the device time of encode + decode."""
+    routes = _taesd_routes(bundle)
+    # the JAX init rule shrinks TAESD's activations ~60x by the decoder's
+    # output, where bf16 then rounds the image to a constant; a copy with
+    # He-scaled weights and random biases keeps them O(1), so the two
+    # routes' difference is visible
+    ae = copy.deepcopy(bundle.models["taesd"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        for mod in ae.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                mod.weight.mul_(6.0**0.5)
+                if mod.bias is not None:
+                    mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen, device="cuda") * 0.1)
+    x = (torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1).bfloat16()
+    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda").bfloat16()
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 reference is fp32
+    with torch.inference_mode():
+        ae32 = copy.deepcopy(ae).float()
+        ref = (taesd_encode(ae32, x.float()), taesd_decode(ae32, z.float()))
+        outs = {n: (taesd_encode(ae, x, c), taesd_decode(ae, z, c)) for n, c in routes.items()}
+        torch.cuda.synchronize()
+
+        def rel(got, want):
+            return [((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for a, b in zip(got, want)]
+
+        vs_ref = {name: rel(out, ref) for name, out in outs.items()}
+        for name, (e, d) in vs_ref.items():
+            print(f"TAESD 512x512 bf16 (He-scaled copy), {name} route vs the fp32 default "
+                  f"route: rel L2 encode {e:.3e}, decode {d:.3e}")
+        vs_packed = rel(outs["pallas"], outs["packed"])
+        print(f"TAESD K3 route vs packed library route: rel L2 encode {vs_packed[0]:.3e}, "
+              f"decode {vs_packed[1]:.3e} (bound {TAESD_REL_L2:g}); K3 route vs fp32 bounded "
+              f"by the default route's")
+        if not (all(torch.isfinite(t).all() for t in outs["pallas"])
+                and all(k <= d for k, d in zip(vs_ref["pallas"], vs_ref["default"]))
+                and max(vs_packed) <= TAESD_REL_L2):
+            fail("the K3 TAESD route is further from fp32 than the default route, "
+                 "or disagrees with the packed route")
+        for name, cfg in routes.items():  # the bundle's own TAESD, as the frame program runs it
+            def codec(cfg=cfg):
+                return taesd_decode(bundle.models["taesd"], taesd_encode(
+                    bundle.models["taesd"], x, cfg), cfg)
+            print(f"TAESD encode + decode 512x512 bf16, {name} route: device "
+                  f"{device_ms(codec):.4f} ms, CUDA events {cuda_ms(codec, iters=10):.4f} ms "
+                  f"({card})")
 
 
 def main() -> None:
@@ -220,15 +486,26 @@ def main() -> None:
     phase_build()
     k1 = phase_k1(card)
     phase_tiny()
-    launches = phase_main(card)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "videosd_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "videosd_tpu/ops/pallas/flash_attention.py:83",
-        "launches": launches,
-        **k1,
-    }]}))
+    k1_launches, main = phase_main(card)
+    k3_launches = phase_taesd_pallas(card, main)
+    k2_res = phase_k2(card)
+    k3_res = phase_k3(card)
+    k2_launches = phase_k2_path(main[2])
+    phase_taesd_routes(card, main[0])
+    print(json.dumps({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "videosd_tpu/ops/pallas/flash_attention.py:83",
+         "launches": k1_launches, **k1},
+        {"name": "fused_preprocess_sobel", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/preprocess.cu",
+         "replaces": "videosd_tpu/ops/pallas/preprocess_kernel.py:64",
+         "launches": k2_launches, **k2_res},
+        {"name": "taesd_conv3x3", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/taesd_conv.cu",
+         "replaces": "videosd_tpu/ops/pallas/taesd_conv.py:231",
+         "launches": k3_launches, **k3_res},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

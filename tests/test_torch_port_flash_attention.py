@@ -4,7 +4,7 @@ On the CPU the wrapper takes its plain version, which is held against
 ``_attention_xla`` (1e-5: the same fp32 math) and against the Pallas TPU
 kernel run in interpret mode as ``tests/test_flash_attention.py`` runs it
 (2e-3, that test's bar: online-softmax reassociation).  The CUDA kernel
-itself runs only on the card: the test marked ``cuda`` skips elsewhere.
+itself runs only on the card, in ``tests/test_torch_port_kernels_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -90,22 +90,3 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(2, 128, 40, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_bhsd(x, x, x, 0.1)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for bh, sq, sk, d in [(8, 1024, 1024, 40), (4, 256, 512, 80), (8, 256, 256, 160)]:
-        q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").bfloat16()
-                   for s in (sq, sk, sk))
-        before = FA.launches
-        out = FA.flash_attention_bhsd(q, k, v, d ** -0.5)
-        torch.cuda.synchronize()
-        assert FA.launches == before + 1
-        ref = FA.flash_attention_reference(q, k, v, d ** -0.5)
-        err = (out.float() - ref.float()).abs()
-        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
-    with pytest.raises(ValueError, match="bfloat16"):
-        FA.flash_attention_bhsd(q.float(), k.float(), v.float(), 0.1)

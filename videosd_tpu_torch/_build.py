@@ -104,4 +104,11 @@ def load_library() -> ctypes.CDLL:
     lib.videosd_flash_attention_fwd.restype = ci
     lib.videosd_flash_block_m.restype = ci
     lib.videosd_flash_block_n.restype = ci
+    lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.videosd_taesd_conv3x3.restype = ci
+    fl = ctypes.c_float
+    lib.videosd_fused_preprocess.argtypes = [vp, vp, ci, vp, vp, ci, ci, fl, fl, vp]
+    lib.videosd_fused_preprocess.restype = ci
+    lib.videosd_sobel_magnitude.argtypes = [vp, vp, ci, ci, vp]
+    lib.videosd_sobel_magnitude.restype = ci
     return lib

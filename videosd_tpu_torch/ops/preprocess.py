@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from videosd_tpu_torch.ops.sobel import div_rn
+
 __all__ = ["center_crop_box", "postprocess_image", "preprocess_frame"]
 
 
@@ -40,7 +42,7 @@ def preprocess_frame(frame_u8, out_h: int, out_w: int, dtype=torch.float32):
             "(lanczos3 crop_resize) is not ported yet"
         )
     cropped = frame_u8[..., top:bottom, left:right, :]
-    return (cropped.float() / 255.0).to(dtype)
+    return div_rn(cropped.float(), 255.0).to(dtype)
 
 
 def postprocess_image(img):

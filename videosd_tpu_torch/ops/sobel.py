@@ -12,7 +12,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rgb_to_gray", "sobel_control_image", "sobel_edges"]
+__all__ = ["div_rn", "rgb_to_gray", "sobel_control_image", "sobel_edges", "sobel_magnitude"]
+
+
+def div_rn(x, d: float):
+    """``x / d``, correctly rounded on every device.
+
+    On CUDA, torch computes ``tensor / python_float`` as ``tensor * (1/d)``,
+    which is off by one ulp for 126 of the 256 values ``u / 255``; dividing
+    by a 0-dim tensor on ``x``'s device is a true division everywhere.
+    """
+    return x / x.new_tensor(d)
 
 
 def rgb_to_gray(rgb):
@@ -20,11 +30,11 @@ def rgb_to_gray(rgb):
     PIL's ``convert("L")`` on uint8: floor((299R + 587G + 114B) / 1000)."""
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
     l255 = 299.0 * r + 587.0 * g + 114.0 * b
-    return torch.floor(l255 * 255.0 / 1000.0) / 255.0
+    return div_rn(torch.floor(div_rn(l255 * 255.0, 1000.0)), 255.0)
 
 
-def sobel_edges(gray, low_threshold=0.11, high_threshold=0.8):
-    """[..., H, W] gray in [0,1] -> [..., H, W] edge map in [0,1]."""
+def sobel_magnitude(gray):
+    """[..., H, W] gray -> [..., H, W] fp32 zero-padded 3x3 Sobel |grad|."""
     g = gray.float()
     h, w = g.shape[-2:]
     p = F.pad(g, (1, 1, 1, 1))
@@ -39,8 +49,12 @@ def sobel_edges(gray, low_threshold=0.11, high_threshold=0.8):
     gy = (bl + 2.0 * bc + br) - (tl + 2.0 * tc + tr)
     # fp64 sqrt rounded to fp32 is the correctly rounded fp32 sqrt on every
     # backend (torch's vectorized CPU sqrt is not, and XLA's is)
-    mag = torch.sqrt((gx * gx + gy * gy).double()).float()
+    return torch.sqrt((gx * gx + gy * gy).double()).float()
 
+
+def sobel_edges(gray, low_threshold=0.11, high_threshold=0.8):
+    """[..., H, W] gray in [0,1] -> [..., H, W] edge map in [0,1]."""
+    mag = sobel_magnitude(gray)
     mx = torch.amax(mag, dim=(-2, -1), keepdim=True)
     edge = mag / torch.clamp(mx, min=1e-12)
     edge = torch.where(edge >= high_threshold, 1.0, edge)

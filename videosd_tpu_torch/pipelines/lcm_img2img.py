@@ -17,6 +17,12 @@ JAX's threefry bits, so the tests feed JAX's noise through the seam.
 
 The program runs eagerly; convs, GEMMs and norms are library calls, and
 the long self-attentions go to kernel K1 (``ops/cuda/flash_attention.py``).
+TAESD follows ``bundle.taesd_cfg``; the ``taesd_pallas`` path of the JAX
+server sends its residual-block convs to kernel K3
+(``ops/cuda/taesd_conv.py``)::
+
+    bundle = dataclasses.replace(
+        bundle, taesd_cfg=dataclasses.replace(bundle.taesd_cfg, pallas_convs=True))
 """
 
 from __future__ import annotations
@@ -281,7 +287,7 @@ def frame_program(
     if spec.use_controlnet:
         ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
     img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
-    latents0 = taesd_encode(models["taesd"], img_pm1)  # [B, h, w, 4]
+    latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
 
     ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
     if noise is None:
@@ -329,7 +335,7 @@ def frame_program(
         latents = torch.where(m, new_lat, latents)
         denoised = torch.where(m, new_den, denoised)
 
-    out = taesd_decode(models["taesd"], denoised)
+    out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
     return postprocess_image(out), denoised
 
 
