@@ -19,6 +19,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``TAESDConfig(pallas_convs=True)``, timed right after phase 5; K3 must
    launch 60 times and K1 84 times per frame, and the image must stay
    close to phase 5's;
+6b. production: the phase-5 bundle through the five FrameSpec variants
+   that ``bench.py`` measures (ControlNet and DeepCache intervals,
+   temporal DeepCache produce/reuse), each with its exact K1 launch count
+   per frame, peak memory, and ms/frame beside parity frames timed in
+   turn with it (the host's speed drifts within a call); then the
+   engine-shaped call (an
+   I420 768x768 mailbox holding a 480x640 camera frame, its ``src_box``,
+   temporal DeepCache, warm start): uint8 image and finite latents,
+   ``warm_alpha=0`` equal to no warm start bit for bit, reuse of the same
+   frame's caches close to the parity frame, and ``crop_resize`` on the
+   card equal to the CPU's;
 7. kernel K2 (the fused preprocess with its Sobel stencil) against its
    plain version at three frame sizes: equal bit for bit, with both times;
 8. kernel K3 (the TAESD 3x3 conv) against its plain version at the main
@@ -61,6 +72,12 @@ from videosd_tpu_torch.models.taesd import taesd_decode, taesd_encode  # noqa: E
 from videosd_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from videosd_tpu_torch.ops.cuda import preprocess_kernel as k2  # noqa: E402
 from videosd_tpu_torch.ops.cuda import taesd_conv as k3  # noqa: E402
+from videosd_tpu_torch.ops.preprocess import (  # noqa: E402
+    center_crop_box,
+    crop_resize,
+    i420_to_rgb255,
+    rgb_to_i420_host,
+)
 from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     FrameSpec,
     ModelBundle,
@@ -117,6 +134,29 @@ TAESD_REL_L2 = 5e-2
 # (measured 64.92 dB, an MSE of 0.021 levels^2); 50 dB allows 30x that MSE,
 # while a wrong conv gives noise far below 30 dB
 FRAME_PSNR_DB = 50.0
+# The five production variants bench.py measures, as FrameSpec fields of the
+# phase-5 program, with K1 launches per frame: a full UNet pass routes 15
+# attentions, a shallow DeepCache pass 5 (2 in down0, 3 in up3) and a
+# ControlNet call 6.  Temporal variants run the N=2 cadence (produce, reuse,
+# ...) and give (produce, reuse) counts.
+PRODUCTION = {
+    "cn_interval4_turbo": ({"controlnet_interval": 4}, 66),  # CN at s=0
+    "dc_interval2_turbo": ({"deepcache_interval": 2}, 64),  # full at s=0,2
+    "production_turbo_cn2_dc3_last": (  # CN at s=0,2,3; full at s=0,3
+        {"controlnet_interval": 2, "deepcache_interval": 3, "interval_refresh_last": True}, 58),
+    "production_temporal2_cn1": ({"deepcache_temporal": True}, (84, 44)),
+    "production_temporal2_cn2_last": (  # CN at s=0,2,3
+        {"deepcache_temporal": True, "controlnet_interval": 2, "interval_refresh_last": True},
+        (78, 38)),
+}
+PRODUCTION_FRAMES = 8
+# the serving engine's geometry: its 768x768 mailbox (config frame_hw) holding
+# a 480x640 camera frame, uploaded as packed I420
+MAILBOX_HW, CAMERA_HW = (768, 768), (480, 640)
+# crop_resize on the card against the CPU, fp32 at the mailbox geometry: the
+# taps land on the same pixels (positions are exact fp32 arithmetic); only
+# sin and the order of the tap sums differ, a few fp32 ulps of [0, 1]
+CROP_ATOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -425,6 +465,164 @@ def phase_taesd_pallas(card: str, main) -> int:
     return k3_launches
 
 
+def _timed_frame(program, *a, **kw):
+    """One frame program call: (outputs, host ms to the synchronize, K1
+    launches)."""
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = program(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, fa.launches
+
+
+def _check_frame(name: str, out) -> None:
+    img, lat = out[0], out[1]
+    if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8:
+        fail(f"{name}: image {tuple(img.shape)} {img.dtype}")
+    if lat.shape != (1, 64, 64, 4) or not all(torch.isfinite(t).all() for t in out[1:]):
+        fail(f"{name}: latents {tuple(lat.shape)} or caches not finite")
+
+
+def phase_production(card: str, main) -> None:
+    """The five production variants on the phase-5 bundle and frame, timed
+    before any profiler session; each frame's K1 launches must be exact.
+    The host's speed drifts within a call, so each variant frame is timed
+    in turn with a parity frame and reported as a ratio to it."""
+    bundle, embeds, frame, args, _ = main
+    spec = FrameSpec(batch=1, height=512, width=512, steps=4)
+    parity = build_frame_program(bundle, spec)
+    for name, (fields, want) in PRODUCTION.items():
+        program = build_frame_program(bundle, dataclasses.replace(spec, **fields))
+        temporal = fields.get("deepcache_temporal", False)
+        kinds = ("produce", "reuse") if temporal else ("frame",)
+        want = dict(zip(kinds, want if temporal else (want,)))
+        caches = None
+        out = program(frame, embeds, *args)  # warm-up
+        if temporal:
+            caches = out[2]
+            program(frame, embeds, *args, deep_caches=caches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {k: [] for k in kinds}
+        par_times = []
+        for i in range(PRODUCTION_FRAMES):
+            kind = kinds[i % len(kinds)]
+            par_times.append(_timed_frame(parity, frame, embeds, *args)[1])
+            kw = {"deep_caches": caches} if kind == "reuse" else {}
+            out, ms, k1 = _timed_frame(program, frame, embeds, *args, **kw)
+            _check_frame(name, out)
+            if k1 != want[kind]:
+                fail(f"{name}: a {kind} frame launched K1 {k1} times, expected {want[kind]}")
+            if kind == "produce":
+                caches = out[2]
+            times[kind].append(ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        every = [t for ts in times.values() for t in ts]
+        par = statistics.median(par_times)
+        detail = ""
+        if temporal:
+            mb = caches.numel() * caches.element_size() / 1e6
+            detail = "; " + ", ".join(
+                f"{k} {statistics.median(times[k]):.2f} ms ({statistics.median(times[k]) / par:.3f}x)"
+                for k in kinds) + f"; cache {list(caches.shape)} {caches.dtype} = {mb:.1f} MB per stream"
+        print(f"{name}: sd15 512x512 4-step CN+TAESD bf16 batch 1 on {card}: median "
+              f"{statistics.median(every):.2f} ms/frame over {PRODUCTION_FRAMES} frames (min "
+              f"{min(every):.2f}, max {max(every):.2f}); parity frames in turn {par:.2f} ms, ratio "
+              f"{statistics.median(every) / par:.3f}; peak allocated {peak:.2f} GiB, K1 "
+              + "/".join(f"{want[k]} per {k}" for k in kinds) + detail)
+
+
+def _i420_mailbox(camera_rgb):
+    """The serving engine's I420 mailbox fit of a camera frame smaller than
+    the mailbox (runtime/engine_framing.py): each plane top-left, Y padding
+    0, chroma padding 128."""
+    (h, w), (ch, cw) = MAILBOX_HW, camera_rgb.shape[:2]
+    packed = rgb_to_i420_host(camera_rgb)
+    out = np.full((h * 3 // 2, w), 128, np.uint8)
+    out[:h] = 0
+    out[:ch, :cw] = packed[:ch]
+    for src, dst in ((packed[ch:ch + ch // 4], out[h:h + h // 4]),
+                     (packed[ch + ch // 4:], out[h + h // 4:])):
+        dst.reshape(h // 2, w // 2)[:ch // 2, :cw // 2] = src.reshape(ch // 2, cw // 2)
+    return out
+
+
+def phase_engine_call(card: str, main) -> None:
+    """The call the serving engine makes: an I420 mailbox with the camera's
+    center-crop box, temporal DeepCache N=2 with the ControlNet every step,
+    and the previous frame's latents as warm start."""
+    bundle, embeds, _, args, _ = main
+    want_produce, want_reuse = PRODUCTION["production_temporal2_cn1"][1]
+    rng = np.random.default_rng(1)
+    mail = [torch.from_numpy(_i420_mailbox(rng.integers(0, 256, (*CAMERA_HW, 3), dtype=np.uint8))
+                             )[None].cuda() for _ in range(2)]
+    left, top, right, bottom = center_crop_box(CAMERA_HW[1], CAMERA_HW[0], 512, 512)
+    box = torch.tensor([[top, left, bottom - top, right - left]], dtype=torch.int32, device="cuda")
+
+    got = crop_resize(i420_to_rgb255(mail[1]), box, 512, 512)
+    want = crop_resize(i420_to_rgb255(mail[1].cpu()), box.cpu(), 512, 512)
+    err = (got.cpu() - want).abs().max().item()
+    print(f"crop_resize of the {CAMERA_HW[0]}x{CAMERA_HW[1]} camera box {box.tolist()[0]} in the "
+          f"{MAILBOX_HW[0]}x{MAILBOX_HW[1]} I420 mailbox -> 512x512, card vs CPU fp32: max|d| "
+          f"{err:.3e} (bound {CROP_ATOL:g})")
+    if not err <= CROP_ATOL:
+        fail("crop_resize on the card disagrees with the CPU")
+
+    spec_kw = dict(batch=1, height=512, width=512, in_height=MAILBOX_HW[0],
+                   in_width=MAILBOX_HW[1], in_format="i420", steps=4)
+    parity = build_frame_program(bundle, FrameSpec(**spec_kw))
+    program = build_frame_program(bundle, FrameSpec(**spec_kw, deepcache_temporal=True))
+    prev = program(mail[0], embeds, *args, src_box=box)  # the previous frame, and warm-up
+    program(mail[1], embeds, *args, src_box=box, deep_caches=prev[2])
+    img_par, _ = parity(mail[1], embeds, *args, src_box=box)
+    outs = {}
+    for key, kw in (("cold", {}), ("warm 0", {"warm_alpha": [0.0]}),
+                    ("warm 0.3", {"warm_alpha": [0.3]})):
+        if kw:
+            kw["warm_latents"] = prev[1]
+        outs[key], _, k1 = _timed_frame(program, mail[1], embeds, *args, src_box=box, **kw)
+        _check_frame(f"engine-shaped {key}", outs[key])
+        if k1 != want_produce:
+            fail(f"engine-shaped produce frame launched K1 {k1} times, expected {want_produce}")
+    reuse, _, k1 = _timed_frame(program, mail[1], embeds, *args, src_box=box,
+                                deep_caches=outs["cold"][2])
+    _check_frame("engine-shaped reuse", reuse)
+    if k1 != want_reuse:
+        fail(f"engine-shaped reuse frame launched K1 {k1} times, expected {want_reuse}")
+    same = all(torch.equal(a, b) for a, b in zip(outs["cold"], outs["warm 0"]))
+    moved = (outs["warm 0.3"][1].float() - outs["cold"][1].float()).abs().mean().item()
+    psnr = _psnr(reuse[0], img_par)
+    print(f"engine-shaped call: warm_alpha=0 equals no warm start bit for bit: {same}; "
+          f"warm_alpha=0.3 moves the latents by mean|d| {moved:.4f}; produce equals the parity "
+          f"frame: {torch.equal(outs['cold'][0], img_par)}; reuse of the same frame's caches vs "
+          f"the parity frame: PSNR {psnr:.2f} dB (bound {FRAME_PSNR_DB:g})")
+    if not same or moved == 0.0 or psnr < FRAME_PSNR_DB:
+        fail("the engine-shaped call's warm start or temporal reuse is wrong")
+
+    torch.cuda.reset_peak_memory_stats()
+    main_program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4))
+    times, par_times, lat, caches = {"produce": [], "reuse": []}, [], prev[1], None
+    for i in range(PRODUCTION_FRAMES):  # the N=2 cadence with a warm start, frames alternating
+        par_times.append(_timed_frame(main_program, main[2], embeds, *args)[1])
+        kw = {"deep_caches": caches} if i % 2 else {}
+        out, ms, _ = _timed_frame(program, mail[i % 2], embeds, *args, src_box=box,
+                                  warm_latents=lat, warm_alpha=[0.3], **kw)
+        _check_frame("engine-shaped cadence", out)
+        lat = out[1]
+        if not i % 2:
+            caches = out[2]
+        times["reuse" if i % 2 else "produce"].append(ms)
+    every = times["produce"] + times["reuse"]
+    par = statistics.median(par_times)
+    print(f"engine-shaped call (I420 {MAILBOX_HW[0]}x{MAILBOX_HW[1]} mailbox, src_box, temporal "
+          f"N=2 cn1, warm_alpha 0.3) on {card}: median {statistics.median(every):.2f} ms/frame "
+          f"over {PRODUCTION_FRAMES} frames (min {min(every):.2f}, max {max(every):.2f}); "
+          + ", ".join(f"{k} {statistics.median(v):.2f} ms ({statistics.median(v) / par:.3f}x)"
+                      for k, v in times.items())
+          + f" of the parity frames in turn ({par:.2f} ms); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def _taesd_routes(bundle) -> dict:
     return {name: dataclasses.replace(bundle.taesd_cfg, **kw) for name, kw in (
         ("default", {}), ("packed", {"packed_convs": True}), ("pallas", {"pallas_convs": True}))}
@@ -488,6 +686,8 @@ def main() -> None:
     phase_tiny()
     k1_launches, main = phase_main(card)
     k3_launches = phase_taesd_pallas(card, main)
+    phase_production(card, main)
+    phase_engine_call(card, main)
     k2_res = phase_k2(card)
     k3_res = phase_k3(card)
     k2_launches = phase_k2_path(main[2])

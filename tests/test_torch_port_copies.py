@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's numpy code stay equal to it.
 
 The port never imports ``videosd_tpu``, so it carries its own copies of the
-weight plans, the CLIP tokenizer, the alphas table and the safetensors
-reader.  Each is held equal to the original here, and the port's modules
+weight plans, the CLIP tokenizer, the alphas table, the safetensors
+reader and the host I420 helpers.  Each is held equal to the original here, and the port's modules
 own exactly the state-dict keys their plan names.  Also: the port imports
 with JAX unavailable.
 """
@@ -20,11 +20,13 @@ from videosd_tpu.io import weights as JW
 from videosd_tpu.models.clip_text import CLIP_PRESETS as J_CLIP
 from videosd_tpu.models.taesd import TAESDConfig as JTAESDConfig
 from videosd_tpu.models.unet import UNET_PRESETS as J_UNET
+from videosd_tpu.ops import preprocess as JP
 from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
 from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
 from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
 from videosd_tpu_torch.io import safetensors as PS
 from videosd_tpu_torch.io import weights as PW
+from videosd_tpu_torch.ops import preprocess as PP
 from videosd_tpu_torch.models import (
     CLIP_PRESETS,
     UNET_PRESETS,
@@ -120,6 +122,16 @@ def test_safetensors_copy_reads_what_the_original_reads(tmp_path):
     ckpt = os.path.join(_REPO, "examples", "toy_tiny_ckpt", "taesd.safetensors")
     for k, v in JS.read_safetensors(ckpt).items():
         np.testing.assert_array_equal(PS.read_safetensors(ckpt)[k], v)
+
+
+@pytest.mark.parametrize("name", ["rgb_to_i420_host", "i420_to_rgb_host"])
+def test_i420_host_copy_equals_original(name):
+    rng = np.random.default_rng(5)
+    arg = (rng.integers(0, 256, (32, 48, 3), dtype=np.uint8) if name == "rgb_to_i420_host"
+           else rng.integers(0, 256, (48, 48), dtype=np.uint8))
+    ours, theirs = getattr(PP, name)(arg), getattr(JP, name)(arg)
+    assert ours.dtype == theirs.dtype == np.uint8
+    np.testing.assert_array_equal(ours, theirs)
 
 
 def test_port_imports_without_jax():

@@ -29,7 +29,16 @@ _FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_tiny_2ste
 
 @pytest.fixture(scope="module")
 def bundles():
-    jb = J.ModelBundle.random("tiny", dtype=jnp.float32)
+    # built afresh, not taken from ModelBundle.random's per-process cache:
+    # the golden fixture holds the init values, and a test that ran earlier
+    # in this process may have swapped the cached bundle's weights
+    # (test_runtime.py::test_engine_live_weight_swap does)
+    cached = J.ModelBundle._random_cache
+    J.ModelBundle._random_cache = {}
+    try:
+        jb = J.ModelBundle.random("tiny", dtype=jnp.float32)
+    finally:
+        J.ModelBundle._random_cache = cached
     params = jax.tree.map(np.asarray, jb.params)
     plans = {
         "unet": PW.unet_plan(P.UNET_PRESETS["tiny"]),
@@ -110,12 +119,13 @@ def test_port_tiny_program_matches_live_jax_batch2(bundles):
 
 def test_port_program_rejects_unported_spec_fields(bundles):
     _, pb = bundles
-    for field, value in (("controlnet_interval", 2), ("deepcache_temporal", True),
-                         ("in_format", "i420"), ("vae", "kl")):
-        with pytest.raises(NotImplementedError, match=field):
-            P.build_frame_program(pb, P.FrameSpec(height=32, width=32, **{field: value}))
+    with pytest.raises(NotImplementedError, match="vae"):
+        P.build_frame_program(pb, P.FrameSpec(height=32, width=32, vae="kl"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        P.build_frame_program(pb, P.FrameSpec(height=32, width=32, deepcache_temporal=True,
+                                              deepcache_interval=2))
     prog = P.build_frame_program(pb, P.FrameSpec(height=32, width=32, steps=2))
     frame = np.zeros((1, 32, 32, 3), np.uint8)
     emb = torch.zeros(1, 77, 32)
-    with pytest.raises(NotImplementedError, match="warm_latents"):
-        prog(frame, emb, [0.5], [1.0], [1.0], [0], warm_latents=torch.zeros(1, 4, 4, 4))
+    with pytest.raises(NotImplementedError, match="pooled_embeds"):
+        prog(frame, emb, [0.5], [1.0], [1.0], [0], pooled_embeds=torch.zeros(1, 32))

@@ -68,9 +68,13 @@ def test_preprocess_crop_exact(rng, in_hw):
     np.testing.assert_array_equal(got, want)
 
 
-def test_preprocess_resize_not_ported():
-    with pytest.raises(NotImplementedError, match="crop_resize"):
-        PP.preprocess_frame(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), 32, 32)
+def test_preprocess_resize_not_ported(rng):
+    """A crop that needs a resize (here an exact 2x decimation) goes through
+    the port's copy of ``jax.image.resize``'s lanczos3 weights."""
+    frame = rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    got = PP.preprocess_frame(torch.from_numpy(frame), 32, 32).numpy()
+    want = np.asarray(JP.preprocess_frame(jnp.asarray(frame), 32, 32))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 def test_postprocess_exact(rng):

@@ -8,8 +8,10 @@ modules.  :func:`unet_apply` keeps the JAX package's NHWC interface.
 Covered: resnets, Transformer2D with the 1x1 projections applied as linears
 on the token view, fused-QKV self-attention (long sequences go to kernel
 K1 through ``layers.attention``), 77-token cross-attention, the LCM
-guidance ``cond_proj``, and the ControlNet residual adds.  Not covered yet:
-reference-attention banks, DeepCache features and SDXL ``text_time``.
+guidance ``cond_proj``, the ControlNet residual adds, and the DeepCache
+split (the deep feature out of a full pass, and the shallow pass over a
+cached one).  Not covered yet: reference-attention banks and SDXL
+``text_time``.
 """
 
 from __future__ import annotations
@@ -216,13 +218,18 @@ class DownBlock2D(nn.Module):
         )
         self.downsamplers = None if final else nn.ModuleList([_Resample(cout, stride=2)])
 
-    def forward(self, x, temb, context):
+    def resnets_and_attentions(self, x, temb, context):
+        """The block without its downsampler (DeepCache's shallow path)."""
         res = []
         for i, rn in enumerate(self.resnets):
             x = rn(x, temb)
             if len(self.attentions):
                 x = self.attentions[i](x, context)
             res.append(x)
+        return x, res
+
+    def forward(self, x, temb, context):
+        x, res = self.resnets_and_attentions(x, temb, context)
         if self.downsamplers is not None:
             x = self.downsamplers[0].conv(x)
             res.append(x)
@@ -349,23 +356,58 @@ class UNet2DConditionModel(UNetEncoder):
         timestep_cond=None,
         down_block_additional_residuals=None,
         mid_block_additional_residual=None,
+        deep_feature=None,
+        return_deep_feature: bool = False,
     ):
-        """NCHW forward; the ControlNet residuals are NCHW too."""
+        """NCHW forward; the ControlNet residuals and the deep feature are
+        NCHW too.
+
+        DeepCache split (Ma et al., arXiv:2312.00858), as the JAX
+        ``unet_apply``: ``return_deep_feature=True`` also returns the
+        feature entering the last up block.  Passed back as
+        ``deep_feature``, it runs only the shallow path -- conv_in, the
+        first down block's resnets and attentions (not its downsampler),
+        the last up block over the cached feature, conv_out -- which
+        reproduces the full pass exactly on the same inputs.  The shallow
+        path uses only the first ``layers_per_block + 1`` ControlNet down
+        residuals.
+        """
         temb = self.time_embedding(self.cfg, timesteps, timestep_cond)
         context = encoder_hidden_states.to(sample.dtype)
-        x, down_res = self.encode(self.conv_in(sample), temb, context)
-        if down_block_additional_residuals is not None:
-            down_res = [
-                r + a.to(r.dtype) for r, a in zip(down_res, down_block_additional_residuals)
-            ]
+        x = self.conv_in(sample)
+        if deep_feature is not None:
+            if mid_block_additional_residual is not None:
+                raise ValueError("deep_feature is incompatible with mid_block_additional_residual")
+            if return_deep_feature:
+                raise ValueError("return_deep_feature requires a full pass (deep_feature=None)")
+            if len(self.down_blocks) < 2:
+                raise ValueError("deep_feature split needs >= 2 resolution blocks")
+            _, res = self.down_blocks[0].resnets_and_attentions(x, temb, context)
+            down_res = self._add_residuals([x, *res], down_block_additional_residuals)
+            return self._head(self.up_blocks[-1](deep_feature, down_res, temb, context))
+        x, down_res = self.encode(x, temb, context)
+        down_res = self._add_residuals(down_res, down_block_additional_residuals)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(x.dtype)
         n = self.cfg.layers_per_block + 1
+        deep = None
         for blk in self.up_blocks:
+            deep = x
             res_samples, down_res = down_res[-n:], down_res[:-n]
             x = blk(x, res_samples, temb, context)
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        out = self._head(x)
+        return (out, deep) if return_deep_feature else out
+
+    @staticmethod
+    def _add_residuals(down_res, residuals):
+        """Add the ControlNet residuals to the skip stack, pairwise (a
+        shorter stack takes the first residuals)."""
+        if residuals is None:
+            return down_res
+        return [r + a.to(r.dtype) for r, a in zip(down_res, residuals)]
+
+    def _head(self, x):
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
 def _nchw(x):
@@ -385,10 +427,13 @@ def unet_apply(
     timestep_cond=None,
     down_block_additional_residuals=None,
     mid_block_additional_residual=None,
+    deep_feature=None,
+    return_deep_feature: bool = False,
 ):
     """UNet forward with the JAX package's layouts: ``sample`` [B,h,w,C] NHWC,
-    ``timesteps`` [B], context [B,S,D], ControlNet residuals NHWC; returns
-    NHWC."""
+    ``timesteps`` [B], context [B,S,D], ControlNet residuals and the
+    DeepCache feature NHWC; returns NHWC (and the deep feature with
+    ``return_deep_feature``)."""
     down = (
         None
         if down_block_additional_residuals is None
@@ -404,5 +449,9 @@ def unet_apply(
         timestep_cond=timestep_cond,
         down_block_additional_residuals=down,
         mid_block_additional_residual=mid,
+        deep_feature=None if deep_feature is None else _nchw(deep_feature),
+        return_deep_feature=return_deep_feature,
     )
+    if return_deep_feature:
+        return _nhwc(out[0]), _nhwc(out[1])
     return _nhwc(out)

@@ -1,25 +1,35 @@
 """The per-frame LCM img2img (+ControlNet) program on PyTorch.
 
-Counterpart of ``videosd_tpu/pipelines/lcm_img2img.py`` on its parity
-path.  The chain after prompt encoding, per frame:
+Counterpart of ``videosd_tpu/pipelines/lcm_img2img.py``.  The chain after
+prompt encoding, per frame:
 
-    preprocess (crop, [0,1]) -> Sobel control image -> TAESD encode ->
+    unpack I420 (optional) -> crop (the engine's per-element ``src_box``
+    through lanczos3 ``crop_resize``, or the static center crop) ->
+    Sobel control image -> TAESD encode -> warm-start blend (optional) ->
     add_noise at the first valid ladder step -> S x (ControlNet + UNet +
-    LCM step) -> TAESD decode -> uint8 postprocess
+    LCM step) -> TAESD decode -> safety hook (optional) -> uint8
 
-``strength``, ``guidance_scale``, ``controlnet_scale`` and ``seed`` are
-per batch element, as in the JAX program: each element follows its own
-masked timestep ladder.  Random numbers enter through one seam: ``noise``
-of shape ``[S+1, B, h, w, 4]``, row 0 for the forward noise and row s+1
-for the re-noise of step s.  Without it, each element's rows are drawn
-from a ``torch.Generator`` seeded with that element's seed; these are not
-JAX's threefry bits, so the tests feed JAX's noise through the seam.
+``strength``, ``guidance_scale``, ``controlnet_scale``, ``seed`` and
+``warm_alpha`` are per batch element, as in the JAX program: each element
+follows its own masked timestep ladder.  Random numbers enter through one
+seam: ``noise`` of shape ``[S+1, B, h, w, 4]``, row 0 for the forward
+noise and row s+1 for the re-noise of step s.  Without it, each element's
+rows are drawn from a ``torch.Generator`` seeded with that element's seed;
+these are not JAX's threefry bits, so the tests feed JAX's noise through
+the seam.
+
+The production levers of the JAX ``FrameSpec`` run as there:
+``controlnet_interval`` and ``deepcache_interval`` (with
+``interval_refresh_last``) reuse the ControlNet residuals and the UNet's
+deep trunk between refresh steps; ``deepcache_temporal`` carries the
+trunk across frames (produce returns the per-step features, reuse runs
+shallow passes over them).
 
 The program runs eagerly; convs, GEMMs and norms are library calls, and
-the long self-attentions go to kernel K1 (``ops/cuda/flash_attention.py``).
-TAESD follows ``bundle.taesd_cfg``; the ``taesd_pallas`` path of the JAX
-server sends its residual-block convs to kernel K3
-(``ops/cuda/taesd_conv.py``)::
+the long self-attentions go to kernel K1 (``ops/cuda/flash_attention.py``)
+on every UNet pass, full or shallow, and every ControlNet call.  TAESD
+follows ``bundle.taesd_cfg``; the ``taesd_pallas`` path of the JAX server
+sends its residual-block convs to kernel K3 (``ops/cuda/taesd_conv.py``)::
 
     bundle = dataclasses.replace(
         bundle, taesd_cfg=dataclasses.replace(bundle.taesd_cfg, pallas_convs=True))
@@ -39,7 +49,12 @@ from videosd_tpu_torch.models.controlnet import ControlNetModel
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.taesd import AutoencoderTiny, TAESDConfig, taesd_decode, taesd_encode
 from videosd_tpu_torch.models.unet import UNET_PRESETS, UNet2DConditionModel, UNetConfig
-from videosd_tpu_torch.ops.preprocess import postprocess_image, preprocess_frame
+from videosd_tpu_torch.ops.preprocess import (
+    crop_resize,
+    i420_to_rgb255,
+    postprocess_image,
+    preprocess_frame,
+)
 from videosd_tpu_torch.ops.sobel import sobel_control_image
 from videosd_tpu_torch.schedulers.lcm import (
     LCMSchedulerConfig,
@@ -55,9 +70,9 @@ __all__ = ["FrameSpec", "ModelBundle", "build_frame_program", "build_prompt_enco
 
 @dataclasses.dataclass(frozen=True)
 class FrameSpec:
-    """Static shape and schedule of one frame-program bucket (the fields of
-    the JAX ``FrameSpec``; those outside the parity path raise in
-    :func:`build_frame_program`)."""
+    """Static shape and schedule of one frame-program bucket: the fields of
+    the JAX ``FrameSpec``, with its meanings (``vae="kl"`` is not ported
+    and raises in :func:`build_frame_program`)."""
 
     batch: int = 1
     height: int = 512
@@ -80,16 +95,8 @@ class FrameSpec:
     deepcache_temporal: bool = False
     interval_refresh_last: bool = False
 
-
-# FrameSpec fields whose non-default values the port does not run yet
-_PARITY_ONLY = {
-    "in_format": "rgb",
-    "vae": "taesd",
-    "controlnet_interval": 1,
-    "deepcache_interval": 1,
-    "deepcache_temporal": False,
-    "interval_refresh_last": False,
-}
+    def resolved_in_shape(self) -> tuple[int, int]:
+        return (self.in_height or self.height, self.in_width or self.width)
 
 
 def _empty_module(ctor, dtype, device) -> nn.Module:
@@ -134,7 +141,8 @@ class ModelBundle:
     taesd_cfg: TAESDConfig
     dtype: torch.dtype
     device: torch.device
-    # the JAX bundle's post-decode safety hook; not ported
+    # optional post-decode hook, images_pm1 [B,H,W,3] -> images_pm1
+    # (pipelines/safety.py); None = off
     safety_hook: Any = None
 
     @classmethod
@@ -216,11 +224,15 @@ class ModelBundle:
 
 
 def _check_spec(bundle: ModelBundle, spec: FrameSpec) -> None:
-    for name, parity in _PARITY_ONLY.items():
-        if getattr(spec, name) != parity:
-            raise NotImplementedError(f"FrameSpec.{name}={getattr(spec, name)!r} is not ported yet")
-    if bundle.safety_hook is not None:
-        raise NotImplementedError("ModelBundle.safety_hook is not ported yet")
+    if spec.vae != "taesd":
+        raise NotImplementedError(f"FrameSpec.vae={spec.vae!r} is not ported yet")
+    if spec.in_format not in ("rgb", "i420"):
+        raise ValueError(f"FrameSpec.in_format must be rgb or i420, got {spec.in_format!r}")
+    if spec.deepcache_temporal and spec.deepcache_interval > 1:
+        raise ValueError(
+            "deepcache_temporal is mutually exclusive with "
+            "deepcache_interval>1 (per-step vs carried trunk caches)"
+        )
     if spec.use_controlnet and "controlnet" not in bundle.models:
         raise ValueError("spec.use_controlnet needs a bundle with a ControlNet")
 
@@ -243,6 +255,24 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+def _load_frames(spec: FrameSpec, frame_u8, dev):
+    """Check the upload layout and move it to ``dev``: [B, Hin, Win, 3]
+    for rgb, packed [B, Hin*3//2, Win] for i420."""
+    B = spec.batch
+    frame_u8 = torch.as_tensor(frame_u8).to(dev)
+    if spec.in_format == "i420":
+        hin, win = spec.resolved_in_shape()
+        want = (B, hin * 3 // 2, win)
+        ok = tuple(frame_u8.shape) == want
+    else:
+        want = (B, "H", "W", 3)
+        ok = frame_u8.ndim == 4 and frame_u8.shape[0] == B and frame_u8.shape[3] == 3
+    if not ok or frame_u8.dtype != torch.uint8:
+        raise ValueError(f"expected {spec.in_format} uint8 frames {want}, got {frame_u8.dtype} "
+                         f"{tuple(frame_u8.shape)}")
+    return frame_u8
+
+
 @torch.inference_mode()
 def frame_program(
     bundle: ModelBundle,
@@ -261,33 +291,51 @@ def frame_program(
     src_box=None,
     deep_caches=None,
 ):
-    """One frame batch: ``frame_u8`` [B, Hin, Win, 3] uint8, ``prompt_embeds``
-    [B, 77, D]; ``strength``/``guidance_scale``/``controlnet_scale`` [B]
-    floats, ``seed`` [B] ints.  Returns (images_u8 [B,H,W,3], denoised
-    latents [B,h,w,4] in the bundle dtype)."""
-    for name, val in (("warm_latents", warm_latents), ("warm_alpha", warm_alpha),
-                      ("pooled_embeds", pooled_embeds), ("src_box", src_box),
-                      ("deep_caches", deep_caches)):
-        if val is not None:
-            raise NotImplementedError(f"frame_program({name}=...) is not ported yet")
+    """One frame batch.
+
+    ``frame_u8``: uint8 [B, Hin, Win, 3], or packed [B, Hin*3//2, Win] for
+    ``in_format="i420"``.  ``src_box``: optional [B, 4] int (top, left,
+    height, width), the true camera extent inside a mailbox frame, resized
+    by ``crop_resize``; without it the whole frame is center-cropped.
+    ``prompt_embeds`` [B, 77, D]; ``strength``/``guidance_scale``/
+    ``controlnet_scale`` [B] floats, ``seed`` [B] ints.
+    ``warm_latents`` [B, h, w, 4] with ``warm_alpha`` [B]: the encoded
+    frame becomes ``(1-a)*encoded + a*warm`` (fp32 blend, cast back);
+    ``a = 0`` leaves it unchanged.  ``deep_caches`` [B, S, h', w', c']
+    (``deepcache_temporal`` only): reuse mode.
+
+    Returns (images_u8 [B,H,W,3], denoised latents [B,h,w,4] in the bundle
+    dtype), and in temporal produce mode (``deepcache_temporal`` without
+    ``deep_caches``) also the per-step deep features [B, S, h', w', c'].
+    """
+    _check_spec(bundle, spec)
+    if pooled_embeds is not None:
+        raise NotImplementedError("frame_program(pooled_embeds=...) (SDXL) is not ported yet")
     dev, dtype = bundle.device, bundle.dtype
     B, S = spec.batch, spec.steps
-    frame_u8 = torch.as_tensor(frame_u8).to(dev)
-    if frame_u8.shape[0] != B or frame_u8.dtype != torch.uint8:
-        raise ValueError(f"expected uint8 frames with batch {B}, got {frame_u8.dtype} "
-                         f"{tuple(frame_u8.shape)}")
+    frame_u8 = _load_frames(spec, frame_u8, dev)
     strength = _per_element(strength, B, torch.float32, dev)
     guidance_scale = _per_element(guidance_scale, B, torch.float32, dev)
     controlnet_scale = _per_element(controlnet_scale, B, torch.float32, dev)
     unet, models = bundle.models["unet"], bundle.models
     cfg = bundle.unet_cfg
 
-    img01 = preprocess_frame(frame_u8, spec.height, spec.width)
+    frame = i420_to_rgb255(frame_u8) if spec.in_format == "i420" else frame_u8
+    if src_box is not None:
+        img01 = crop_resize(frame, src_box, spec.height, spec.width)
+    else:
+        img01 = preprocess_frame(frame, spec.height, spec.width)
     ctrl = None
     if spec.use_controlnet:
         ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
     img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
     latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
+    if warm_latents is not None:
+        if warm_alpha is None:
+            raise ValueError("warm_latents needs warm_alpha")
+        a = _per_element(warm_alpha, B, torch.float32, dev)[:, None, None, None]
+        warm = torch.as_tensor(warm_latents).to(dev, torch.float32)
+        latents0 = ((1.0 - a) * latents0.float() + a * warm).to(latents0.dtype)
 
     ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
     if noise is None:
@@ -310,25 +358,57 @@ def frame_program(
     context = prompt_embeds.to(dev, dtype)
     denoised = latents0
 
+    cn_interval = max(1, int(spec.controlnet_interval))
+    dc_interval = max(1, int(spec.deepcache_interval))
+    cn_cache = None  # residuals at the base scale, reused between refreshes
+    dc_cache = None  # NCHW deep-trunk feature, reused between refreshes
+    if deep_caches is not None:
+        if not spec.deepcache_temporal:
+            raise ValueError("deep_caches needs FrameSpec.deepcache_temporal")
+        deep_caches = torch.as_tensor(deep_caches).to(dev)
+        if tuple(deep_caches.shape[:2]) != (B, S):
+            raise ValueError(f"deep_caches must be [{B}, {S}, h, w, c], got "
+                             f"{tuple(deep_caches.shape)}")
+    temporal_produce = spec.deepcache_temporal and deep_caches is None
+    new_caches = []
+
+    def refresh(s: int, k: int) -> bool:
+        return s % k == 0 or (spec.interval_refresh_last and s == S - 1)
+
     for s in range(S):
         t = ts[:, s]
         t_prev = ts[:, s + 1] if s + 1 < S else t
         x = _nchw(latents)
         down_res = mid_res = None
+        # the keep-window is all-or-nothing per step, so keep is 1 wherever
+        # the ControlNet runs and the base-scale cache is used as it is
         keep = 1.0 - float(
             s / S < spec.control_guidance_start or (s + 1) / S > spec.control_guidance_end
         )
         if spec.use_controlnet and keep > 0.0:
-            down_res, mid_res = models["controlnet"](
-                x, t, context, ctrl, conditioning_scale=controlnet_scale * keep,
-                timestep_cond=w_emb,
-            )
-        eps = unet(
-            x, t, context, timestep_cond=w_emb,
-            down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res,
-        ).permute(0, 2, 3, 1)
+            if cn_interval == 1 or cn_cache is None or refresh(s, cn_interval):
+                cn_cache = models["controlnet"](
+                    x, t, context, ctrl, conditioning_scale=controlnet_scale,
+                    timestep_cond=w_emb,
+                )
+            down_res, mid_res = cn_cache
+        unet_kw = dict(timestep_cond=w_emb, down_block_additional_residuals=down_res)
+        if deep_caches is not None:
+            # temporal reuse: shallow pass over the carried feature of step s
+            # (the mid residual conditions the carried trunk; it is dropped)
+            eps = unet(x, t, context, deep_feature=_nchw(deep_caches[:, s]), **unet_kw)
+        elif temporal_produce or (dc_interval > 1 and (dc_cache is None or refresh(s, dc_interval))):
+            # a full pass that also captures the trunk's output feature
+            eps, dc_cache = unet(x, t, context, mid_block_additional_residual=mid_res,
+                                 return_deep_feature=True, **unet_kw)
+            if temporal_produce:
+                new_caches.append(dc_cache)
+        elif dc_interval > 1:
+            eps = unet(x, t, context, deep_feature=dc_cache, **unet_kw)
+        else:
+            eps = unet(x, t, context, mid_block_additional_residual=mid_res, **unet_kw)
         new_lat, new_den = step(
-            bundle.sched_cfg, alphas, eps, t, t_prev, latents,
+            bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
             noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
         )
         m = valid[:, s][:, None, None, None]
@@ -336,19 +416,31 @@ def frame_program(
         denoised = torch.where(m, new_den, denoised)
 
     out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
+    if bundle.safety_hook is not None:
+        out = bundle.safety_hook(out)
+    if temporal_produce:
+        caches = torch.stack([f.permute(0, 2, 3, 1) for f in new_caches], dim=1)
+        return postprocess_image(out), denoised, caches
     return postprocess_image(out), denoised
 
 
 def build_frame_program(bundle: ModelBundle, spec: FrameSpec):
     """Check ``spec`` against what the port runs and return
-    ``f(frame_u8, prompt_embeds, strength, guidance, controlnet_scale, seed,
-    noise=None) -> (images_u8, denoised_latents)``."""
+    ``f(frame_u8, prompt_embeds, strength, guidance, cn_scale, seed,
+    noise=None, *, warm_latents, warm_alpha, pooled_embeds, src_box,
+    deep_caches)`` -> ``(images_u8, denoised_latents[, deep_caches])``: the
+    JAX program's arguments without its ``params`` (the models live on the
+    bundle), plus the noise seam."""
     _check_spec(bundle, spec)
 
-    def program(frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise=None,
-                **unported):
-        return frame_program(bundle, spec, frame_u8, prompt_embeds, strength, guidance,
-                             cn_scale, seed, noise, **unported)
+    def program(frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise=None, *,
+                warm_latents=None, warm_alpha=None, pooled_embeds=None, src_box=None,
+                deep_caches=None):
+        return frame_program(
+            bundle, spec, frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise,
+            warm_latents=warm_latents, warm_alpha=warm_alpha, pooled_embeds=pooled_embeds,
+            src_box=src_box, deep_caches=deep_caches,
+        )
 
     return program
 
