@@ -8,6 +8,7 @@ with JAX unavailable.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -38,6 +39,11 @@ from videosd_tpu_torch.models import (
 )
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
+
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TAESD = {"sd15": {}, "tiny": {"hidden": 16, "blocks_per_stage": 1}}
@@ -145,3 +151,22 @@ def test_port_imports_without_jax():
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env, check=True, timeout=120)
+
+
+def test_port_sources_name_no_jax_and_no_library_attention():
+    """Nothing under ``videosd_tpu_torch/`` nor ``chip_smoke.py`` imports JAX
+    or the JAX package, and nothing in the package calls a library
+    attention or ``torch.compile`` (``chip_smoke.py`` times
+    ``scaled_dot_product_attention`` as a yardstick only)."""
+    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|videosd_tpu)(\.|\s|$)", re.M)
+    library = re.compile(r"scaled_dot_product_attention|torch\.compile|cudnn_attention")
+    paths = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(_REPO, "videosd_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert not imports.search(text), path
+        if not path.endswith("chip_smoke.py"):
+            assert not library.search(text), path

@@ -18,6 +18,11 @@ from torch import nn
 from videosd_tpu.models import layers as JL
 from videosd_tpu_torch.models import layers as PL
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 
 def _nchw(x):
     return torch.from_numpy(x).permute(0, 3, 1, 2)

@@ -36,6 +36,11 @@ from videosd_tpu_torch.models import (
     unet_apply,
 )
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 CFG = UNET_PRESETS["tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 

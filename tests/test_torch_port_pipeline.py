@@ -24,6 +24,11 @@ from videosd_tpu.pipelines import lcm_img2img as J
 from videosd_tpu_torch.io import weights as PW
 from videosd_tpu_torch.pipelines import lcm_img2img as P
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 _FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_tiny_2step.npz")
 
 
@@ -47,7 +52,7 @@ def bundles():
         "taesd": PW.taesd_plan(jb.taesd_cfg),
     }
     sds = {k: PW.state_dict_from_jax(params[k], plan) for k, plan in plans.items()}
-    return jb, P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32)
+    return jb, P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32, device="cpu")
 
 
 def _jax_noise(seeds, steps, latent_hw):

@@ -26,6 +26,11 @@ from videosd_tpu_torch.ops import preprocess as PP
 from videosd_tpu_torch.ops import sobel as PS
 from videosd_tpu_torch.ops.cuda import preprocess_kernel as K2
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 _DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -18,6 +18,11 @@ from videosd_tpu.pipelines import safety as JS
 from videosd_tpu_torch.ops import preprocess as P
 from videosd_tpu_torch.pipelines import safety as PS
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 
 def _camera_box(cam_hw, out_hw):
     left, top, right, bottom = J.center_crop_box(cam_hw[1], cam_hw[0], out_hw[1], out_hw[0])

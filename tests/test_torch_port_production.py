@@ -63,7 +63,7 @@ def bundles():
         "taesd": PW.taesd_plan(jb.taesd_cfg),
     }
     sds = {k: PW.state_dict_from_jax(params[k], plan) for k, plan in plans.items()}
-    pb = P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32)
+    pb = P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32, device="cpu")
     jparams = jax.tree.map(jnp.asarray, params)
     ids = jnp.asarray(jb.tokenizer(["a portrait", "a landscape"]), jnp.int32)
     emb, _ = J.build_prompt_encoder(jb)(jparams, ids)

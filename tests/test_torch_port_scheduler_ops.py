@@ -18,6 +18,11 @@ from videosd_tpu_torch.ops import preprocess as PP
 from videosd_tpu_torch.ops import sobel as PS
 from videosd_tpu_torch.schedulers import lcm as PLCM
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 _CFG_J, _CFG_P = JL.LCMSchedulerConfig(), PLCM.LCMSchedulerConfig()
 _ALPHAS = JL.make_alphas_cumprod(_CFG_J)
 

@@ -29,6 +29,11 @@ from videosd_tpu_torch.models import taesd as PT
 from videosd_tpu_torch.ops.cuda import taesd_conv as K3
 from videosd_tpu_torch.pipelines import lcm_img2img as P
 
+# One torch thread per process, set at import: every xdist worker imports
+# every test module, and torch threads on every core of every worker stall
+# JAX's interpreted Pallas kernels in the worker that runs them.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 BASE = PT.TAESDConfig()
 ROUTES = {"packed": dict(packed_convs=True), "pallas": dict(pallas_convs=True)}
@@ -197,7 +202,7 @@ def test_tiny_program_with_sd15_taesd_pallas_matches_jax(sd15_taesd):
     }
     jparams = jax.tree.map(np.asarray, {k: jb.params[k] for k in plans})
     sds = {k: PW.state_dict_from_jax(jparams[k], plan) for k, plan in plans.items()}
-    pb = P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32)
+    pb = P.ModelBundle.from_state_dicts("tiny", sds, dtype=torch.float32, device="cpu")
     pb = dataclasses.replace(pb, models={**pb.models, "taesd": ae}, taesd_cfg=cfg)
 
     spec_kw = dict(batch=2, height=64, width=64, steps=2)

@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels at first use and loads them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds).  The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  The
 library lands in ``videosd_tpu_torch/_build/`` under a name that carries a
 hash of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  Nothing is built when the package is imported:
@@ -30,7 +31,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -75,21 +75,31 @@ def build() -> tuple[str, str]:
     if os.path.isfile(lib):
         return lib, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-            capture_output=True,
-            text=True,
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, os.path.basename(src) + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            )
+            for src, obj in zip(_sources(), objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(_sources(), procs, logs):
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed on {os.path.basename(src)} "
+                                 f"({proc.returncode}):\n{log}")
+        out = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", out, *objects], capture_output=True, text=True
         )
-        if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib, proc.stdout + proc.stderr
+        if link.returncode != 0:
+            raise BuildError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        os.replace(out, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib, "".join(logs)
 
 
 @functools.cache
@@ -99,11 +109,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.videosd_flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp,
+        vp, vp, vp, vp, ci, ci, ci, ci, ci,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, ci, vp,
     ]
     lib.videosd_flash_attention_fwd.restype = ci
-    lib.videosd_flash_block_m.restype = ci
-    lib.videosd_flash_block_n.restype = ci
     lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.videosd_taesd_conv3x3.restype = ci
     fl = ctypes.c_float

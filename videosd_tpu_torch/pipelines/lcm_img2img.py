@@ -99,6 +99,19 @@ class FrameSpec:
         return (self.in_height or self.height, self.in_width or self.width)
 
 
+def _resolve_device(device) -> torch.device:
+    """The bundle's device.  The entry points build on the card unless the
+    caller names another device; without a card they raise, never falling
+    back to the CPU on their own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ModelBundle builds on the card by default and torch.cuda.is_available() is "
+            'False; pass device="cpu" to run on the CPU'
+        )
+    return device
+
+
 def _empty_module(ctor, dtype, device) -> nn.Module:
     """Build a module without running torch's own initializers."""
     with torch.device("meta"):
@@ -152,14 +165,14 @@ class ModelBundle:
         *,
         seed: int = 0,
         dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device="cuda",
         with_controlnet: bool = True,
     ) -> "ModelBundle":
         """Randomly initialized bundle, drawn with the JAX init rule from a
         ``torch.Generator`` seeded with ``seed`` (not the JAX values)."""
         if family not in UNET_PRESETS:
             raise NotImplementedError(f"family {family!r} is not ported yet")
-        device = torch.device(device)
+        device = _resolve_device(device)
         unet_cfg = UNET_PRESETS[family]
         clip_cfg = CLIP_PRESETS[family]
         taesd_cfg = (
@@ -199,7 +212,7 @@ class ModelBundle:
 
     @classmethod
     def from_state_dicts(
-        cls, family: str, state_dicts: dict, *, dtype=torch.float32, device="cpu"
+        cls, family: str, state_dicts: dict, *, dtype=torch.float32, device="cuda"
     ) -> "ModelBundle":
         """A bundle whose models load the given diffusers-named state dicts
         (strictly: a missing or extra key raises); models absent from
@@ -213,7 +226,7 @@ class ModelBundle:
         return bundle
 
     @classmethod
-    def from_dir(cls, path: str, *, dtype=None, device="cpu") -> "ModelBundle":
+    def from_dir(cls, path: str, *, dtype=None, device="cuda") -> "ModelBundle":
         """Load a ``bundle.json`` checkpoint directory (e.g. the committed
         ``examples/toy_tiny_ckpt``).  ``dtype=None`` picks fp32 for tiny
         families and bf16 otherwise, like the JAX loader."""
