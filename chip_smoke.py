@@ -39,8 +39,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
 7. kernel K2 (the fused preprocess with its Sobel stencil) against its
    plain version at three frame sizes: equal bit for bit, with both times;
 8. kernel K3 (the TAESD 3x3 conv) against its plain version at the main
-   path's shapes, both epilogues, with its time beside the plain version's
-   and a cuDNN bf16 conv's;
+   path's shapes and at ragged ones, all four epilogues, with each shape's
+   tile width; at the main path's shapes one kernel per call, its device
+   time beside its bound, the plain version's and a cuDNN bf16 conv's, and
+   every tile width held to the bar and timed;
 9. the ``fused_preprocess`` entry on the main path's frame (K2's path);
 10. TAESD encode + decode at 512x512 through K3 against an fp32 copy and
     the packed library route, and the device time of encode + decode on
@@ -137,7 +139,13 @@ K2_SHAPES = [(512, 512), (768, 768), (480, 640)]
 # third of each with the skip epilogue
 K3_SHAPES = {(1, 512, 256, 128): 6, (1, 256, 128, 128): 18, (1, 128, 64, 128): 18,
              (1, 64, 32, 128): 18}
-K3_EXTRA = (2, 64, 48, 128)  # batch 2, a width off the 16-column tile
+# further K3 shapes held against plain: batch 2, and heights and widths off
+# every tile (one pixel; 3 rows of 258 pixels)
+K3_EXTRA = [(2, 64, 48, 128), (1, 13, 7, 128), (1, 1, 1, 128), (1, 3, 129, 128)]
+# K3's epilogues as (relu, skip, bias): the block's first two convs, its
+# third, and the two the wrapper also takes (no ReLU; no bias)
+K3_EPILOGUES = {"relu": (True, False, True), "skip+relu": (True, True, True),
+                "plain": (False, False, False), "skip": (False, True, True)}
 K3_PER_FRAME = sum(K3_SHAPES.values())  # 60
 # K3 against its plain version in bf16: both take fp32 sums of the same exact
 # bf16 products (in different orders, ~1e-6 relative apart) and round once to
@@ -206,17 +214,18 @@ def _profiled(fn, iters: int) -> list:
     (kernel name, launches, device microseconds) over all the calls.
 
     A session now and then loses events: all of them, one whole call's,
-    every event of one kernel, or a few in ten thousand of a long session.
-    So sessions are taken until two in a row saw the same kernel names and
-    total launches within a thousandth of each other (equal, for a session
-    of fewer than 1000); of those two, each kernel is read from the session
-    that saw more of it, since a loss only lowers a count.  Every session
-    that does not pair with the one before is printed, and six sessions
-    without a pair fail the run."""
+    every event of one kernel, or a few in ten thousand of a long session;
+    on one card several sessions in a row lost some.  So sessions are taken
+    until one saw the same kernel names as an earlier session and total
+    launches within a thousandth of it (equal, for a session of fewer than
+    1000); of those two, each kernel is read from the session that saw more
+    of it, since a loss only lowers a count.  Every session that pairs with
+    no earlier one is printed, and ten sessions without a pair fail the
+    run."""
     fn()
     torch.cuda.synchronize()
-    last = None
-    for session in range(6):
+    earlier = []
+    for session in range(10):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -224,19 +233,19 @@ def _profiled(fn, iters: int) -> list:
         seen = {e.key: KernelTime(e.key, e.count, e.self_device_time_total)
                 for e in prof.key_averages() if e.self_device_time_total > 0}
         total = sum(k.count for k in seen.values())
-        if last is not None:
-            last_total = sum(k.count for k in last.values())
-            if seen and seen.keys() == last.keys() and abs(total - last_total) * 1000 <= total:
-                if total != last_total:
-                    print(f"  profiler sessions {session - 1} and {session}: {last_total} and "
-                          f"{total} launches over {iters} calls; each kernel read from the "
-                          f"session that saw more of it")
-                return [max(seen[key], last[key], key=lambda k: k.count) for key in seen]
-            print(f"  profiler session {session - 1} set aside: {last_total} launches of "
-                  f"{len(last)} kernels over {iters} calls, session {session} saw {total} of "
-                  f"{len(seen)}")
-        last = seen
-    fail("torch.profiler gave no two sessions in a row that agree, in six")
+        for i, old in enumerate(earlier):
+            old_total = sum(k.count for k in old.values())
+            if seen and seen.keys() == old.keys() and abs(total - old_total) * 1000 <= total:
+                if total != old_total:
+                    print(f"  profiler sessions {i} and {session}: {old_total} and {total} "
+                          f"launches over {iters} calls; each kernel read from the session "
+                          f"that saw more of it")
+                return [max(seen[key], old[key], key=lambda k: k.count) for key in seen]
+        if earlier:
+            print(f"  profiler session {session}: {total} launches of {len(seen)} kernels over "
+                  f"{iters} calls pair with no earlier session")
+        earlier.append(seen)
+    fail("torch.profiler gave no two sessions that agree, in ten")
 
 
 def device_ms(fn, iters: int = 5) -> float:
@@ -300,6 +309,8 @@ def phase_build() -> None:
         regs = re.search(r"Used (\d+) registers", block)
         print(f"  ptxas {_demangle(block.split(chr(39))[0])}: {regs and regs.group(1)} registers, "
               f"{spill.group(1) if spill else 0} bytes spilled")
+    for line in sorted({line for line in log.splitlines() if "Performance Loss" in line}):
+        print(f"  {line.strip()}")  # e.g. wgmma serialized by the compiler
     _build.load_library()
 
 
@@ -527,7 +538,22 @@ def _cudnn_block_conv(w_cl, bias, xp, skip):
     return torch.relu(y if skip is None else y + k3._nchw(skip))
 
 
+def _k3_within_bar(out, ref) -> tuple[bool, float, float, float]:
+    """(K3's output is finite and within one bf16 ulp of the largest plain
+    output with mean |d| <= K3_MEAN_ABS, max |d|, mean |d|, that ulp)."""
+    err = (out.float() - ref.float()).abs()
+    mx, mean = err.max().item(), err.mean().item()
+    top = ref.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return bool(torch.isfinite(out).all()) and mx <= ulp and mean <= K3_MEAN_ABS, mx, mean, ulp
+
+
 def phase_k3(card: str) -> dict:
+    """K3 against its plain version at every shape and epilogue; at the main
+    path's shapes its device time beside its bound, a cuDNN bf16 conv + the
+    eager epilogue (timed here, used nowhere in the port) and the plain
+    version, one kernel per call, and every tile width held to the bar and
+    timed."""
     gen = torch.Generator(device="cuda").manual_seed(5678)
     # the JAX init rule's bound +-1/sqrt(fan_in), and a bias on every block conv
     w = ((torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0).bfloat16()
@@ -535,18 +561,34 @@ def phase_k3(card: str) -> dict:
     w_cl, bias_bf = w.to(memory_format=torch.channels_last), bias.bfloat16()
     worst, per_frame = 0.0, {"kernel": [0.0, 0.0], "plain fp32": [0.0, 0.0],
                              "cuDNN bf16": [0.0, 0.0]}
-    frame_bound, by_resource = 0.0, {"operations": 0.0, "bytes": 0.0}
-    for shape in [*K3_SHAPES, K3_EXTRA]:
+    frame_bound, by_resource, per_shape = 0.0, {"operations": 0.0, "bytes": 0.0}, []
+    for shape in [*K3_SHAPES, *K3_EXTRA]:
         xp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        times = {}
-        for epi, skip in (("relu", None),
-                          ("skip+relu", torch.randn(shape, generator=gen, device="cuda").bfloat16())):
-            out = k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip)
+        sk = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        tile_w = k3.tile_width(shape[0], shape[1], 2 * shape[2])
+        n_tiles = len(k3.tile_origins(shape[0], shape[1], 2 * shape[2], tile_w))
+        errs = []
+        for epi, (relu, has_skip, has_bias) in K3_EPILOGUES.items():
+            args = (w, bias if has_bias else None, xp)
+            kw = {"relu": relu, "skip": sk if has_skip else None}
+            out = k3.packed_conv3x3(*args, **kw)
             torch.cuda.synchronize()
-            ref = k3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)
-            err = (out.float() - ref.float()).abs()
-            mx, mean = err.max().item(), err.mean().item()
-            ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+            ok, mx, mean, ulp = _k3_within_bar(out, k3.packed_conv3x3_reference(*args, **kw))
+            errs.append(f"{epi} {mx:.3e} / {mean:.1e} (ulp {ulp:g})")
+            if not ok:
+                fail(f"K3 disagrees with its plain version at {list(shape)} {epi}: max|d| {mx:.3e} "
+                     f"(one ulp {ulp:g}), mean|d| {mean:.3e} (bound {K3_MEAN_ABS:g})")
+            worst = max(worst, mx)
+        print(f"K3 {list(shape)} bf16, tiles of {tile_w} pixels ({n_tiles}): max|d| / mean|d| "
+              f"{'; '.join(errs)}")
+        if shape not in K3_SHAPES:
+            continue
+        times = {}
+        for epi, skip in (("relu", None), ("skip+relu", sk)):
+            kernels = sum(e.count for e in _profiled(
+                lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip), 5)) / 5
+            if kernels != 1:
+                fail(f"K3 at {list(shape)} {epi} ran {kernels:g} kernels per call: a copy?")
             t = times[epi] = (  # each (CUDA events, device) ms
                 timed(lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip)),
                 timed(lambda: k3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)),
@@ -557,21 +599,34 @@ def phase_k3(card: str) -> dict:
             # bf16 input, output and (third conv of a block) skip, and the taps
             b_ms, by = bound_ms(gflop * 1e9, 2.0 * xp.numel() * (2 if skip is None else 3)
                                 + 2.0 * w.numel())
-            frame_bound += K3_SHAPES.get(shape, 0) / 3 * (2 if skip is None else 1) * b_ms
-            by_resource[by] += K3_SHAPES.get(shape, 0) / 3 * (2 if skip is None else 1) * b_ms
-            print(f"K3 {list(shape)} {epi} bf16: max|d| {mx:.3e} (bound one ulp {ulp:g}) "
-                  f"mean|d| {mean:.3e} (bound {K3_MEAN_ABS:g}); kernel {k_ev:.4f} ms "
-                  f"(device {k_dev:.4f}, {gflop / k_dev:.1f} TFLOP/s; bound {b_ms * 1e3:.2f} us "
-                  f"by {by}, reached {b_ms / k_dev:.1%}), plain fp32 {p_ev:.4f} ms "
-                  f"(device {p_dev:.4f}), cuDNN bf16 + eager epilogue {c_ev:.4f} ms "
-                  f"(device {c_dev:.4f}) ({card})")
-            if not (torch.isfinite(out).all() and mx <= ulp and mean <= K3_MEAN_ABS):
-                fail(f"K3 disagrees with its plain version at {list(shape)} {epi}")
-            worst = max(worst, mx)
+            frame_bound += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
+            by_resource[by] += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
+            print(f"K3 {list(shape)} {epi} bf16: kernel {k_ev:.4f} ms (device {k_dev:.4f}, "
+                  f"{gflop / k_dev:.1f} TFLOP/s; {kernels:g} kernel per call; bound "
+                  f"{b_ms * 1e3:.2f} us by {by}, reached {b_ms / k_dev:.1%}), plain fp32 "
+                  f"{p_ev:.4f} ms (device {p_dev:.4f}), cuDNN bf16 + eager epilogue {c_ev:.4f} "
+                  f"ms (device {c_dev:.4f}) ({card})")
+            per_shape.append({"shape": list(shape), "epilogue": epi, "device_ms": k_dev,
+                              "ms": k_ev, "plain_ms": p_ev, "library_ms": c_dev,
+                              "bound_ms": b_ms, "bound_by": by, "tile_w": tile_w})
         for i, name in enumerate(per_frame):  # two relu-only convs and one skip conv per block
             for j in range(2):
-                per_frame[name][j] += K3_SHAPES.get(shape, 0) / 3 * (
+                per_frame[name][j] += K3_SHAPES[shape] / 3 * (
                     2 * times["relu"][i][j] + times["skip+relu"][i][j])
+        # every tile width the kernel can run, held to the bar and timed
+        # (relu): what tile_width's rule rests on
+        ref = k3.packed_conv3x3_reference(w, bias, xp, relu=True)
+        widths = {}
+        for wt in k3.TILE_WIDTHS:
+            def run(wt=wt):
+                return k3._launch(w, bias, xp, True, None, tile_w=wt)
+            if not _k3_within_bar(run(), ref)[0]:
+                fail(f"K3 at {list(shape)} with tiles of {wt} pixels disagrees with its plain "
+                     f"version")
+            widths[wt] = times["relu"][0][1] if wt == tile_w else device_ms(run)
+        print(f"   tile width -> device ms (relu; {tile_w} picked): "
+              + ", ".join(f"{wt}: {t:.4f}" for wt, t in widths.items()))
+        per_shape[-2]["device_ms_by_tile_w"] = {str(wt): t for wt, t in widths.items()}
     print("K3 per 512x512 frame ({} convs), CUDA events / device: ".format(K3_PER_FRAME)
           + ", ".join(f"{n} {ev:.4f} / {dev:.4f} ms" for n, (ev, dev) in per_frame.items()))
     print(f"K3 per 512x512 frame: bound {frame_bound:.4f} ms, reached "
@@ -579,7 +634,7 @@ def phase_k3(card: str) -> dict:
     return {"max_abs_err": worst, "ms": per_frame["kernel"][0],
             "plain_ms": per_frame["plain fp32"][0], "device_ms": per_frame["kernel"][1],
             "bound_ms": frame_bound, "bound_by": max(by_resource, key=by_resource.get),
-            "library_ms": per_frame["cuDNN bf16"][1]}
+            "library_ms": per_frame["cuDNN bf16"][1], "per_shape": per_shape}
 
 
 def phase_k2_path(frame) -> int:

@@ -11,8 +11,8 @@ Bars: K1 max |d| within two bf16 ulps of the largest output and mean |d|
 within 2^-7 of the mean |output| (both round the output to bf16, and they
 round P at different points; measured: one ulp, and 0.6 * 2^-8); K2 equal bit
 for bit; K3 within one
-bf16 ulp of the largest output (both round fp32 sums of exact bf16
-products once, in different summation orders).
+bf16 ulp of the largest output and mean |d| <= 1e-5 (both round fp32 sums of
+exact bf16 products once, in different summation orders).
 """
 
 import pytest
@@ -133,3 +133,60 @@ def test_k3_matches_plain_on_card(gen):
             assert (out.float() - ref.float()).abs().max().item() <= ulp.item()
     with pytest.raises(ValueError, match="bfloat16"):
         K3.packed_conv3x3(w, bias, xp.float(), relu=True)
+
+
+# K3: the main path's shapes, batch 2, and heights and widths off every tile
+_K3_SHAPES = [(1, 512, 256, 128), (1, 256, 128, 128), (1, 128, 64, 128), (1, 64, 32, 128),
+              (2, 64, 48, 128), (1, 13, 7, 128), (1, 1, 1, 128), (1, 3, 129, 128)]
+# (relu, skip, bias): the block's first two convs, its third, and the two
+# the wrapper also takes
+_K3_EPILOGUES = {"relu": (True, False, True), "skip-relu": (True, True, True),
+                 "plain": (False, False, False), "skip": (False, True, True)}
+
+
+def _k3_inputs(gen, shape):
+    w = (torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1).div(24).bfloat16()
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
+    xp = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    skip = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    return w, bias, xp, skip
+
+
+def _assert_k3_close(out, ref):
+    err = (out.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    ulp = 2.0 ** (torch.floor(torch.log2(torch.tensor(top))).item() - 7) if top else 0.0
+    assert torch.isfinite(out).all()
+    assert err.max().item() <= ulp and err.mean().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", _K3_EPILOGUES)
+@pytest.mark.parametrize("shape", _K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k3_every_shape_and_epilogue_on_card(gen, shape, epilogue):
+    """One launch per call, a fresh output (never xp or skip), within one
+    bf16 ulp of the plain version."""
+    w, bias, xp, skip = _k3_inputs(gen, shape)
+    relu, has_skip, has_bias = _K3_EPILOGUES[epilogue]
+    args = (w, bias if has_bias else None, xp)
+    kw = {"relu": relu, "skip": skip if has_skip else None}
+    before = K3.launches
+    out = K3.packed_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1 and out.shape == xp.shape and out.dtype == torch.bfloat16
+    assert out.data_ptr() not in (xp.data_ptr(), skip.data_ptr())
+    _assert_k3_close(out, K3.packed_conv3x3_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k3_every_tile_width_on_card(gen, shape):
+    """Every tile the kernel can run gives the plain version's result, with
+    and without the skip; a width outside :data:`TILE_WIDTHS` is refused."""
+    w, bias, xp, skip = _k3_inputs(gen, shape)
+    for sk in (None, skip):
+        ref = K3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=sk)
+        for wt in K3.TILE_WIDTHS:
+            _assert_k3_close(K3._launch(w, bias, xp, True, sk, tile_w=wt), ref)
+    with pytest.raises(ValueError, match="tile width"):
+        K3._launch(w, bias, xp, True, None, tile_w=256)

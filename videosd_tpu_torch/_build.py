@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, ci, vp,
     ]
     lib.videosd_flash_attention_fwd.restype = ci
-    lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.videosd_taesd_conv3x3.restype = ci
     fl = ctypes.c_float
     lib.videosd_fused_preprocess.argtypes = [vp, vp, ci, vp, vp, ci, ci, fl, fl, vp]

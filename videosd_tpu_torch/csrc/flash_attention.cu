@@ -67,11 +67,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
+#include "tma_sm90.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kBlockN = 64;      // keys per K/V tile
 constexpr int kRowsPerWg = 64;   // q rows per consumer warpgroup (wgmma M)
@@ -90,10 +91,6 @@ struct Params {
 
 // ---------------------------------------------------------------- PTX helpers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
@@ -103,52 +100,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Makes this thread's earlier shared-memory writes visible to the async proxy
-// (wgmma reads its shared-memory operands through it).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// One arrival that also announces `bytes` of TMA traffic to wait for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Spins until the barrier's phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA: one box of the 3-D tensor map at (c0, c1, c2), innermost first, into
-// shared memory; completion is counted in bytes on the mbarrier.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -516,70 +467,15 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 
 // ---------------------------------------------------------------- tensor maps
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda once (nothing links it).
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      sym = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(sym);
-  }();
-  return fn;
-}
-
 // A [batch, rows, cols] bf16 tensor with unit inner stride, read in boxes of
 // 64 rows x 64 columns written in the 128-byte swizzle; what a box reads
 // outside the tensor comes as zeros.
-struct MapKey {
-  const void* ptr;
-  long long batch_stride, row_stride;
-  int batch, rows, cols;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && batch_stride == o.batch_stride && row_stride == o.row_stride &&
-           batch == o.batch && rows == o.rows && cols == o.cols;
-  }
-};
-
-// Tensor maps are cached by tensor geometry: the frame program sends the same
-// few buffers from the allocator's pool again and again.
-cudaError_t tensor_map(const MapKey& key, CUtensorMap* out) {
-  constexpr int kSlots = 64;
-  static MapKey keys[kSlots];
-  static CUtensorMap maps[kSlots];
-  static int used = 0, next = 0;
-  static std::mutex mutex;
-  std::lock_guard<std::mutex> lock(mutex);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == key) {
-      *out = maps[i];
-      return cudaSuccess;
-    }
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)key.cols, (cuuint64_t)key.rows, (cuuint64_t)key.batch};
+cudaError_t tile_map(const void* ptr, long long batch_stride, long long row_stride, int batch,
+                     int rows, int cols, CUtensorMap* out) {
   // a batch of one may carry any stride: give the map a valid one
-  const long long bs = key.batch == 1 ? key.rows * key.row_stride : key.batch_stride;
-  const cuuint64_t strides[2] = {(cuuint64_t)key.row_stride * 2, (cuuint64_t)bs * 2};  // bytes
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(key.ptr), dims, strides,
-             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  const int slot = used < kSlots ? used++ : (next = (next + 1) % kSlots);
-  keys[slot] = key;
-  maps[slot] = map;
-  *out = map;
-  return cudaSuccess;
+  const long long bs = batch == 1 ? rows * row_stride : batch_stride;
+  MapKey key{ptr, 3, {cols, rows, batch, 1}, {row_stride * 2, bs * 2, 0}, {64, 64, 1, 1}};
+  return tensor_map(key, out);
 }
 
 // ---------------------------------------------------------------- launch
@@ -599,9 +495,9 @@ cudaError_t launch(const Params& p, int batch, int device, cudaStream_t stream) 
   CUtensorMap map_q{}, map_k{}, map_v{};
   if constexpr (T::kTma) {
     const int cols = p.heads * D;
-    cudaError_t err = tensor_map({p.q, p.q_bs, p.q_rs, batch, p.sq, cols}, &map_q);
-    if (err == cudaSuccess) err = tensor_map({p.k, p.k_bs, p.k_rs, batch, p.sk, cols}, &map_k);
-    if (err == cudaSuccess) err = tensor_map({p.v, p.v_bs, p.v_rs, batch, p.sk, cols}, &map_v);
+    cudaError_t err = tile_map(p.q, p.q_bs, p.q_rs, batch, p.sq, cols, &map_q);
+    if (err == cudaSuccess) err = tile_map(p.k, p.k_bs, p.k_rs, batch, p.sk, cols, &map_k);
+    if (err == cudaSuccess) err = tile_map(p.v, p.v_bs, p.v_rs, batch, p.sk, cols, &map_v);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(p.sq / (NWG * kRowsPerWg), batch * p.heads);

@@ -1,6 +1,6 @@
 // wgmma (warpgroup matrix multiply-accumulate) and its companions for sm_90a.
 //
-// Thin inline-PTX wrappers used by flash_attention.cu.  All products are
+// Thin inline-PTX wrappers used by flash_attention.cu and taesd_conv.cu.  All products are
 // m64 x N x k16, bf16 operands, fp32 accumulators.  The accumulator of an
 // m64nN instruction is N/2 floats per thread: thread `t` of the warpgroup
 // (warp w = t/32, g = (t%32)/4, c = t%4) holds, for each 8-column tile j,
@@ -28,6 +28,11 @@
 //     bytes inside the panel.
 //   MN-major: a panel holds 64 elements of N per reduction step; LBO = bytes
 //     between panels, SBO = 1024 (8 reduction steps).
+// The hardware applies the swizzle to the absolute shared-memory address
+// (bits 4-6 XOR bits 7-9), as TMA writes it: a K-major operand may start at
+// any 128-byte row of a swizzled buffer, not only at an atom, with the
+// descriptor's base-offset field left 0 (checked on an H100 at all eight
+// row phases; setting the field to (start >> 7) & 7 gave wrong sums).
 #pragma once
 
 #include <stdint.h>
@@ -80,6 +85,71 @@ __device__ __forceinline__ void ss_m64n64k16(float (&d)[32], uint64_t a_desc, ui
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N]; A and B K-major in shared memory
+// (scale_d = 0 overwrites d).  N = 32, 64, 128.
+template <int N>
+struct Ss;
+
+template <>
+struct Ss<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a_desc, uint64_t b_desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Ss<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a_desc, uint64_t b_desc,
+                                             int scale_d) {
+    ss_m64n64k16(d, a_desc, b_desc, scale_d);
+  }
+};
+
+template <>
+struct Ss<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a_desc, uint64_t b_desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+  }
+};
 
 // d[64 x N] += A[64 x 16] B[16 x N]; A from registers, B MN-major in shared
 // memory (trans-b = 1).

@@ -1,8 +1,10 @@
 """The TAESD residual-block 3x3 conv with its fused epilogue (kernel K3).
 
 Replaces ``videosd_tpu/ops/pallas/taesd_conv.py::packed_conv3x3`` (the TPU
-kernel).  The CUDA source is ``videosd_tpu_torch/csrc/taesd_conv.cu``; it is
-built on first launch by :mod:`videosd_tpu_torch._build`.
+kernel).  The CUDA source is ``videosd_tpu_torch/csrc/taesd_conv.cu`` (wgmma
+with the output channels on M and the pixels on N, the nine taps resident in
+shared memory, a ring of TMA halo stages, a persistent grid); it is built on
+first launch by :mod:`videosd_tpu_torch._build`.
 
 Activations keep the TPU kernel's pixel-pair-packed signature
 ``[B, H, W/2, 2C]``, which is the same memory as NHWC ``[B, H, W, C]``; the
@@ -18,6 +20,9 @@ taps only filled the TPU's 128 lanes).
 * :func:`packed_conv3x3` is the kernel's wrapper.  A CPU tensor takes the
   plain version; a CUDA tensor launches the kernel (bf16 only) or raises.
   Each launch adds one to :data:`launches`.
+* :func:`tile_width` picks the kernel's tile, one output row of WT pixels,
+  from the shape, among :data:`TILE_WIDTHS`; :func:`smem_bytes` and
+  :func:`tile_origins` mirror the kernel's shared memory and tile order.
 """
 
 from __future__ import annotations
@@ -25,9 +30,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["launches", "packed_conv3x3", "packed_conv3x3_reference", "supports"]
+__all__ = [
+    "TILE_WIDTHS",
+    "launches",
+    "packed_conv3x3",
+    "packed_conv3x3_reference",
+    "smem_bytes",
+    "supports",
+    "tile_origins",
+    "tile_width",
+]
 
 CHANNELS = 64
+NUM_SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use
+# The kernel's tiles: one output row of WT pixels, widest first.  WT is the N
+# of each wgmma.
+TILE_WIDTHS = (128, 64, 32)
+_PIXEL_BYTES = 2 * CHANNELS
+_TAPS_BYTES = 9 * CHANNELS * _PIXEL_BYTES
+_CONSUMERS = 2  # consumer warpgroups per block, each with its own output tile
+_MAX_STAGES = 4
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
@@ -71,6 +94,51 @@ def packed_conv3x3(weight, bias, xp, *, relu: bool, skip=None):
     return _launch(weight, bias, xp, relu, skip)
 
 
+def _round1k(n: int) -> int:
+    return (n + 1023) // 1024 * 1024
+
+
+def _stage_bytes(wt: int) -> int:
+    return _round1k(3 * (wt + 2) * _PIXEL_BYTES)  # one TMA box of halo
+
+
+def halo_stages(wt: int) -> int:
+    """Halo stages in the kernel's ring for tiles of ``wt`` pixels: as many
+    as fit beside the taps and the output tiles, at most 4
+    (``Plan::kStages``)."""
+    fit = (SMEM_LIMIT - 2048 - _TAPS_BYTES - _CONSUMERS * wt * _PIXEL_BYTES) // _stage_bytes(wt)
+    return min(_MAX_STAGES, fit)
+
+
+def smem_bytes(wt: int) -> int:
+    """Dynamic shared memory of one block for tiles of ``wt`` pixels
+    (``Plan::kSmem``): 1024 bytes to align it to the swizzle atom, the taps,
+    the halo ring and one output tile per consumer warpgroup."""
+    return (1024 + _TAPS_BYTES + halo_stages(wt) * _stage_bytes(wt)
+            + _CONSUMERS * wt * _PIXEL_BYTES)
+
+
+def tile_origins(b: int, h: int, w: int, wt: int) -> list:
+    """(image, row, x0) of every tile in the kernel's order, x fastest."""
+    tx = -(-w // wt)
+    return [(t // (tx * h), t // tx % h, t % tx * wt) for t in range(b * h * tx)]
+
+
+def tile_width(b: int, h: int, w: int) -> int:
+    """The tile for ``b`` images of ``h`` x ``w`` pixels: the widest of
+    :data:`TILE_WIDTHS` that still gives every SM a tile (``NUM_SMS``),
+    else the narrowest.
+
+    On an H100 at 700 W (``chip_smoke.py`` times every width at the 512^2
+    frame's four TAESD sizes): 128 pixels is fastest at 512^2 and 256^2
+    (2048 and 512 tiles), 64 at 128^2 (256 tiles, where 128 leaves 4 of 132
+    SMs idle and 32 halves each product), and 32 at 64^2.
+    """
+    if min(b, h, w) < 1:
+        raise ValueError(f"empty shape {(b, h, w)}")
+    return next((wt for wt in TILE_WIDTHS if b * h * -(-w // wt) >= NUM_SMS), TILE_WIDTHS[-1])
+
+
 def _cached(t, name: str, make):
     """``make(t)``, kept on ``t`` itself (so outside any state dict) until
     ``t`` is written in place or its storage changes (inference tensors
@@ -83,23 +151,31 @@ def _cached(t, name: str, make):
     return hit[1]
 
 
+def _swizzle_index(co: int, ci: int, device):
+    """Chunk c of row r -> chunk c ^ (r % 8), as a gather index over
+    ``[9, co, ci / 8, 8]``; the map is its own inverse."""
+    rows = torch.arange(co, device=device)[:, None] % 8
+    chunks = torch.arange(ci // 8, device=device)[None, :]
+    return (chunks ^ rows)[None, :, :, None]
+
+
 def _taps(weight):
     """``[Co, Ci, 3, 3]`` -> ``[9, Co, Ci]`` bf16, tap = 3 * dy + dx: the
-    kernel's B operand with the input channels contiguous."""
+    kernel's A operand, one 128-byte row per output channel in the 128-byte
+    swizzle (the 16-byte chunk c of row co stored at chunk c ^ (co % 8))."""
     co, ci = weight.shape[:2]
-    return weight.permute(2, 3, 0, 1).reshape(9, co, ci).to(torch.bfloat16).contiguous()
+    t = weight.permute(2, 3, 0, 1).reshape(9, co, ci // 8, 8).to(torch.bfloat16)
+    return t.gather(2, _swizzle_index(co, ci, t.device).expand_as(t)).reshape(9, co, ci)
 
 
-def _launch(weight, bias, xp, relu: bool, skip):
-    global launches
-    from videosd_tpu_torch._build import load_library
-
-    if xp.device.type != "cuda":
-        raise ValueError(f"the TAESD conv kernel needs CUDA tensors, got {xp.device}")
+def _check(weight, bias, xp, skip) -> None:
+    """Raise on what the kernel does not take, the device type aside."""
     if not supports(xp.shape):
         raise ValueError(f"packed shape {tuple(xp.shape)} is not [B, H, W/2, {2 * CHANNELS}]")
     if tuple(weight.shape) != (CHANNELS, CHANNELS, 3, 3):
         raise ValueError(f"weight must be [{CHANNELS}, {CHANNELS}, 3, 3], got {tuple(weight.shape)}")
+    if bias is not None and tuple(bias.shape) != (CHANNELS,):
+        raise ValueError(f"bias must be [{CHANNELS}], got {tuple(bias.shape)}")
     for name, t in (("xp", xp), ("skip", skip)):
         if t is None:
             continue
@@ -107,26 +183,44 @@ def _launch(weight, bias, xp, relu: bool, skip):
             raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
         if t.shape != xp.shape or t.device != xp.device:
             raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not match xp")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        # torch allocates storage at 16-byte multiples, so the offset decides
+        if not t.is_contiguous() or t.storage_offset() % 8:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in (("weight", weight), ("bias", bias)):
         if t is not None and t.device != xp.device:
             raise ValueError(f"{name} on {t.device}, xp on {xp.device}")
+
+
+def _launch(weight, bias, xp, relu: bool, skip, tile_w=None):
+    """Launches the kernel; ``tile_w`` overrides :func:`tile_width` with
+    another of :data:`TILE_WIDTHS` (``chip_smoke.py`` times them all)."""
+    global launches
+    from videosd_tpu_torch._build import load_library
+
+    if xp.device.type != "cuda":
+        raise ValueError(f"the TAESD conv kernel needs CUDA tensors, got {xp.device}")
+    _check(weight, bias, xp, skip)
+    b, h, wp, _ = xp.shape
+    if tile_w is None:
+        tile_w = tile_width(b, h, 2 * wp)
+    elif tile_w not in TILE_WIDTHS:
+        raise ValueError(f"tile width {tile_w} not in {TILE_WIDTHS}")
     lib = load_library()
     taps = _cached(weight, "_k3_taps", _taps)
-    if bias is None:
-        bias32 = torch.zeros(CHANNELS, dtype=torch.float32, device=xp.device)
-    else:
-        bias32 = _cached(bias, "_k3_bias", lambda b: b.float().contiguous())
-    b, h, wp, _ = xp.shape
+    bias32 = None if bias is None else _cached(bias, "_k3_bias", lambda t: t.float().contiguous())
     out = torch.empty_like(xp)  # never xp: neighbouring tiles still read it
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = lib.videosd_taesd_conv3x3(
-            xp.data_ptr(), taps.data_ptr(), bias32.data_ptr(),
-            None if skip is None else skip.data_ptr(), out.data_ptr(),
-            b, h, 2 * wp, int(relu), stream,
-        )
+    dev = xp.device.index
+    args = (
+        xp.data_ptr(), taps.data_ptr(), None if bias32 is None else bias32.data_ptr(),
+        None if skip is None else skip.data_ptr(), out.data_ptr(),
+        b, h, 2 * wp, int(relu), tile_w, dev,
+        torch.cuda.current_stream(xp.device).cuda_stream,
+    )
+    if dev == torch.cuda.current_device():
+        err = lib.videosd_taesd_conv3x3(*args)
+    else:
+        with torch.cuda.device(xp.device):
+            err = lib.videosd_taesd_conv3x3(*args)
     if err != 0:
         raise RuntimeError(f"TAESD conv launch failed: cudaError {err}")
     launches += 1
