@@ -9,10 +9,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: compile the package's CUDA kernels from ``videosd_tpu_torch/csrc``;
 3. kernel K1 (flash attention) against its plain PyTorch version in bf16 at
    the main path's shapes and at further ones (keys != queries, batch 2,
-   d = 64), and the in-place ``[B, S, H*D]`` entry against the folded one;
+   d = 64), at every kind of head dim up to 256 (the tiny family's 8 and
+   16, d below its instance's width, d off the 16-byte rows, the widest),
+   with the heads read in place beside heads of large values, and the
+   in-place ``[B, S, H*D]`` entry against the folded one; then its fp32
+   kernel against the plain version in fp32;
 4. the committed trained tiny checkpoint (``examples/toy_tiny_ckpt``) runs
    its 2-step frame program on CUDA and on the CPU in fp32, with TF32 off,
-   from the same inputs and noise; the outputs must agree;
+   from the same inputs and noise, at 64x64, 128x128 and 256x256; the
+   outputs must agree, and at 128x128 and 256x256 the routed attentions
+   (d = 8 and 16) must launch K1's fp32 kernel: the path of that kernel;
 5. the main path: a random-weight sd15 bundle in bf16, the prompt encoder,
    and the 512x512 4-step ControlNet + TAESD frame program for a few
    frames; K1's launch count over those frames must be 84 per frame;
@@ -37,16 +43,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of query rows per block the kernel can run: the first profiler sessions
    of the run, after every frame timing;
 7. kernel K2 (the fused preprocess with its Sobel stencil) against its
-   plain version at three frame sizes: equal bit for bit, with both times;
+   plain version at four frame sizes: equal bit for bit, one device kernel
+   per call, with both times; and captured in a CUDA graph, whose replay on
+   a new frame is equal bit for bit too;
 8. kernel K3 (the TAESD 3x3 conv) against its plain version at the main
    path's shapes and at ragged ones, all four epilogues, with each shape's
    tile width; at the main path's shapes one kernel per call, its device
    time beside its bound, the plain version's and a cuDNN bf16 conv's, and
-   every tile width held to the bar and timed;
+   every tile width held to the bar and timed; then its fp32 kernel at the
+   main path's shapes and every epilogue, likewise (cuDNN in fp32, TF32
+   off);
 9. the ``fused_preprocess`` entry on the main path's frame (K2's path);
 10. TAESD encode + decode at 512x512 through K3 against an fp32 copy and
-    the packed library route, and the device time of encode + decode on
-    every route;
+    the packed library route, the fp32 copy through K3's fp32 kernel
+    against the fp32 default route (the path of that kernel), and the
+    device time of encode + decode on every route;
 11. last, one torch.profiler pass over two main-path frames: kernel
     launches and device-busy time per frame, K1's share, and the copy
     kernels (K1 reads the heads in place, so no fold copies remain).
@@ -54,8 +65,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
 are not counted.  The line before the last is a JSON object of per-kernel
-results (each with its bound, computed from the shapes: the larger of its
-bytes over 3.35 TB/s and its operations over 989 TFLOP/s); the last line is
+results (each with its bound, computed from the shapes: the largest of its
+bytes over 3.35 TB/s, its flops over the peak of their type (989 TFLOP/s in
+bf16; fp32 FFMA, 132 SMs x 128 lanes x 2 at the SM clock) and, for K1, its
+exponentials over the exp unit's 16 per clock per SM; the clock is the
+card's maximum SM clock, read from nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
 """
 
@@ -106,8 +120,34 @@ K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
 # takes 128 rows per block), d = 64, and few queries on many keys at d = 160
 K1_EXTRA = [(1, 8, 4096, 8192, 40), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
             (1, 8, 1024, 1024, 64), (1, 8, 256, 4096, 160)]
-# the card's published peaks (H100 SXM): dense bf16 tensor-core rate, HBM rate
+# K1 in bf16 at every kind of head dim, as (B, H, Sq, Sk, d): the tiny
+# family's 8 (256^2: 1024 tokens) and 16 (keys != queries), 24 and 72 (below
+# their instance's width, 40 and 80), 20 (off the 16-byte rows: a padded
+# copy), 64, and 256 (the widest instance); heads read in place beside heads
+# of large values (_k1_case)
+K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
+                (1, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
+                (1, 2, 256, 256, 256)]
+# K1's fp32 kernel: the main path's longest shape, the tiny family's shapes at
+# 256^2, and the same kinds of head dim as above
+K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16),
+           (1, 4, 256, 512, 20), (1, 8, 1024, 2048, 72), (1, 2, 256, 256, 256)]
+# the shapes timed beside their bounds: the main path's three, and the tiny
+# family's two at 256^2 (d = 8 and 16), in each dtype
+K1_TIMED = {"bf16": [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
+                     (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)],
+            "fp32": [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)]}
+# the card's published peaks (H100 SXM): dense bf16 tensor-core rate, HBM rate;
+# and the rates that scale with the SM clock: FFMA lanes and ex2 per SM
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+NUM_SMS, FFMA_LANES_PER_SM, EXP_PER_CLOCK_PER_SM = 132, 128, 16
+# fp32 kernels (K1 and K3) against their plain versions, which are fp32 too
+# (TF32 off): both sum fp32 products in other orders (~1e-6 relative apart)
+# and cuDNN may run an fp32 conv as Winograd (~1e-5); max |d| within 2^-13
+# of the largest output, mean |d| within 2^-16 of the mean |output|.  A
+# kernel that ran its products in TF32 (10-bit mantissa) is ~1e-3 relative
+# off, 60x over the mean bar
+FP32_MAX_REL, FP32_MEAN_REL = 2.0 ** -13, 2.0 ** -16
 # bf16 bar of K1 against its plain version, relative to the outputs (with
 # randn inputs |o| shrinks as the keys grow: ~0.02 at 4096 keys): both round
 # the output to bf16 (half an ulp, 2^-9 relative, each) and they round P at
@@ -125,15 +165,20 @@ K1_PER_FRAME = 84
 # orders (fp32, TF32 off); latents are O(1), so 1e-3 absolute is ~1e4 ulps
 # of drift over two denoise steps, and images may move by one level
 TINY_LAT_ATOL, TINY_IMG_LEVELS = 1e-3, 1
+# its frame sizes: at 64^2 no attention routes to K1; at 128^2 the 256-token
+# down and up attentions (d = 8) do, and at 256^2 those at 1024 tokens and
+# the 256-token mid block (d = 16)
+TINY_SIZES = (64, 128, 256)
 # one sd15 UNet call in bf16 with K1 against the same call with the plain
 # attention: relative L2 difference of the noise prediction
 # (bf16 rounding, 2^-8 relative, of each attention output compounds through
 # the 16 transformer blocks; 5e-2 leaves room over the measured ~1.1e-2)
 UNET_REL_L2 = 5e-2
 MAIN_FRAMES = 5
-# K2's frame sizes: the main path's, the engine's mailbox frame_hw, and a
-# camera size off the TPU kernel's 128-tiling
-K2_SHAPES = [(512, 512), (768, 768), (480, 640)]
+# K2's frame sizes: the main path's, the engine's mailbox frame_hw, a camera
+# size off the TPU kernel's 128-tiling, a 1080p camera frame (the largest whose
+# |grad| the kernel holds through its barrier), and a 2160p one (recomputed)
+K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920), (2160, 3840)]
 # K3's shapes on the main path as packed [B, H, W/2, 128], with the number of
 # convs per 512^2 frame at each: TAESD's 20 residual blocks x 3 convs, the
 # third of each with the skip epilogue
@@ -153,6 +198,10 @@ K3_PER_FRAME = sum(K3_SHAPES.values())  # 60
 # boundary, by one bf16 ulp of its own size: max |d| may be one ulp of the
 # largest output, and such outputs are rare (mean |d| measured ~6e-8)
 K3_MEAN_ABS = 1e-5
+# TAESD at 512^2 in fp32 through K3's fp32 kernel against the fp32 default
+# route (cuDNN, TF32 off): 60 convs of ~1e-6 relative each, compounded
+# through the blocks; a wrong conv is O(1) off
+TAESD_FP32_REL_L2 = 1e-4
 # TAESD at 512^2 in bf16 against an fp32 copy: the K3 route may be no
 # further from fp32 than the default cuDNN route is (it rounds once per conv,
 # the library routes before and after bias, ReLU and skip; measured rel L2
@@ -254,18 +303,28 @@ def device_ms(fn, iters: int = 5) -> float:
     return sum(k.device_us for k in _profiled(fn, iters)) / iters / 1e3
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of operations over the
-    bf16 peak and bytes (each input read once, each output written once)
-    over the memory rate; and which of the two it is."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_ms(nbytes: float, flops: float, dtype: str, sm_clock_hz: float,
+             exps: float = 0.0) -> tuple[float, str, str]:
+    """The least time the card could take: the largest of the bytes (each
+    input read once, each output written once) over the memory rate, the
+    flops over the peak of their type (``dtype`` "bf16": the tensor cores'
+    989 TFLOP/s; "fp32": the FFMA lanes, 132 SMs x 128 x 2 at the SM clock)
+    and the exponentials over the exp unit (16 per clock per SM).  Returns
+    (ms, "bytes" or "operations", the term that sets it)."""
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else NUM_SMS * FFMA_LANES_PER_SM * 2 * sm_clock_hz
+    terms = {"bytes": nbytes / PEAK_BYTES, f"{dtype} flops": flops / peak,
+             "ex2": exps / (NUM_SMS * EXP_PER_CLOCK_PER_SM * sm_clock_hz)}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
-def k1_bound(b: int, h: int, sq: int, sk: int, d: int) -> tuple[float, str]:
-    """K1's bound: 4 Sq Sk d flops per head; q, k, v read and o written once
-    in bf16."""
-    return bound_ms(4.0 * b * h * sq * sk * d, 2.0 * b * h * d * (2 * sq + 2 * sk))
+def k1_bound(b: int, h: int, sq: int, sk: int, d: int, sm_clock_hz: float,
+             dtype: str = "bf16") -> tuple[float, str, str]:
+    """K1's bound: 4 Sq Sk d flops and Sq Sk exponentials per head; q, k, v
+    read and o written once."""
+    elem = 2.0 if dtype == "bf16" else 4.0
+    return bound_ms(elem * b * h * d * (2 * sq + 2 * sk), 4.0 * b * h * sq * sk * d, dtype,
+                    sm_clock_hz, exps=1.0 * b * h * sq * sk)
 
 
 def k1_within_bar(out, ref) -> tuple[bool, float, float, float, float]:
@@ -281,21 +340,39 @@ def k1_within_bar(out, ref) -> tuple[bool, float, float, float, float]:
     return ok, mx, mean, max_bar, mean_bar
 
 
+def fp32_within_bar(out, ref) -> tuple[bool, float, float, float, float]:
+    """(an fp32 kernel's output is finite and within FP32_MAX_REL of the
+    largest plain output and FP32_MEAN_REL of the mean, max |d|, mean |d|,
+    the bar on the max, the bar on the mean)."""
+    err = (out - ref).abs()
+    mx, mean = err.max().item(), err.mean().item()
+    max_bar = FP32_MAX_REL * ref.abs().max().item()
+    mean_bar = FP32_MEAN_REL * ref.abs().mean().item()
+    ok = bool(torch.isfinite(out).all()) and mx <= max_bar and mean <= mean_bar
+    return ok, mx, mean, max_bar, mean_bar
+
+
 def timed(fn) -> tuple[float, float]:
     """(CUDA-event ms per call, device ms per call)."""
     return cuda_ms(fn), device_ms(fn)
 
 
-def phase_card() -> str:
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_card() -> tuple[str, float]:
+    """The card's name and power limit, and its maximum SM clock in Hz (the
+    clock the fp32 and exp terms of the bounds take)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
     print(f"card: {smi}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    return smi
+    print(f"max SM clock {clock_mhz:g} MHz (the bounds' fp32 flop and exp terms); torch "
+          f"{torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    return smi, clock_mhz * 1e6
 
 
 def phase_build() -> None:
@@ -320,12 +397,20 @@ def _demangle(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def _k1_case(gen, b, h, sq, sk, d):
-    """K1 on [b, s, h*d] tensors through the in-place entry, held against
-    the plain version on the folded heads and against the folded entry;
-    returns the largest |d| from the plain version."""
-    q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda").bfloat16()
-               for n in (sq, sk, sk))
+def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
+    """K1 on [b, s, h*d] slices of one fused q|k|v buffer (the heads read in
+    place), held against the plain version on the folded heads and, bit for
+    bit, against the folded entry; returns the largest |d| from the plain
+    version.  With ``loud`` the odd heads' q and k are 8x larger and their v
+    8x smaller (outputs keep their size): a kernel that read a neighbour's
+    columns into a head's padded depth would be far off."""
+    s = max(sq, sk)
+    fused = torch.randn(b, s, 3, h, d, generator=gen, device="cuda")
+    if loud:
+        fused[:, :, :2, 1::2] *= 8.0
+        fused[:, :, 2, 1::2] /= 8.0
+    fused = fused.reshape(b, s, 3 * h * d).to(dtype)
+    q, k, v = (fused[:, :n, i * h * d:(i + 1) * h * d] for i, n in enumerate((sq, sk, sk)))
 
     def fold(x):
         return x.reshape(b, x.shape[1], h, d).transpose(1, 2).reshape(b * h, x.shape[1], d)
@@ -339,17 +424,25 @@ def _k1_case(gen, b, h, sq, sk, d):
     folded = fa.flash_attention_bhsd(qf, kf, vf, scale)
     torch.cuda.synchronize()
     ref = unfold(fa.flash_attention_reference(qf, kf, vf, scale))
-    ok, mx, mean, max_bar, mean_bar = k1_within_bar(out, ref)
     name = f"[{b},{h},{sq},{sk},{d}]"
     same = torch.equal(unfold(folded), out)
-    print(f"K1 {name} bf16, {fa.block_rows(sq, b * h, d)} rows/block: max|d| {mx:.3e} (bar "
-          f"{max_bar:.3e}: {K1_MAX_ULPS} ulps of the largest output) mean|d| {mean:.3e} (bar "
-          f"{mean_bar:.3e}: 2^-7 of mean|o| {ref.float().abs().mean().item():.3e}); in-place "
-          f"entry equals the folded one bit for bit: {same}")
+    if dtype == torch.float32:
+        ok, mx, mean, max_bar, mean_bar = fp32_within_bar(out, ref)
+        bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: 2^-13 of max|o|) mean|d| {mean:.3e} (bar "
+                f"{mean_bar:.3e}: 2^-16 of mean|o|)")
+        plan = "fp32, 64 rows/block"
+    else:
+        ok, mx, mean, max_bar, mean_bar = k1_within_bar(out, ref)
+        bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: {K1_MAX_ULPS} ulps of the largest output) "
+                f"mean|d| {mean:.3e} (bar {mean_bar:.3e}: 2^-7 of mean|o| "
+                f"{ref.float().abs().mean().item():.3e})")
+        plan = f"bf16, {fa.block_rows(sq, b * h, d)} rows/block on the {fa.instance_width(d)}-wide instance"
+    print(f"K1 {name} {plan}{', loud neighbours' if loud else ''}: {bars}; in-place entry "
+          f"equals the folded one bit for bit: {same}")
     if not ok:
-        fail(f"K1 disagrees with its plain version at {name}")
+        fail(f"K1 disagrees with its plain version at {name} {dtype}")
     if not same:  # one kernel, one plan, one order of sums
-        fail(f"K1's in-place entry differs from the folded one at {name}")
+        fail(f"K1's in-place entry differs from the folded one at {name} {dtype}")
     return mx
 
 
@@ -357,89 +450,141 @@ def _k1_cases():
     return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA
 
 
-def phase_k1() -> float:
-    """K1 against its plain version at every shape; the largest |d|."""
+def phase_k1() -> tuple[float, float]:
+    """K1 against its plain version at every shape: the largest |d| of the
+    bf16 kernel and of the fp32 kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    return max(_k1_case(gen, *case) for case in _k1_cases())
+    bf16 = max(_k1_case(gen, *case) for case in _k1_cases())
+    bf16 = max([bf16] + [_k1_case(gen, *case, loud=True) for case in K1_HEAD_DIMS])
+    fp32 = max(_k1_case(gen, *case, dtype=torch.float32, loud=True) for case in K1_FP32)
+    for bad, dtype in ((64, torch.float16), (264, torch.bfloat16)):  # what K1 still refuses
+        x = torch.zeros(1, 64, 2 * bad, dtype=dtype, device="cuda")
+        try:
+            fa.flash_attention(x, x, x, num_heads=2)
+        except ValueError as err:
+            print(f"K1 refuses d = {bad} in {dtype}: {err}")
+        else:
+            fail(f"K1 took d = {bad} in {dtype}")
+    return bf16, fp32
 
 
-def phase_k1_times(card: str) -> dict:
+def _k1_time(gen, b, h, sq, sk, d, dtype, card, clock) -> dict:
+    """K1's time at one shape beside its bound, one scaled_dot_product_attention
+    call (the yardstick, used nowhere in the port) and the plain version."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype)
+               for n in (sq, sk, sk))
+    q4, k4, v4 = (x.reshape(b, x.shape[1], h, d).transpose(1, 2) for x in (q, k, v))
+    qf, kf, vf = (x.reshape(b * h, x.shape[2], d) for x in (q4, k4, v4))
+    t_k = timed(lambda: fa.flash_attention(q, k, v, num_heads=h))
+    # heads in place: one attention is one kernel
+    kernels = sum(e.count for e in _profiled(
+        lambda: fa.flash_attention(q, k, v, num_heads=h), 5)) / 5
+    if kernels != 1:
+        fail(f"K1 at [{b},{h},{sq},{sk},{d}] {dtype} ran {kernels:g} kernels per attention: a copy?")
+    t_l = timed(lambda: sdpa(q4, k4, v4))
+    t_p = cuda_ms(lambda: fa.flash_attention_reference(qf, kf, vf, d ** -0.5), iters=5)
+    flops = 4.0 * b * h * sq * sk * d
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    bound, by, term = k1_bound(b, h, sq, sk, d, clock, kind)
+    print(f"K1 [{b},{h},{sq},{sk},{d}] {kind}: device {t_k[1]:.4f} ms ({flops / t_k[1] / 1e9:.1f} "
+          f"TFLOP/s; CUDA events {t_k[0]:.4f}; {kernels:g} kernel(s) per attention), bound "
+          f"{bound * 1e3:.2f} us by {term} (reached {bound / t_k[1]:.1%}), library SDPA "
+          f"{kind} device {t_l[1]:.4f} ms (events {t_l[0]:.4f}), plain {t_p:.4f} ms ({card})")
+    return {"shape": [h, sq, d] if b == 1 and sq == sk else [b, h, sq, sk, d],
+            "device_ms": t_k[1], "ms": t_k[0], "plain_ms": t_p, "library_ms": t_l[1],
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "q": q, "k": k, "v": v, "qf": qf, "kf": kf, "vf": vf}
+
+
+def _k1_totals(rows) -> dict:
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    by = collections.Counter()
+    for r in rows:
+        by[r["bound_by"]] += r["bound_ms"]
+    return {**total, "bound_by": by.most_common(1)[0][0]}
+
+
+def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
     """K1's time per shape beside its bound, one scaled_dot_product_attention
-    call and the plain version.  Run after every frame timing: it opens the
+    call and the plain version, for the bf16 kernel (every phase-3 shape, the
+    tiny family's two, and every rows-per-block plan at the main path's
+    shapes) and the fp32 kernel.  Run after every frame timing: it opens the
     first profiler sessions of the process."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    sdpa = torch.nn.functional.scaled_dot_product_attention  # the yardstick only
-    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    per_shape, by_resource = [], {"operations": 0.0, "bytes": 0.0}
-    for b, h, sq, sk, d in _k1_cases():
-        q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda").bfloat16()
-                   for n in (sq, sk, sk))
-        q4, k4, v4 = (x.reshape(b, x.shape[1], h, d).transpose(1, 2) for x in (q, k, v))
-        qf, kf, vf = (x.reshape(b * h, x.shape[2], d) for x in (q4, k4, v4))
-        t_k = timed(lambda: fa.flash_attention(q, k, v, num_heads=h))
-        # heads in place: one attention is one kernel
-        kernels = sum(e.count for e in _profiled(
-            lambda: fa.flash_attention(q, k, v, num_heads=h), 5)) / 5
-        if kernels != 1:
-            fail(f"K1 at [{b},{h},{sq},{sk},{d}] ran {kernels:g} kernels per attention: a copy?")
-        t_l = timed(lambda: sdpa(q4, k4, v4))
-        t_p = cuda_ms(lambda: fa.flash_attention_reference(qf, kf, vf, d ** -0.5), iters=5)
-        flops = 4.0 * b * h * sq * sk * d
-        bound, by = k1_bound(b, h, sq, sk, d)
-        print(f"K1 [{b},{h},{sq},{sk},{d}]: device {t_k[1]:.4f} ms ({flops / t_k[1] / 1e9:.0f} "
-              f"TFLOP/s; CUDA events {t_k[0]:.4f}; {kernels:g} kernel(s) per attention), bound {bound * 1e3:.2f} us by {by} "
-              f"(reached {bound / t_k[1]:.1%}), library SDPA device {t_l[1]:.4f} ms (events "
-              f"{t_l[0]:.4f}), plain {t_p:.4f} ms ({card})")
-        if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:  # one call at each main-path shape
-            for key, val in (("ms", t_k[0]), ("device_ms", t_k[1]), ("plain_ms", t_p),
-                             ("library_ms", t_l[1]), ("bound_ms", bound)):
-                total[key] += val
-            by_resource[by] += bound
-            # every number of rows per block the kernel can run this shape with, held
-            # to the bar and timed: what block_rows' rule rests on
-            ref = fa.flash_attention_reference(qf, kf, vf, d ** -0.5).reshape(
-                b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d)
-            picked, plans = fa.block_rows(sq, b * h, d), {}
-            for rows in fa.row_plans(sq, d):
-                def plan(rows=rows):
-                    return fa._launch(q, k, v, h, d ** -0.5, block_m=rows)
-                if not k1_within_bar(plan(), ref)[0]:
-                    fail(f"K1 at [{b},{h},{sq},{sk},{d}] with {rows} rows per block disagrees "
-                         f"with its plain version")
-                plans[rows] = t_k[1] if rows == picked else device_ms(plan)
-            print(f"   rows per block -> device ms ({sq // picked * b * h} blocks at the {picked} "
-                  f"picked): " + ", ".join(f"{r}: {t:.4f}" for r, t in plans.items()))
-            per_shape.append({"shape": [h, sq, d], "device_ms": t_k[1], "ms": t_k[0],
-                              "library_ms": t_l[1], "bound_ms": bound, "bound_by": by,
-                              "rows_per_block": picked,
-                              "device_ms_by_rows": {str(r): t for r, t in plans.items()}})
-    print("K1 one call at each main-path shape: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
-    return {**total, "bound_by": max(by_resource, key=by_resource.get), "per_shape": per_shape}
+    result = {}
+    for kind, dtype, cases in (("bf16", torch.bfloat16, _k1_cases() + K1_TIMED["bf16"][3:]),
+                               ("fp32", torch.float32, K1_TIMED["fp32"])):
+        main_rows, per_shape = [], []
+        for b, h, sq, sk, d in cases:
+            row = _k1_time(gen, b, h, sq, sk, d, dtype, card, clock)
+            tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
+            if (b, h, sq, sk, d) in K1_TIMED[kind]:
+                per_shape.append(row)
+            if kind == "fp32" or (sq == sk and b == 1 and (h, sq, d) in K1_SHAPES):
+                main_rows.append(row)
+            if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
+                # every number of rows per block the kernel can run this shape with,
+                # held to the bar and timed: what block_rows' rule rests on
+                q, k, v, qf, kf, vf = tensors.values()
+                ref = fa.flash_attention_reference(qf, kf, vf, d ** -0.5).reshape(
+                    b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d)
+                picked, plans = fa.block_rows(sq, b * h, d), {}
+                for rows in fa.row_plans(sq, d):
+                    def plan(rows=rows):
+                        return fa._launch(q, k, v, h, d ** -0.5, block_m=rows)
+                    if not k1_within_bar(plan(), ref)[0]:
+                        fail(f"K1 at [{b},{h},{sq},{sk},{d}] with {rows} rows per block "
+                             f"disagrees with its plain version")
+                    plans[rows] = row["device_ms"] if rows == picked else device_ms(plan)
+                print(f"   rows per block -> device ms ({sq // picked * b * h} blocks at the "
+                      f"{picked} picked): " + ", ".join(f"{r}: {t:.4f}" for r, t in plans.items()))
+                row.update(rows_per_block=picked,
+                           device_ms_by_rows={str(r): t for r, t in plans.items()})
+        total = _k1_totals(main_rows)
+        print(f"K1 {kind}, one call at each of its {len(main_rows)} timed main shapes: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
+        result[kind] = {**total, "per_shape": per_shape}
+    return result["bf16"], result["fp32"]
 
 
-def phase_tiny() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def phase_tiny() -> int:
+    """The tiny checkpoint's fp32 2-step program, CUDA against the CPU, at
+    every TINY_SIZES side; returns the launches of K1's fp32 kernel over the
+    CUDA runs at 128^2 and 256^2 (its path), counted from 0 just before."""
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "toy_tiny_ckpt")
-    spec = FrameSpec(batch=2, height=64, width=64, steps=2)
-    rng = np.random.default_rng(7)
-    frame = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    noise = rng.standard_normal((3, 2, 8, 8, 4)).astype(np.float32)
+    bundles = {dev: ModelBundle.from_dir(ckpt, device=dev) for dev in ("cuda", "cpu")}
+    embeds = {dev: build_prompt_encoder(b)(b.tokenizer(["a portrait", "a landscape"]))[0]
+              for dev, b in bundles.items()}
     args = ([0.6, 0.02], [5.0, 3.0], [2.0, 0.5], [23, 7])  # 0.02: one valid step
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        b = ModelBundle.from_dir(ckpt, device=dev)
-        emb, _ = build_prompt_encoder(b)(b.tokenizer(["a portrait", "a landscape"]))
-        img, lat = build_frame_program(b, spec)(frame, emb, *args, noise=noise)
-        outs[dev] = (img.cpu().numpy().astype(int), lat.float().cpu().numpy())
-    dlat = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
-    dimg = np.abs(outs["cuda"][0] - outs["cpu"][0]).max()
-    print(f"tiny fp32 2-step 64x64 batch 2, CUDA vs CPU: latents max|d| {dlat:.3e} "
-          f"(bound {TINY_LAT_ATOL:g}), image max|d| {dimg} levels (bound {TINY_IMG_LEVELS})")
-    if not (np.isfinite(outs["cuda"][1]).all() and dlat <= TINY_LAT_ATOL
-            and dimg <= TINY_IMG_LEVELS):
-        fail("the tiny program on CUDA disagrees with the CPU")
+    fp32_launches = 0
+    for side in TINY_SIZES:
+        spec = FrameSpec(batch=2, height=side, width=side, steps=2)
+        rng = np.random.default_rng(7)
+        frame = rng.integers(0, 256, (2, side, side, 3), dtype=np.uint8)
+        noise = rng.standard_normal((3, 2, side // 8, side // 8, 4)).astype(np.float32)
+        outs = {}
+        for dev, b in bundles.items():
+            fa.launches = fa.launches_fp32 = 0
+            img, lat = build_frame_program(b, spec)(frame, embeds[dev], *args, noise=noise)
+            outs[dev] = (img.cpu().numpy().astype(int), lat.float().cpu().numpy())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = (fa.launches, fa.launches_fp32)
+        dlat = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
+        dimg = np.abs(outs["cuda"][0] - outs["cpu"][0]).max()
+        print(f"tiny fp32 2-step {side}x{side} batch 2, CUDA vs CPU: latents max|d| {dlat:.3e} "
+              f"(bound {TINY_LAT_ATOL:g}), image max|d| {dimg} levels (bound {TINY_IMG_LEVELS}); "
+              f"K1 launches on CUDA: fp32 {launched[1]}, bf16 {launched[0]}")
+        if not (np.isfinite(outs["cuda"][1]).all() and dlat <= TINY_LAT_ATOL
+                and dimg <= TINY_IMG_LEVELS):
+            fail(f"the tiny program on CUDA disagrees with the CPU at {side}x{side}")
+        if launched[0] or (side > 64) != (launched[1] > 0):
+            fail(f"the tiny fp32 program at {side}x{side} launched K1 {launched}, expected the "
+                 f"fp32 kernel {'> 0' if side > 64 else '0'} times and the bf16 one 0")
+        fp32_launches += launched[1]
+    return fp32_launches
 
 
 def phase_main(card: str) -> int:
@@ -480,7 +625,7 @@ def phase_main(card: str) -> int:
     img, lat = program(frame, embeds, *args)  # warm-up: cuDNN/cuBLAS plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = k2.launches = k3.launches = 0
+    fa.launches = fa.launches_fp32 = k2.launches = k3.launches = k3.launches_fp32 = 0
     times = []
     for _ in range(MAIN_FRAMES):
         t0 = time.perf_counter()
@@ -488,8 +633,9 @@ def phase_main(card: str) -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = fa.launches
-    if k2.launches or k3.launches:
-        fail(f"the default route launched K2 {k2.launches} and K3 {k3.launches} times")
+    if k2.launches or k3.launches or fa.launches_fp32 or k3.launches_fp32:
+        fail(f"the default bf16 route launched K2 {k2.launches}, K3 {k3.launches}, K1 fp32 "
+             f"{fa.launches_fp32} and K3 fp32 {k3.launches_fp32} times")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8:
         fail(f"image {tuple(img.shape)} {img.dtype}")
@@ -505,7 +651,10 @@ def phase_main(card: str) -> int:
     return launches, (bundle, embeds, frame, args, img)
 
 
-def phase_k2(card: str) -> dict:
+def phase_k2(card: str, clock: float) -> dict:
+    """K2 against its plain version at every K2_SHAPES size, bit for bit, one
+    device kernel per call, with both times; then a CUDA graph captured
+    around one call replays bit for bit on a new frame."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     ms = plain_ms = dev_ms = bound = 0.0
     for hw in K2_SHAPES:
@@ -516,17 +665,48 @@ def phase_k2(card: str) -> dict:
         if not (torch.equal(img, ref_img) and torch.equal(edge, ref_edge)):
             fail(f"K2 differs from its plain version at {hw}: "
                  f"{int((img != ref_img).sum())} img and {int((edge != ref_edge).sum())} edge values")
+        kernels = sum(e.count for e in _profiled(lambda: k2.fused_preprocess(frame), 5)) / 5
+        if kernels != 1:
+            fail(f"K2 at {hw} ran {kernels:g} device kernels per call, expected one")
         t_k = timed(lambda: k2.fused_preprocess(frame))
         t_p = timed(lambda: k2.fused_preprocess_reference(frame))
-        # u8 RGB in; bf16 RGB and fp32 edge out; ~40 flops per pixel, far under the ridge
-        b_ms, by = bound_ms(40.0 * hw[0] * hw[1], hw[0] * hw[1] * (3 + 6 + 4))
+        grid, per_sm = k2.launch_plan(*hw, frame.device)
+        recomputed = k2.recomputed_tiles(*hw, grid)
+        # u8 RGB in; bf16 RGB and fp32 edge out; ~40 fp32 operations per pixel, far under the ridge
+        b_ms, by, term = bound_ms(hw[0] * hw[1] * (3 + 6 + 4), 40.0 * hw[0] * hw[1], "fp32", clock)
         print(f"K2 [{hw[0]},{hw[1]},3] u8 -> bf16 img + fp32 edge: equal to plain bit for bit; "
-              f"kernel {t_k[0]:.4f} ms (device {t_k[1]:.4f}), bound {b_ms * 1e3:.2f} us by {by} "
-              f"(reached {b_ms / t_k[1]:.1%}), plain {t_p[0]:.4f} ms (device {t_p[1]:.4f}); no "
-              f"single library call computes it ({card})")
-        ms, plain_ms, dev_ms, bound = ms + t_k[0], plain_ms + t_p[0], dev_ms + t_k[1], bound + b_ms
-    print(f"K2 one call at each frame size: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.5f} ms")
+              f"{kernels:g} device kernel per call ({grid} blocks, {per_sm} per SM, |grad| of "
+              f"{recomputed} tiles recomputed); kernel {t_k[0]:.4f} ms (device {t_k[1]:.4f}), "
+              f"bound {b_ms * 1e3:.2f} us by {term} (reached {b_ms / t_k[1]:.1%}), plain "
+              f"{t_p[0]:.4f} ms (device {t_p[1]:.4f}); no single library call computes it ({card})")
+        if hw in K2_SHAPES[:3]:  # the sizes of earlier runs' totals
+            ms, plain_ms = ms + t_k[0], plain_ms + t_p[0]
+            dev_ms, bound = dev_ms + t_k[1], bound + b_ms
+    # one call captured in a CUDA graph, replayed on another frame
+    frames = [torch.randint(0, 256, (*K2_SHAPES[0], 3), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(2)]
+    static = frames[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.fused_preprocess(static)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_img, g_edge = k2.fused_preprocess(static)
+    replays = []
+    for frame in frames[::-1]:
+        static.copy_(frame)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_img, ref_edge = k2.fused_preprocess_reference(frame)
+        replays.append(torch.equal(g_img, ref_img) and torch.equal(g_edge, ref_edge))
+    print(f"K2 captured in a CUDA graph (one cooperative launch) at {list(K2_SHAPES[0])}: replays "
+          f"on two frames equal to plain bit for bit: {replays}")
+    if not all(replays):
+        fail("K2's CUDA graph replay differs from its plain version")
+    print(f"K2 one call at each of the first three frame sizes: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.5f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
@@ -548,7 +728,7 @@ def _k3_within_bar(out, ref) -> tuple[bool, float, float, float]:
     return bool(torch.isfinite(out).all()) and mx <= ulp and mean <= K3_MEAN_ABS, mx, mean, ulp
 
 
-def phase_k3(card: str) -> dict:
+def phase_k3(card: str, clock: float) -> dict:
     """K3 against its plain version at every shape and epilogue; at the main
     path's shapes its device time beside its bound, a cuDNN bf16 conv + the
     eager epilogue (timed here, used nowhere in the port) and the plain
@@ -597,8 +777,8 @@ def phase_k3(card: str) -> dict:
             gflop = 2 * 9 * 64 * 64 * shape[0] * shape[1] * shape[2] * 2 / 1e9
             (k_ev, k_dev), (p_ev, p_dev), (c_ev, c_dev) = t
             # bf16 input, output and (third conv of a block) skip, and the taps
-            b_ms, by = bound_ms(gflop * 1e9, 2.0 * xp.numel() * (2 if skip is None else 3)
-                                + 2.0 * w.numel())
+            b_ms, by, _ = bound_ms(2.0 * xp.numel() * (2 if skip is None else 3)
+                                   + 2.0 * w.numel(), gflop * 1e9, "bf16", clock)
             frame_bound += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
             by_resource[by] += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
             print(f"K3 {list(shape)} {epi} bf16: kernel {k_ev:.4f} ms (device {k_dev:.4f}, "
@@ -635,6 +815,89 @@ def phase_k3(card: str) -> dict:
             "plain_ms": per_frame["plain fp32"][0], "device_ms": per_frame["kernel"][1],
             "bound_ms": frame_bound, "bound_by": max(by_resource, key=by_resource.get),
             "library_ms": per_frame["cuDNN bf16"][1], "per_shape": per_shape}
+
+
+def phase_k3_fp32(card: str, clock: float) -> dict:
+    """K3's fp32 kernel against its plain version at the main path's shapes
+    and the ragged ones, every epilogue; at the main path's shapes one kernel
+    per call, its device time beside its fp32 bound, the plain version's and
+    a cuDNN fp32 conv's (TF32 off) with the eager epilogue."""
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+    w = (torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
+    w_cl = w.to(memory_format=torch.channels_last)
+    worst, per_frame = 0.0, {"kernel": [0.0, 0.0], "plain fp32": [0.0, 0.0],
+                             "cuDNN fp32": [0.0, 0.0]}
+    frame_bound, by_resource, per_shape = 0.0, {"operations": 0.0, "bytes": 0.0}, []
+    for shape in [*K3_SHAPES, *K3_EXTRA]:
+        xp = torch.randn(shape, generator=gen, device="cuda")
+        sk = torch.randn(shape, generator=gen, device="cuda")
+        rows = k3.fp32_tile_rows(shape[0], shape[1], 2 * shape[2])
+        errs = []
+        for epi, (relu, has_skip, has_bias) in K3_EPILOGUES.items():
+            args = (w, bias if has_bias else None, xp)
+            kw = {"relu": relu, "skip": sk if has_skip else None}
+            out = k3.packed_conv3x3(*args, **kw)
+            torch.cuda.synchronize()
+            ok, mx, mean, max_bar, mean_bar = fp32_within_bar(
+                out, k3.packed_conv3x3_reference(*args, **kw))
+            errs.append(f"{epi} {mx:.3e} / {mean:.1e} (bars {max_bar:.1e} / {mean_bar:.1e})")
+            if not ok or out.dtype != torch.float32:
+                fail(f"K3's fp32 kernel disagrees with its plain version at {list(shape)} {epi}: "
+                     f"max|d| {mx:.3e} (bar {max_bar:.3e}), mean|d| {mean:.3e} (bar {mean_bar:.3e})")
+            worst = max(worst, mx)
+        print(f"K3 {list(shape)} fp32, tiles of {rows} rows: max|d| / mean|d| {'; '.join(errs)}")
+        if shape not in K3_SHAPES:
+            continue
+        times = {}
+        for epi, skip in (("relu", None), ("skip+relu", sk)):
+            kernels = sum(e.count for e in _profiled(
+                lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip), 5)) / 5
+            if kernels != 1:
+                fail(f"K3 fp32 at {list(shape)} {epi} ran {kernels:g} kernels per call")
+            t = times[epi] = (
+                timed(lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=skip)),
+                timed(lambda: k3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)),
+                timed(lambda: _cudnn_block_conv(w_cl, bias, xp, skip)),
+            )
+            gflop = 2 * 9 * 64 * 64 * shape[0] * shape[1] * shape[2] * 2 / 1e9
+            (k_ev, k_dev), (p_ev, p_dev), (c_ev, c_dev) = t
+            b_ms, by, term = bound_ms(4.0 * xp.numel() * (2 if skip is None else 3)
+                                      + 4.0 * w.numel(), gflop * 1e9, "fp32", clock)
+            frame_bound += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
+            by_resource[by] += K3_SHAPES[shape] / 3 * (2 if skip is None else 1) * b_ms
+            print(f"K3 {list(shape)} {epi} fp32: kernel {k_ev:.4f} ms (device {k_dev:.4f}, "
+                  f"{gflop / k_dev:.1f} TFLOP/s; {kernels:g} kernel per call; bound "
+                  f"{b_ms * 1e3:.2f} us by {term}, reached {b_ms / k_dev:.1%}), plain fp32 "
+                  f"{p_ev:.4f} ms (device {p_dev:.4f}), cuDNN fp32 + eager epilogue {c_ev:.4f} "
+                  f"ms (device {c_dev:.4f}) ({card})")
+            per_shape.append({"shape": list(shape), "epilogue": epi, "device_ms": k_dev,
+                              "ms": k_ev, "plain_ms": p_ev, "library_ms": c_dev,
+                              "bound_ms": b_ms, "bound_by": by, "tile_rows": rows})
+        for i, name in enumerate(per_frame):  # two relu-only convs and one skip conv per block
+            for j in range(2):
+                per_frame[name][j] += K3_SHAPES[shape] / 3 * (
+                    2 * times["relu"][i][j] + times["skip+relu"][i][j])
+        # every tile height the kernel can run, held to the bar and timed (relu)
+        ref = k3.packed_conv3x3_reference(w, bias, xp, relu=True)
+        heights = {}
+        for r in k3.FP32_TILE_ROWS:
+            def run(r=r):
+                return k3._launch(w, bias, xp, True, None, tile_rows=r)
+            if not fp32_within_bar(run(), ref)[0]:
+                fail(f"K3 fp32 at {list(shape)} with tiles of {r} rows disagrees with plain")
+            heights[r] = times["relu"][0][1] if r == rows else device_ms(run)
+        print(f"   tile rows -> device ms (relu; {rows} picked): "
+              + ", ".join(f"{r}: {t:.4f}" for r, t in heights.items()))
+        per_shape[-2]["device_ms_by_tile_rows"] = {str(r): t for r, t in heights.items()}
+    print(f"K3 fp32 per 512x512 frame ({K3_PER_FRAME} convs), CUDA events / device: "
+          + ", ".join(f"{n} {ev:.4f} / {dev:.4f} ms" for n, (ev, dev) in per_frame.items()))
+    print(f"K3 fp32 per 512x512 frame: bound {frame_bound:.4f} ms, reached "
+          f"{frame_bound / per_frame['kernel'][1]:.1%} by device time")
+    return {"max_abs_err": worst, "ms": per_frame["kernel"][0],
+            "plain_ms": per_frame["plain fp32"][0], "device_ms": per_frame["kernel"][1],
+            "bound_ms": frame_bound, "bound_by": max(by_resource, key=by_resource.get),
+            "library_ms": per_frame["cuDNN fp32"][1], "per_shape": per_shape}
 
 
 def phase_k2_path(frame) -> int:
@@ -856,9 +1119,12 @@ def _taesd_routes(bundle) -> dict:
         ("default", {}), ("packed", {"packed_convs": True}), ("pallas", {"pallas_convs": True}))}
 
 
-def phase_taesd_routes(card: str, bundle) -> None:
+def phase_taesd_routes(card: str, bundle) -> int:
     """TAESD at 512x512 on each route: K3 against an fp32 copy and the
-    packed library route, and the device time of encode + decode."""
+    packed library route; the fp32 copy through K3's fp32 kernel against the
+    fp32 default route, which is that kernel's path (its launches, counted
+    from 0 just before, are returned); and the device time of encode +
+    decode."""
     routes = _taesd_routes(bundle)
     # the JAX init rule shrinks TAESD's activations ~60x by the decoder's
     # output, where bf16 then rounds the image to a constant; a copy with
@@ -878,12 +1144,26 @@ def phase_taesd_routes(card: str, bundle) -> None:
     with torch.inference_mode():
         ae32 = copy.deepcopy(ae).float()
         ref = (taesd_encode(ae32, x.float()), taesd_decode(ae32, z.float()))
+        k3.launches_fp32 = 0
+        ref_k3 = (taesd_encode(ae32, x.float(), routes["pallas"]),
+                  taesd_decode(ae32, z.float(), routes["pallas"]))
+        torch.cuda.synchronize()
+        fp32_launches = k3.launches_fp32
         outs = {n: (taesd_encode(ae, x, c), taesd_decode(ae, z, c)) for n, c in routes.items()}
         torch.cuda.synchronize()
 
         def rel(got, want):
             return [((a.float() - b.float()).norm() / b.float().norm()).item()
                     for a, b in zip(got, want)]
+
+        vs32 = rel(ref_k3, ref)
+        print(f"TAESD 512x512 fp32, K3's fp32 kernel ({fp32_launches} launches) vs the fp32 "
+              f"default route: rel L2 encode {vs32[0]:.3e}, decode {vs32[1]:.3e} (bound "
+              f"{TAESD_FP32_REL_L2:g})")
+        if not (all(torch.isfinite(t).all() for t in ref_k3) and max(vs32) <= TAESD_FP32_REL_L2
+                and fp32_launches == K3_PER_FRAME):
+            fail(f"the fp32 TAESD route through K3 disagrees with the default route or launched "
+                 f"K3's fp32 kernel {fp32_launches} times, expected {K3_PER_FRAME}")
 
         vs_ref = {name: rel(out, ref) for name, out in outs.items()}
         for name, (e, d) in vs_ref.items():
@@ -905,6 +1185,7 @@ def phase_taesd_routes(card: str, bundle) -> None:
             print(f"TAESD encode + decode 512x512 bf16, {name} route: device "
                   f"{device_ms(codec):.4f} ms, CUDA events {cuda_ms(codec, iters=10):.4f} ms "
                   f"({card})")
+    return fp32_launches
 
 
 def phase_profile(card: str, main) -> None:
@@ -932,33 +1213,43 @@ def phase_profile(card: str, main) -> None:
 
 
 def main() -> None:
-    card = phase_card()
+    card, clock = phase_card()
+    # fp32 products stay fp32 on the card (the fp32 kernels' plain versions
+    # and library calls); bf16 work is untouched by these flags
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    k1_err = phase_k1()
-    phase_tiny()
+    k1_err, k1_fp32_err = phase_k1()
+    k1_fp32_launches = phase_tiny()
     k1_launches, main = phase_main(card)
     k3_launches = phase_taesd_pallas(card, main)
     phase_production(card, main)
     phase_engine_call(card, main)
-    k1 = {"max_abs_err": k1_err, **phase_k1_times(card)}
-    k2_res = phase_k2(card)
-    k3_res = phase_k3(card)
+    k1_times, k1_fp32_times = phase_k1_times(card, clock)
+    k2_res = phase_k2(card, clock)
+    k3_res = phase_k3(card, clock)
+    k3_fp32_res = phase_k3_fp32(card, clock)
     k2_launches = phase_k2_path(main[2])
-    phase_taesd_routes(card, main[0])
+    k3_fp32_launches = phase_taesd_routes(card, main[0])
     phase_profile(card, main)
+    k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
-         "source": "videosd_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "videosd_tpu/ops/pallas/flash_attention.py:83",
-         "launches": k1_launches, **k1},
+         "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
+         "launches": k1_launches, "max_abs_err": k1_err, **k1_times},
+        {"name": "flash_attention_fp32", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
+         "launches": k1_fp32_launches, "max_abs_err": k1_fp32_err, **k1_fp32_times},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",
          "replaces": "videosd_tpu/ops/pallas/preprocess_kernel.py:64",
          "launches": k2_launches, **k2_res},
         {"name": "taesd_conv3x3", "route": "cuda",
-         "source": "videosd_tpu_torch/csrc/taesd_conv.cu",
-         "replaces": "videosd_tpu/ops/pallas/taesd_conv.py:231",
+         "source": "videosd_tpu_torch/csrc/taesd_conv.cu", "replaces": k3_src,
          "launches": k3_launches, **k3_res},
+        {"name": "taesd_conv3x3_fp32", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/taesd_conv_fp32.cu", "replaces": k3_src,
+         "launches": k3_fp32_launches, **k3_fp32_res},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -132,6 +132,13 @@ def test_in_place_entry_matches_jax(rng, shape):
         (128, 40, (128, 64)),
         (192, 160, (64,)),  # a multiple of 64 only
         (320, 40, (64,)),
+        (4096, 8, (256, 128, 64)),  # the tiny family's heads: four warpgroups too
+        (1024, 16, (256, 128, 64)),
+        (4096, 24, (256, 128, 64)),  # on the 40-wide instance
+        (4096, 72, (128, 64)),  # on the 80-wide instance
+        (4096, 200, (64,)),  # on the 256-wide instance: two Q tiles leave no ring
+        (4096, 256, (64,)),
+        (256, 20, (256, 128, 64)),  # padded to 24 by the wrapper
     ],
 )
 def test_row_plans(sq, d, plans):
@@ -184,19 +191,27 @@ def _smoke():
 
 
 @pytest.mark.parametrize(
-    "b,h,sq,sk,d,us,by",
+    "b,h,sq,sk,d,dtype,us,by,term",
     [
-        (1, 8, 4096, 4096, 40, 21.71, "operations"),
-        (1, 8, 1024, 1024, 80, 2.71, "operations"),
-        (1, 8, 256, 256, 160, 0.78, "bytes"),
+        # the exponentials, not the tensor cores, bound the main path's longest
+        # shape: 8 * 4096^2 ex2 at 16 per clock on 132 SMs
+        (1, 8, 4096, 4096, 40, "bf16", 32.10, "operations", "ex2"),
+        (1, 8, 1024, 1024, 80, "bf16", 2.71, "operations", "bf16 flops"),
+        (1, 8, 256, 256, 160, "bf16", 0.78, "bytes", "bytes"),
+        (1, 4, 1024, 1024, 8, "bf16", 1.00, "operations", "ex2"),  # the tiny family
+        (1, 4, 256, 256, 16, "bf16", 0.06, "operations", "ex2"),
+        (1, 8, 4096, 4096, 40, "fp32", 320.96, "operations", "fp32 flops"),
+        (1, 4, 1024, 1024, 8, "fp32", 2.01, "operations", "fp32 flops"),
     ],
 )
-def test_smoke_bound_of_k1(b, h, sq, sk, d, us, by):
-    """The bound ``chip_smoke.py`` prints beside K1's time: the larger of
-    4 Sq Sk d flops per head over 989 TFLOP/s and the bf16 bytes of q, k, v
-    and o over 3.35 TB/s."""
-    ms, which = _smoke().k1_bound(b, h, sq, sk, d)
-    assert which == by and round(ms * 1e3, 2) == us
+def test_smoke_bound_of_k1(b, h, sq, sk, d, dtype, us, by, term):
+    """The bound ``chip_smoke.py`` prints beside K1's time, at an SM clock of
+    1.98 GHz: the largest of 4 Sq Sk d flops per head over the peak of their
+    type (989 TFLOP/s in bf16; 132 SMs x 128 FFMA lanes x 2 x the clock in
+    fp32), Sq Sk exponentials per head over 16 per clock per SM, and the
+    bytes of q, k, v and o over 3.35 TB/s."""
+    ms, which, what = _smoke().k1_bound(b, h, sq, sk, d, 1.98e9, dtype)
+    assert (which, what) == (by, term) and round(ms * 1e3, 2) == us
 
 
 def test_smoke_bar_of_k1_catches_a_dropped_key_tile(rng):
@@ -222,12 +237,15 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.zeros(*shape, device="meta", dtype=dtype)
 
 
+_F16 = torch.float16
+
+
 @pytest.mark.parametrize(
     "q,k,v,heads,match",
     [
-        (_meta(1, 128, 80, dtype=torch.float32), _meta(1, 128, 80), _meta(1, 128, 80), 2,
-         "bfloat16"),
-        (_meta(1, 128, 96), _meta(1, 128, 96), _meta(1, 128, 96), 2, "head dim 48"),
+        (_meta(1, 128, 80, dtype=_F16), _meta(1, 128, 80, dtype=_F16),
+         _meta(1, 128, 80, dtype=_F16), 2, "got torch.float16"),
+        (_meta(1, 128, 528), _meta(1, 128, 528), _meta(1, 128, 528), 2, "head dim 264"),
         (_meta(1, 100, 80), _meta(1, 128, 80), _meta(1, 128, 80), 2, "multiples of 64"),
         (_meta(1, 128, 80), _meta(1, 96, 80), _meta(1, 96, 80), 2, "multiples of 64"),
         (_meta(1, 128, 80), _meta(1, 128, 80), _meta(1, 256, 80), 2, "3-D q/k/v"),
@@ -239,12 +257,89 @@ def _meta(*shape, dtype=torch.bfloat16):
         (_meta(1, 128, 80), torch.zeros(1, 128, 80, dtype=torch.bfloat16),
          _meta(1, 128, 80), 2, "one CUDA device"),
         (_meta(1, 128, 80), _meta(1, 128, 80), _meta(1, 128, 80), 2, "one CUDA device"),
+        (_meta(1, 128, 1024), _meta(1, 128, 1024), _meta(1, 128, 1024), 2, "head dim 512"),
+        (_meta(1, 128, 80, dtype=torch.float32), _meta(1, 128, 80), _meta(1, 128, 80), 2,
+         "like q"),
+        (_meta(1, 128, 84, dtype=torch.float32)[:, :, 2:82], _meta(1, 128, 80, dtype=torch.float32),
+         _meta(1, 128, 80, dtype=torch.float32), 2, "16-byte"),
     ],
     ids=["dtype", "head_dim", "sq", "sk", "kv_shapes", "batch", "inner_stride", "offset",
-         "row_stride", "device_mix", "not_cuda"],
+         "row_stride", "device_mix", "not_cuda", "head_dim_512", "dtype_mix", "fp32_offset"],
 )
 def test_wrapper_refusals(q, k, v, heads, match):
     launches = FA.launches
     with pytest.raises(ValueError, match=match):
         FA.flash_attention(q, k, v, num_heads=heads)
     assert FA.launches == launches
+
+
+def _within_k1_bar(got, want):
+    """The bar ``chip_smoke.py`` holds K1 to in bf16: max |d| within two bf16
+    ulps of the largest output, mean |d| within 2^-7 of the mean |output|."""
+    err = np.abs(got - want)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    return err.max() <= 2 * ulp and err.mean() <= np.abs(want).mean() / 128
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,dh", [(1, 256, 256, 4, 8), (2, 128, 256, 4, 16),
+                                          (1, 128, 256, 2, 24), (1, 256, 512, 2, 64)],
+                         ids=["d8", "b2_d16", "d24", "kv512_d64"])
+def test_plain_version_matches_jax_at_every_head_dim(rng, b, sq, sk, h, dh, dtype):
+    """The plain version, which the CUDA kernels are held to on the card,
+    against ``_attention_xla`` at the tiny family's head dims, at a d below
+    its kernel instance's width and at d = 64, with Sk = 2 Sq, in fp32 (1e-5:
+    the same math) and bf16 (chip_smoke's K1 bar: both round P and the
+    output to bf16 after fp32 math)."""
+    q, k, v = _qkv(rng, b, sq, sk, h, dh)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    if dtype == "bf16":
+        tq, tk, tv = (x.bfloat16() for x in (tq, tk, tv))
+        jq, jk, jv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv))
+    got = FA.flash_attention(tq, tk, tv, num_heads=h)
+    assert got.dtype == tq.dtype
+    want = np.asarray(_attention_xla(jq, jk, jv, h).astype(jnp.float32))
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        assert _within_k1_bar(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("d,dp", [(20, 24), (5, 8), (6, 8), (250, 256)])
+def test_padded_heads_change_nothing(rng, d, dp):
+    """The wrapper's path for a d off the 16-byte rows: heads folded into a
+    zero-padded [B*H, S, dp] copy, the kernel's math at the real d's scale,
+    the padded columns cut off.  On the CPU, with the plain version in the
+    kernel's place, it equals the attention of the unpadded heads."""
+    b, sq, sk, h = 2, 64, 128, 3
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, b, sq, sk, h, d))
+    folded = [FA._fold_padded(x, h, dp) for x in (q, k, v)]
+    assert folded[0].shape == (b * h, sq, dp) and (folded[0][..., d:] == 0).all()
+    out = FA._unfold_cut(FA.flash_attention_reference(*folded, d ** -0.5), b, h, d)
+    np.testing.assert_allclose(out.numpy(), FA.flash_attention(q, k, v, num_heads=h).numpy(),
+                               atol=1e-6, rtol=0)
+
+
+def test_every_head_dim_has_an_instance_and_a_plan():
+    """Every d from 1 to 256 (padded to a multiple of 8 where the wrapper
+    pads it) runs on an instance at least as wide, whose Q K^T depth is a
+    multiple of wgmma's k16, and every plan row_plans offers fits the
+    register budget, a three-stage ring and the shared memory; 257 and 0
+    are refused."""
+    for d in range(1, FA.MAX_HEAD_DIM + 1):
+        dp = -(-d // 8) * 8
+        w = FA.instance_width(dp)
+        assert w == FA.instance_width(d) and w in FA.INSTANCE_WIDTHS and w >= dp >= d
+        assert FA.depth(w) % 16 == 0 and FA.depth(w) >= w
+        plans = FA.row_plans(4096, d)
+        assert plans[-1] == FA.KEY_TILE
+        for rows in plans:
+            nwg = rows // FA.KEY_TILE
+            assert w // 2 + 48 + 44 <= FA.CONSUMER_REGISTERS[nwg]
+            stages = FA.ring_stages(w, nwg)
+            assert 3 <= stages <= 8
+            assert (nwg + 2 * stages) * FA._tile_bytes(w) + 1024 <= FA.SMEM_LIMIT
+    for d in (0, FA.MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="head dim"):
+            FA.instance_width(d)

@@ -12,7 +12,10 @@ within 2^-7 of the mean |output| (both round the output to bf16, and they
 round P at different points; measured: one ulp, and 0.6 * 2^-8); K2 equal bit
 for bit; K3 within one
 bf16 ulp of the largest output and mean |d| <= 1e-5 (both round fp32 sums of
-exact bf16 products once, in different summation orders).
+exact bf16 products once, in different summation orders).  The fp32 kernels
+of K1 and K3 within 2^-13 of the largest output and 2^-16 of the mean
+|output| of their fp32 plain versions, TF32 off (fp32 sums in other orders,
+~1e-6 relative; TF32 products would be ~1e-3 off).
 """
 
 import pytest
@@ -50,8 +53,8 @@ def test_k1_matches_plain_on_card(gen):
         assert FA.launches == before + 1
         ref = FA.flash_attention_reference(q, k, v, d ** -0.5)
         _assert_k1_close(out, ref)
-    with pytest.raises(ValueError, match="bfloat16"):
-        FA.flash_attention_bhsd(q.float(), k.float(), v.float(), 0.1)
+    with pytest.raises(ValueError, match="float16"):
+        FA.flash_attention_bhsd(q.half(), k.half(), v.half(), 0.1)
 
 
 # (batch, heads, sq, sk, d_head): the 256-row blocks of d = 40, keys != queries,
@@ -102,7 +105,7 @@ def test_k1_every_row_plan_on_card(gen, shape):
 
 @pytest.mark.cuda
 def test_k2_matches_plain_on_card(gen):
-    for hw in [(480, 640), (37, 5), (512, 512)]:
+    for hw in [(480, 640), (37, 5), (512, 512), (1080, 1920), (2160, 3840)]:
         frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
         for dtype in (torch.bfloat16, torch.float32):
             before = K2.launches
@@ -113,6 +116,13 @@ def test_k2_matches_plain_on_card(gen):
             assert torch.equal(img, ref_img) and torch.equal(edge, ref_edge)
         gray = torch.rand(hw, generator=gen, device="cuda")
         assert torch.equal(K2.sobel_magnitude(gray), K2.sobel_magnitude_reference(gray))
+    # a frame whose first byte is not 4-byte aligned (a slice of a larger buffer)
+    buf = torch.randint(0, 256, (1 + 96 * 64 * 3,), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    frame = buf[1:].view(96, 64, 3)
+    img, edge = K2.fused_preprocess(frame)
+    ref_img, ref_edge = K2.fused_preprocess_reference(frame)
+    assert torch.equal(img, ref_img) and torch.equal(edge, ref_edge)
     with pytest.raises(ValueError, match="uint8"):
         K2.fused_preprocess(frame.float())
 
@@ -131,8 +141,8 @@ def test_k3_matches_plain_on_card(gen):
             ref = K3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=skip)
             ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())) - 7)
             assert (out.float() - ref.float()).abs().max().item() <= ulp.item()
-    with pytest.raises(ValueError, match="bfloat16"):
-        K3.packed_conv3x3(w, bias, xp.float(), relu=True)
+    with pytest.raises(ValueError, match="float16"):
+        K3.packed_conv3x3(w.half(), bias, xp.half(), relu=True)
 
 
 # K3: the main path's shapes, batch 2, and heights and widths off every tile
@@ -190,3 +200,161 @@ def test_k3_every_tile_width_on_card(gen, shape):
             _assert_k3_close(K3._launch(w, bias, xp, True, sk, tile_w=wt), ref)
     with pytest.raises(ValueError, match="tile width"):
         K3._launch(w, bias, xp, True, None, tile_w=256)
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 products in full fp32, for the fp32 kernels' plain versions."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _assert_fp32_close(out, ref):
+    err = (out - ref).abs()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert err.max().item() <= 2.0 ** -13 * ref.abs().max().item()
+    assert err.mean().item() <= 2.0 ** -16 * ref.abs().mean().item()
+
+
+def _loud_heads(gen, b, h, sq, sk, d, dtype):
+    """q, k, v as slices of one fused buffer, the odd heads' q and k 8x
+    larger and v 8x smaller: a head that took a neighbour's columns into its
+    padded depth would be far off."""
+    fused = torch.randn(b, max(sq, sk), 3, h, d, generator=gen, device="cuda")
+    fused[:, :, :2, 1::2] *= 8.0
+    fused[:, :, 2, 1::2] /= 8.0
+    fused = fused.reshape(b, max(sq, sk), 3 * h * d).to(dtype)
+    return [fused[:, :n, i * h * d:(i + 1) * h * d] for i, n in enumerate((sq, sk, sk))]
+
+
+def _folded_reference(q, k, v, h):
+    b, sq, _ = q.shape
+    d = q.shape[-1] // h
+
+    def fold(x):
+        return x.reshape(b, x.shape[1], h, d).transpose(1, 2).reshape(b * h, x.shape[1], d)
+
+    ref = FA.flash_attention_reference(fold(q), fold(k), fold(v), d ** -0.5)
+    return ref.reshape(b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d)
+
+
+# (batch, heads, sq, sk, d): the tiny family's 8 and 16, d below its instance's
+# width (24 on 40, 72 on 80), d off the 16-byte rows (20: a padded copy), 64,
+# and the widest instance
+_K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
+                 (2, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
+                 (1, 2, 256, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _K1_HEAD_DIMS, ids=lambda s: "x".join(map(str, s)))
+def test_k1_every_head_dim_on_card(gen, shape):
+    """bf16 at every kind of head dim, heads in place beside loud neighbours,
+    one launch per attention, under every rows-per-block plan."""
+    b, h, sq, sk, d = shape
+    q, k, v = _loud_heads(gen, b, h, sq, sk, d, torch.bfloat16)
+    ref = _folded_reference(q, k, v, h)
+    before = FA.launches
+    out = FA.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1 and out.shape == (b, sq, h * d)
+    _assert_k1_close(out, ref)
+    for rows in FA.row_plans(sq, d):
+        _assert_k1_close(FA._launch(q, k, v, h, d ** -0.5, block_m=rows), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8),
+                                   (1, 4, 256, 512, 16), (2, 4, 256, 256, 20),
+                                   (1, 8, 1024, 2048, 72), (1, 2, 256, 256, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_fp32_on_card(gen, no_tf32, shape):
+    """K1's fp32 kernel, heads in place beside loud neighbours, one launch
+    per attention, equal bit for bit to the folded entry."""
+    b, h, sq, sk, d = shape
+    q, k, v = _loud_heads(gen, b, h, sq, sk, d, torch.float32)
+    before = FA.launches_fp32, FA.launches
+    out = FA.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    assert (FA.launches_fp32, FA.launches) == (before[0] + 1, before[1])
+    _assert_fp32_close(out, _folded_reference(q, k, v, h))
+    with pytest.raises(ValueError, match="rows per block"):
+        FA._launch(q, k, v, h, d ** -0.5, block_m=128)
+
+
+@pytest.mark.cuda
+def test_k2_graph_replay_on_card(gen):
+    """One cooperative launch captured in a CUDA graph replays bit for bit
+    on new frames written into its input."""
+    frames = [torch.randint(0, 256, (480, 640, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(2)]
+    static = frames[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K2.fused_preprocess(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        img, edge = K2.fused_preprocess(static)
+    for frame in frames[::-1]:
+        static.copy_(frame)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_img, ref_edge = K2.fused_preprocess_reference(frame)
+        assert torch.equal(img, ref_img) and torch.equal(edge, ref_edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", _K3_EPILOGUES)
+@pytest.mark.parametrize("shape", _K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k3_fp32_every_shape_and_epilogue_on_card(gen, no_tf32, shape, epilogue):
+    """K3's fp32 kernel: one launch per call, a fresh fp32 output."""
+    w, bias, xp, skip = (t.float() for t in _k3_inputs(gen, shape))
+    xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    relu, has_skip, has_bias = _K3_EPILOGUES[epilogue]
+    args = (w, bias if has_bias else None, xp)
+    kw = {"relu": relu, "skip": skip if has_skip else None}
+    before = K3.launches_fp32, K3.launches
+    out = K3.packed_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert (K3.launches_fp32, K3.launches) == (before[0] + 1, before[1])
+    assert out.shape == xp.shape and out.data_ptr() not in (xp.data_ptr(), skip.data_ptr())
+    _assert_fp32_close(out, K3.packed_conv3x3_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw, recomputed", [((1080, 1920), False), ((2160, 3840), True)],
+                         ids=["1080p-held", "2160p-recomputed"])
+def test_k2_both_sides_of_the_held_size_on_card(gen, hw, recomputed):
+    """Up to 1080p every tile's |grad| stays in shared memory through the
+    barrier; at 2160p the tiles past each block's first 8 are recomputed.
+    Both match the plain version bit for bit, on a grid that fits at once."""
+    grid, per_sm = K2.launch_plan(*hw, "cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert grid == K2.cooperative_grid(*hw, sms, per_sm) and 1 <= per_sm <= K2.MAX_BLOCKS_PER_SM
+    assert (K2.recomputed_tiles(*hw, grid) > 0) is recomputed
+    frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    img, edge = K2.fused_preprocess(frame)
+    ref_img, ref_edge = K2.fused_preprocess_reference(frame)
+    assert torch.equal(img, ref_img) and torch.equal(edge, ref_edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _K3_SHAPES[:4], ids=lambda s: "x".join(map(str, s)))
+def test_k3_fp32_every_tile_height_on_card(gen, no_tf32, shape):
+    """Every tile height the fp32 kernel can run gives the plain version's
+    result; a height outside :data:`FP32_TILE_ROWS`, or a bf16 tile width
+    on fp32, is refused."""
+    w, bias = (t.float() for t in _k3_inputs(gen, shape)[:2])
+    xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    for sk in (None, skip):
+        ref = K3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=sk)
+        for rows in K3.FP32_TILE_ROWS:
+            _assert_fp32_close(K3._launch(w, bias, xp, True, sk, tile_rows=rows), ref)
+    with pytest.raises(ValueError, match="tile rows"):
+        K3._launch(w, bias, xp, True, None, tile_rows=3)
+    with pytest.raises(ValueError, match="bf16"):
+        K3._launch(w, bias, xp, True, None, tile_w=128)

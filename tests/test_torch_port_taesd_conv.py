@@ -168,13 +168,13 @@ def test_taps_stay_out_of_the_state_dict(sd15_taesd):
     _, ae = sd15_taesd
     keys = set(ae.state_dict())
     conv = ae.encoder.layers[1].conv[0]
-    taps = K3._cached(conv.weight, "_k3_taps", K3._taps)
+    taps = K3.taps_for(conv.weight, torch.bfloat16)
     assert taps.shape == (9, 64, 64) and taps.dtype == torch.bfloat16
-    assert K3._cached(conv.weight, "_k3_taps", K3._taps) is taps  # built once
+    assert K3.taps_for(conv.weight, torch.bfloat16) is taps  # built once
     assert set(ae.state_dict()) == keys
     with torch.no_grad():
         conv.weight.add_(0.0)  # an in-place write rebuilds the taps
-    assert K3._cached(conv.weight, "_k3_taps", K3._taps) is not taps
+    assert K3.taps_for(conv.weight, torch.bfloat16) is not taps
 
 
 def _jax_noise(seeds, steps, latent_hw):

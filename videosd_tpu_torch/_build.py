@@ -113,11 +113,21 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, ci, vp,
     ]
     lib.videosd_flash_attention_fwd.restype = ci
+    lib.videosd_flash_attention_fp32_fwd.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, ci,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp,
+    ]
+    lib.videosd_flash_attention_fp32_fwd.restype = ci
     lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.videosd_taesd_conv3x3.restype = ci
+    lib.videosd_taesd_conv3x3_fp32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.videosd_taesd_conv3x3_fp32.restype = ci
     fl = ctypes.c_float
-    lib.videosd_fused_preprocess.argtypes = [vp, vp, ci, vp, vp, ci, ci, fl, fl, vp]
+    lib.videosd_fused_preprocess.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, fl, fl, ci, vp]
     lib.videosd_fused_preprocess.restype = ci
+    pi = ctypes.POINTER(ci)
+    lib.videosd_fused_preprocess_grid.argtypes = [ci, ci, ci, ci, pi, pi]
+    lib.videosd_fused_preprocess_grid.restype = ci
     lib.videosd_sobel_magnitude.argtypes = [vp, vp, ci, ci, vp]
     lib.videosd_sobel_magnitude.restype = ci
     return lib

@@ -7,43 +7,52 @@
 // to bf16 before P.V (the reference's `p.astype(v.dtype)`), and a guard that
 // leaves a row with l == 0 unscaled.
 //
-// Layout: heads in place.  q and o are [B, Sq, H*D], k and v [B, Sk, H*D],
+// Layout: heads in place.  q and o are [B, Sq, H*d], k and v [B, Sk, H*d],
 // bf16, the last axis contiguous; batch and row strides are arguments, so a
-// folded [B*H, S, D] tensor is the case H = 1.  Nothing is copied or padded
-// in device memory.  D in {40, 64, 80, 160}.
+// folded [B*H, S, d] tensor is the case H = 1.  Nothing is copied or padded
+// in device memory.  Any head dim d that is a multiple of 8 up to 256 (rows
+// of 16 bytes, as cp.async and TMA read them): it runs on the template
+// instance of the next width W >= d among 8, 16, 40, 64, 80, 160 and 256,
+// whose extra columns hold zeros in shared memory (the wrapper zero-pads any
+// other d in a folded copy, as the TPU kernel's wrapper pads to 128 lanes).
+// The fp32 kernel is flash_attention_fp32.cu.
 //
 // What bounds it on the H100: at the UNet's shapes (S = 4096/1024/256, d_head
 // 40/80/160, 8 heads) the work is 4 S^2 d flops per head against 8 S d bytes,
 // far above the ridge point, so the tensor cores bound it, and at d = 40 the
-// exp unit as well (one exp per 160 tensor-core flops).  What the design does
-// about that:
+// exp unit as well (one exp per 160 tensor-core flops; at the tiny family's
+// d = 8 and 16, one per 32 and 64, the exp unit alone bounds it).  What the
+// design does about that:
 //
 // * Both products on wgmma (m64nNk16, bf16 -> fp32).  S = Q K^T takes Q and K
 //   from shared memory, K-major.  P V takes P straight from the S accumulator
 //   registers (the A operand of an "rs" wgmma has the accumulator's layout)
 //   and V from shared memory as the MN-major B operand: no transposed gather.
-//   N = D needs no padding; the depth of Q K^T is padded 40 -> 48 with zeros
-//   in shared memory only.
+//   N = W; the depth of Q K^T is padded to the k16 step (8 -> 16, 40 -> 48),
+//   and a d below W to W, with zeros in shared memory only.  P V's output
+//   columns past d are never stored.
 // * A ring of K/V stages handed over by "full" and "empty" mbarriers, filled
 //   asynchronously by a producer while the consumers compute.  One tile of 64
 //   keys serves K as a K-major operand and V as an MN-major one.  Two ways
 //   of filling it, chosen per head dim:
-//   - d = 64, 80, 160: TMA.  One thread starts cp.async.bulk.tensor loads of
-//     64 rows x 64 columns (128 bytes a row) through 3-D tensor maps over
-//     [B, S, H*D], written in the 128-byte swizzle wgmma reads.  cp.async
-//     could not keep enough bytes in flight per SM, which made the producer
-//     the bottleneck at these widths (20 and 40 KB a tile).  The
-//     columns a 64-wide box reads past the head are never multiplied: the
-//     k16 steps and N = d stop at d.
-//   - d = 40: cp.async by the 128 threads of the producer warpgroup into
-//     wgmma's layout without swizzle (core matrices of 8 rows x 16 bytes,
-//     stored contiguously).  A row of 80 bytes does not fill a 128-byte
-//     swizzle span: a 64-column box would fetch 60 % more and bring the next
-//     head's values into the zero padding of the depth (40 -> 48).  A
-//     warp's copy reads 64 contiguous bytes of each of 8 rows and writes 512
-//     contiguous bytes; the producer orders its copies before the async
-//     proxy (fence.proxy.async) before it signals "full", and keeps two
-//     stages of slack so that no signal queues behind a wait for a release.
+//   - W = 64, 80, 160, 256: TMA.  One thread starts cp.async.bulk.tensor
+//     loads of 64 rows x 64 columns (128 bytes a row) through 4-D tensor maps
+//     over [B, S, H, d], written in the 128-byte swizzle wgmma reads.  The
+//     head is a dimension of its own, so the columns a 64-wide box reads past
+//     d lie outside the tensor and arrive as zeros: never the next head's
+//     values.  cp.async could not keep enough bytes in flight per SM, which
+//     made the producer the bottleneck at these widths (20 and 40 KB a tile).
+//   - W = 8, 16, 40: cp.async by the 128 threads of the producer warpgroup
+//     into wgmma's layout without swizzle (core matrices of 8 rows x 16
+//     bytes, stored contiguously).  A row of 80 bytes does not fill a
+//     128-byte swizzle span: a 64-column box would fetch 60 % more.  Only
+//     the d / 8 chunks of the head are copied; the chunks from d / 8 to the
+//     padded depth are zeroed once, before the ring starts, and no copy ever
+//     writes them.  A warp's copy reads 64 contiguous bytes of each of 8
+//     rows and writes 512 contiguous bytes; the producer orders its copies
+//     before the async proxy (fence.proxy.async) before it signals "full",
+//     and keeps two stages of slack so that no signal queues behind a wait
+//     for a release.
 // * One or two consumer warpgroups, each owning 64 query rows: two share
 //   every K/V tile, halving the traffic from L2.  Inside a warpgroup the
 //   Q K^T of tile j+1 and the P V of tile j are started together and the
@@ -85,7 +94,7 @@ struct Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // strides in elements
-  int heads, sq, sk;
+  int heads, sq, sk, d;  // d: the head dim, a multiple of 8 up to the instance width
   float scale_log2;  // sm_scale * log2(e)
 };
 
@@ -115,18 +124,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---------------------------------------------------------------- tiles
 
-// Geometry of a 64-row tile of D bf16 columns in shared memory, and the wgmma
+// Geometry of a 64-row tile of D bf16 columns in shared memory (D is the
+// instance width: the head's d columns, then zeros), and the wgmma
 // descriptors that read it.
-//   kTma (d != 40): panels of 64 columns, each 64 rows x 128 bytes in the
+//   kTma (D >= 64): panels of 64 columns, each 64 rows x 128 bytes in the
 //     128-byte swizzle, as a TMA box lands.
 //   else: no swizzle; 16-byte chunk c of row r lies at
 //     (r / 8) * kGroup + c * 128 + (r % 8) * 16 bytes.
 template <int D>
 struct Tile {
-  static constexpr bool kTma = D != 40;
+  static constexpr bool kTma = D >= 64;
   static constexpr int kDP = (D + 15) / 16 * 16;  // depth padded to the wgmma k of 16
   static constexpr int kSteps = kDP / 16;         // k16 steps over the depth
-  static constexpr int kChunks = D / 8;           // 16-byte chunks per row in memory
+  static constexpr int kMaxChunks = D / 8;        // 16-byte chunks of a row of width D
   static constexpr int kGroup = kDP / 8 * 128;    // no swizzle: bytes of 8 rows
   static constexpr int kPanels = (D + 63) / 64;   // swizzled: 64-column panels
   static constexpr int kPanelBytes = 64 * 128;
@@ -155,15 +165,15 @@ struct Tile {
   }
 };
 
-// Starts cp.async copies of 64 rows x D columns by one warpgroup into the
-// layout without swizzle.  Thread t of its 128 takes row (t % 8) of the row
-// groups t / 32 and t / 32 + 4, and in each the chunks (t / 8) % 4, + 4, ...:
-// a warp's copy reads 64 contiguous bytes of each of 8 rows and writes 512
-// contiguous bytes, and after two row addresses per tile every copy differs
-// from the last by constants only.
+// Starts cp.async copies of 64 rows x (8 * chunks) columns by one warpgroup
+// into the layout without swizzle.  Thread t of its 128 takes row (t % 8) of
+// the row groups t / 32 and t / 32 + 4, and in each the chunks (t / 8) % 4,
+// + 4, ...: a warp's copy reads 64 contiguous bytes of each of 8 rows and
+// writes 512 contiguous bytes, and after two row addresses per tile every
+// copy differs from the last by constants only.
 template <int D>
 __device__ __forceinline__ void copy_tile_async(uint32_t dst, const __nv_bfloat16* src,
-                                                long long row_stride, int t) {
+                                                long long row_stride, int t, int chunks) {
   using T = Tile<D>;
   const int r8 = t % 8;
   const int cq = (t / 8) % 4;
@@ -173,20 +183,32 @@ __device__ __forceinline__ void copy_tile_async(uint32_t dst, const __nv_bfloat1
     const uint32_t d0 = dst + (rg + 4 * half) * T::kGroup + cq * 128 + r8 * 16;
     const __nv_bfloat16* s0 = src + (long long)((rg + 4 * half) * 8 + r8) * row_stride + cq * 8;
 #pragma unroll
-    for (int it = 0; it < (T::kChunks + 3) / 4; ++it)
-      if (4 * it + 3 < T::kChunks || cq + 4 * it < T::kChunks)
-        cp_async16(d0 + it * 512, s0 + it * 32);
+    for (int it = 0; it < (T::kMaxChunks + 3) / 4; ++it)
+      if (cq + 4 * it < chunks) cp_async16(d0 + it * 512, s0 + it * 32);
   }
 }
 
-// Starts the TMA loads of one 64-row tile: a box of 64 columns per panel, at
-// column `col` and row `row` of batch `b`.
+// Starts the TMA loads of one 64-row tile: a box of 64 columns per panel, of
+// head `h` at row `row` of batch `b`.
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int b) {
+                                         int h, int row, int b) {
 #pragma unroll
   for (int pn = 0; pn < Tile<D>::kPanels; ++pn)
-    tma_load_3d(dst + pn * Tile<D>::kPanelBytes, map, bar, col + pn * 64, row, b);
+    tma_load_4d(dst + pn * Tile<D>::kPanelBytes, map, bar, pn * 64, h, row, b);
+}
+
+// Registers a consumer thread may hold under each number of consumer
+// warpgroups (what setmaxnreg gives it below), and a plan's fit: the O
+// accumulator (D / 2), the S tile (32) and bf16 P (16) beside 44 for
+// addresses, statistics and loop state, and a K/V ring of three stages.
+// videosd_tpu_torch/ops/cuda/flash_attention.py::row_plans mirrors it.
+__host__ __device__ constexpr int consumer_regs(int nwg) {
+  return nwg == 4 ? 112 : nwg == 2 ? 224 : 255;
+}
+template <int D, int NWG>
+__host__ __device__ constexpr bool plan_fits() {
+  return D / 2 + 48 + 44 <= consumer_regs(NWG) && Tile<D>::stages(NWG) >= 3;
 }
 
 // ---------------------------------------------------------------- the kernel
@@ -222,6 +244,7 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
   const int h = bh % p.heads;
   const int m0 = blockIdx.x * (NWG * kRowsPerWg);
   const int n_tiles = p.sk / kBlockN;
+  const int chunks = p.d / 8;  // 16-byte chunks of a head's row
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -233,13 +256,14 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (T::kDP != D) {
-    // the padded depth chunk of Q and of every K tile stays zero
+  if constexpr (!T::kTma) {
+    // the chunks past the head, up to the padded depth, of Q and of every K
+    // and V tile stay zero: no copy writes them
     constexpr int kTiles = NWG + 2 * STAGES;
-    for (int i = tid; i < kTiles * 64; i += (NWG + 1) * 128) {
-      const int tile = i / 64, r = i % 64;
-      const uint32_t dst =
-          q_s + tile * T::kBytes + (r / 8) * T::kGroup + T::kChunks * 128 + (r % 8) * 16;
+    const int pad = T::kDP / 8 - chunks;
+    for (int i = tid; i < kTiles * 64 * pad; i += (NWG + 1) * 128) {
+      const int tile = i / (64 * pad), r = i / pad % 64, c = chunks + i % pad;
+      const uint32_t dst = q_s + tile * T::kBytes + (r / 8) * T::kGroup + c * 128 + (r % 8) * 16;
       asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst), "r"(0) : "memory");
     }
     fence_proxy_async();
@@ -256,7 +280,7 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
         mbar_arrive_expect_tx(q_bar, NWG * T::kBytes);
 #pragma unroll
         for (int w = 0; w < NWG; ++w)
-          tma_tile<D>(q_s + w * T::kBytes, &map_q, q_bar, h * D, m0 + w * kRowsPerWg, b);
+          tma_tile<D>(q_s + w * T::kBytes, &map_q, q_bar, h, m0 + w * kRowsPerWg, b);
         int stage = 0, use = 0;
         for (int t = 0; t < n_tiles; ++t) {
           if (use > 0) mbar_wait(empty_bar + 8 * stage, (use - 1) & 1);
@@ -264,8 +288,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
           const uint32_t dst = kv_s + stage * 2 * T::kBytes;
           const int key0 = t * kBlockN;
           mbar_arrive_expect_tx(bar, 2 * T::kBytes);
-          tma_tile<D>(dst, &map_k, bar, h * D, key0, b);
-          tma_tile<D>(dst + T::kBytes, &map_v, bar, h * D, key0, b);
+          tma_tile<D>(dst, &map_k, bar, h, key0, b);
+          tma_tile<D>(dst + T::kBytes, &map_v, bar, h, key0, b);
           if (++stage == STAGES) {
             stage = 0;
             ++use;
@@ -273,8 +297,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
         }
       }
     } else {
-      const __nv_bfloat16* kg = p.k + (long long)b * p.k_bs + (long long)h * D;
-      const __nv_bfloat16* vg = p.v + (long long)b * p.v_bs + (long long)h * D;
+      const __nv_bfloat16* kg = p.k + (long long)b * p.k_bs + (long long)h * p.d;
+      const __nv_bfloat16* vg = p.v + (long long)b * p.v_bs + (long long)h * p.d;
       // Copy groups in flight.  Two stages of slack: a stage is refilled only
       // after its release, and with STAGES - 1 in flight every "full" signal
       // would queue behind the wait for a release, in lock-step with the
@@ -292,8 +316,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
         if (use > 0) mbar_wait(empty_bar + 8 * stage, (use - 1) & 1);
         const long long key0 = (long long)t * kBlockN;
         const uint32_t dst = kv_s + stage * 2 * T::kBytes;
-        copy_tile_async<D>(dst, kg + key0 * p.k_rs, p.k_rs, ptid);
-        copy_tile_async<D>(dst + T::kBytes, vg + key0 * p.v_rs, p.v_rs, ptid);
+        copy_tile_async<D>(dst, kg + key0 * p.k_rs, p.k_rs, ptid, chunks);
+        copy_tile_async<D>(dst + T::kBytes, vg + key0 * p.v_rs, p.v_rs, ptid, chunks);
         cp_async_commit();
         if (++stage == STAGES) {
           stage = 0;
@@ -323,8 +347,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
       mbar_wait(q_bar, 0);
     } else {
       copy_tile_async<D>(
-          my_q, p.q + (long long)b * p.q_bs + (long long)row0 * p.q_rs + (long long)h * D,
-          p.q_rs, tid % 128);
+          my_q, p.q + (long long)b * p.q_bs + (long long)row0 * p.q_rs + (long long)h * p.d,
+          p.q_rs, tid % 128, chunks);
       cp_async_commit();
       cp_async_wait<0>();
       fence_proxy_async();
@@ -454,9 +478,10 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     const float inv0 = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
     const float inv1 = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
     __nv_bfloat16* og =
-        p.o + (long long)b * p.o_bs + (long long)row * p.o_rs + (long long)h * D + 2 * tq;
+        p.o + (long long)b * p.o_bs + (long long)row * p.o_rs + (long long)h * p.d + 2 * tq;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      if (n >= chunks) break;  // columns past d: zeros times P, never stored
       *reinterpret_cast<__nv_bfloat162*>(og + n * 8) =
           __floats2bfloat162_rn(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
       *reinterpret_cast<__nv_bfloat162*>(og + 8 * p.o_rs + n * 8) =
@@ -467,14 +492,15 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 
 // ---------------------------------------------------------------- tensor maps
 
-// A [batch, rows, cols] bf16 tensor with unit inner stride, read in boxes of
-// 64 rows x 64 columns written in the 128-byte swizzle; what a box reads
-// outside the tensor comes as zeros.
+// A [batch, rows, heads, d] bf16 tensor with unit inner stride (heads of d
+// columns side by side in each row), read in boxes of 64 rows x 64 columns
+// of one head, written in the 128-byte swizzle; what a box reads outside the
+// tensor, such as the columns past d, comes as zeros.
 cudaError_t tile_map(const void* ptr, long long batch_stride, long long row_stride, int batch,
-                     int rows, int cols, CUtensorMap* out) {
+                     int rows, int heads, int d, CUtensorMap* out) {
   // a batch of one may carry any stride: give the map a valid one
   const long long bs = batch == 1 ? rows * row_stride : batch_stride;
-  MapKey key{ptr, 3, {cols, rows, batch, 1}, {row_stride * 2, bs * 2, 0}, {64, 64, 1, 1}};
+  MapKey key{ptr, 4, {d, heads, rows, batch}, {d * 2ll, row_stride * 2, bs * 2}, {64, 1, 64, 1}};
   return tensor_map(key, out);
 }
 
@@ -494,10 +520,11 @@ cudaError_t launch(const Params& p, int batch, int device, cudaStream_t stream) 
   }
   CUtensorMap map_q{}, map_k{}, map_v{};
   if constexpr (T::kTma) {
-    const int cols = p.heads * D;
-    cudaError_t err = tile_map(p.q, p.q_bs, p.q_rs, batch, p.sq, cols, &map_q);
-    if (err == cudaSuccess) err = tile_map(p.k, p.k_bs, p.k_rs, batch, p.sk, cols, &map_k);
-    if (err == cudaSuccess) err = tile_map(p.v, p.v_bs, p.v_rs, batch, p.sk, cols, &map_v);
+    cudaError_t err = tile_map(p.q, p.q_bs, p.q_rs, batch, p.sq, p.heads, p.d, &map_q);
+    if (err == cudaSuccess)
+      err = tile_map(p.k, p.k_bs, p.k_rs, batch, p.sk, p.heads, p.d, &map_k);
+    if (err == cudaSuccess)
+      err = tile_map(p.v, p.v_bs, p.v_rs, batch, p.sk, p.heads, p.d, &map_v);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(p.sq / (NWG * kRowsPerWg), batch * p.heads);
@@ -507,10 +534,13 @@ cudaError_t launch(const Params& p, int batch, int device, cudaStream_t stream) 
 
 template <int D>
 cudaError_t launch_d(const Params& p, int batch, int block_m, int device, cudaStream_t stream) {
-  if constexpr (D == 40) {  // four warpgroups fit the register file only at d = 40
+  if constexpr (plan_fits<D, 4>()) {  // D <= 40
     if (block_m == 256) return launch<D, 4>(p, batch, device, stream);
   }
-  if (block_m == 128) return launch<D, 2>(p, batch, device, stream);
+  if constexpr (plan_fits<D, 2>()) {  // D <= 160
+    if (block_m == 128) return launch<D, 2>(p, batch, device, stream);
+  }
+  static_assert(plan_fits<D, 1>(), "every instance runs 64 rows per block");
   if (block_m == 64) return launch<D, 1>(p, batch, device, stream);
   return cudaErrorInvalidValue;
 }
@@ -520,14 +550,16 @@ cudaError_t launch_d(const Params& p, int batch, int block_m, int device, cudaSt
 extern "C" {
 
 // q, o: [batch, sq, heads*d]; k, v: [batch, sk, heads*d]; bf16 with unit inner
-// stride; `strides` holds the batch and row strides of q, k, v, o in elements.
-// block_m is 64, 128 or (d = 40 only) 256 query rows per block and divides sq.
+// stride, every row 16-byte aligned; d a multiple of 8 up to 256; `strides`
+// holds the batch and row strides of q, k, v, o in elements.  block_m is 64,
+// 128 (d <= 160) or 256 (d <= 40) query rows per block and divides sq.
 // Returns a cudaError_t: 0 on a successful launch.
 int videosd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                                 int heads, int sq, int sk, int d, const long long* strides,
                                 float sm_scale, int block_m, int device, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || device < 0 || device >= kMaxDevices ||
-      block_m <= 0 || sq % block_m != 0 || sk % kBlockN != 0 || !(sm_scale > 0.f))
+      block_m <= 0 || sq % block_m != 0 || sk % kBlockN != 0 || !(sm_scale > 0.f) || d <= 0 ||
+      d % 8 != 0 || d > 256)
     return (int)cudaErrorInvalidValue;
 
   Params p;
@@ -539,17 +571,18 @@ int videosd_flash_attention_fwd(const void* q, const void* k, const void* v, voi
   p.k_bs = strides[2], p.k_rs = strides[3];
   p.v_bs = strides[4], p.v_rs = strides[5];
   p.o_bs = strides[6], p.o_rs = strides[7];
-  p.heads = heads, p.sq = sq, p.sk = sk;
+  p.heads = heads, p.sq = sq, p.sk = sk, p.d = d;
   p.scale_log2 = sm_scale * 1.4426950408889634f;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40: return (int)launch_d<40>(p, batch, block_m, device, s);
-    case 64: return (int)launch_d<64>(p, batch, block_m, device, s);
-    case 80: return (int)launch_d<80>(p, batch, block_m, device, s);
-    case 160: return (int)launch_d<160>(p, batch, block_m, device, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the instance of the next width >= d (flash_attention.py::instance_width)
+  if (d <= 8) return (int)launch_d<8>(p, batch, block_m, device, s);
+  if (d <= 16) return (int)launch_d<16>(p, batch, block_m, device, s);
+  if (d <= 40) return (int)launch_d<40>(p, batch, block_m, device, s);
+  if (d <= 64) return (int)launch_d<64>(p, batch, block_m, device, s);
+  if (d <= 80) return (int)launch_d<80>(p, batch, block_m, device, s);
+  if (d <= 160) return (int)launch_d<160>(p, batch, block_m, device, s);
+  return (int)launch_d<256>(p, batch, block_m, device, s);
 }
 
 }  // extern "C"

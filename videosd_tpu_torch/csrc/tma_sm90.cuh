@@ -61,19 +61,10 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// TMA: one box of a 3-D tensor map at (c0, c1, c2), innermost first, into
-// shared memory; completion is counted in bytes on the mbarrier.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// The same for a 4-D map; coordinates may be negative or past the end, and
-// what lies outside the tensor arrives as zeros.
+// TMA: one box of a 4-D tensor map at (c0, c1, c2, c3), innermost first, into
+// shared memory; completion is counted in bytes on the mbarrier.  Coordinates
+// may be negative or past the end, and what lies outside the tensor arrives
+// as zeros.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(

@@ -1,10 +1,12 @@
 """Flash attention (kernel K1) for the UNet and ControlNet self-attention.
 
 Replaces ``videosd_tpu/ops/pallas/flash_attention.py::mha_flash`` (the TPU
-kernel) and its head-split wrapper ``flash_attention``.  The CUDA source is
-``videosd_tpu_torch/csrc/flash_attention.cu`` (wgmma for both products, a
-ring of K/V stages filled by TMA or cp.async, heads read in place); it is built on first
-launch by :mod:`videosd_tpu_torch._build`.
+kernel) and its head-split wrapper ``flash_attention``.  Two CUDA sources,
+built on first launch by :mod:`videosd_tpu_torch._build`:
+``videosd_tpu_torch/csrc/flash_attention.cu`` for bf16 (wgmma for both
+products, a ring of K/V stages filled by TMA or cp.async, heads read in
+place) and ``videosd_tpu_torch/csrc/flash_attention_fp32.cu`` for fp32 (FFMA
+products from shared memory, no TF32).
 
 * :func:`flash_attention_reference` is the plain PyTorch version: the
   ``_attention_xla`` math of the JAX package (fp32 logits and softmax, the
@@ -13,15 +15,22 @@ launch by :mod:`videosd_tpu_torch._build`.
   in place: no fold or unfold copy.  Any batch and row strides with a unit
   inner stride are taken as they are (a slice of a fused projection works).
 * :func:`flash_attention_bhsd` takes folded ``[B*H, S, D]`` tensors: the
-  same kernel with one head.
-* A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-  raises.  Each attention that launches the kernel adds one to
-  :data:`launches`.
-* :func:`block_rows` picks the query rows per block from the shape, among
-  :func:`row_plans`; the keys of one query tile are never split over blocks.
+  same kernels with one head.
+* A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+  raises.  Each attention that launches the bf16 kernel adds one to
+  :data:`launches`, each that launches the fp32 kernel to
+  :data:`launches_fp32`.
+* :func:`block_rows` picks the bf16 kernel's query rows per block from the
+  shape, among :func:`row_plans`; the keys of one query tile are never split
+  over blocks.  :func:`instance_width` is the kernel instance a head dim
+  runs on.
 
-Supported on CUDA: bfloat16, head dim in :data:`SUPPORTED_HEAD_DIMS`, both
-sequence lengths multiples of 64 (Sk may differ from Sq), no mask.
+Taken on CUDA: bfloat16 or float32 (q, k and v alike), any head dim from 1
+to 256, both sequence lengths multiples of 64 (Sk may differ from Sq), no
+mask.  Heads are read in place where their rows are 16-byte aligned (d a
+multiple of 8 in bf16, of 4 in fp32); any other d is copied into a folded,
+zero-padded ``[B*H, S, D]`` buffer first, as the TPU kernel's wrapper pads d
+to 128 lanes.  float16 and d above 256 raise.
 """
 
 from __future__ import annotations
@@ -32,25 +41,42 @@ import math
 import torch
 
 __all__ = [
+    "INSTANCE_WIDTHS",
     "KEY_TILE",
+    "MAX_HEAD_DIM",
     "NUM_SMS",
-    "SUPPORTED_HEAD_DIMS",
     "block_rows",
     "flash_attention",
     "flash_attention_bhsd",
     "flash_attention_reference",
+    "instance_width",
     "launches",
+    "launches_fp32",
+    "plan_fits",
     "row_plans",
 ]
 
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 160)
+# the bf16 kernel's template instances: a head dim d runs on the narrowest
+# width W >= d, whose columns past d are zeros in shared memory
+INSTANCE_WIDTHS = (8, 16, 40, 64, 80, 160, 256)
+MAX_HEAD_DIM = INSTANCE_WIDTHS[-1]
 KEY_TILE = 64  # keys per K/V tile, and the smallest query tile
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM
 FULL_GRID = NUM_SMS - NUM_SMS // 8  # 116 blocks: a grid that covers the card
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use
+# registers a consumer thread of the bf16 kernel may hold, by consumer
+# warpgroups per block (what setmaxnreg gives it), and what one holds beside
+# the O accumulator (W / 2): the S tile (32), bf16 P (16) and 44 for
+# addresses, statistics and loop state (flash_attention.cu::plan_fits)
+CONSUMER_REGISTERS = {4: 112, 2: 224, 1: 255}
+_FIXED_REGISTERS = 48 + 44
+# rows of 16 bytes: the element alignment of a head read in place
+_ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 
-# attentions sent to the kernel since the count was last set to 0 (read by
-# chip_smoke.py)
+# attentions sent to the bf16 kernel, and to the fp32 one, since the count
+# was last set to 0 (read by chip_smoke.py)
 launches = 0
+launches_fp32 = 0
 
 
 def flash_attention_reference(q, k, v, sm_scale: float, mask=None):
@@ -67,13 +93,46 @@ def flash_attention_reference(q, k, v, sm_scale: float, mask=None):
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
+def instance_width(d: int) -> int:
+    """The bf16 kernel's instance for head dim ``d``: the narrowest of
+    :data:`INSTANCE_WIDTHS` that holds it."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not in 1..{MAX_HEAD_DIM}")
+    return next(w for w in INSTANCE_WIDTHS if w >= d)
+
+
+def depth(w: int) -> int:
+    """The depth of Q K^T at instance width ``w``: padded to wgmma's k16."""
+    return -(-w // 16) * 16
+
+
+def _tile_bytes(w: int) -> int:
+    """Shared memory of a 64-row tile (``Tile::kBytes``): 64-column panels
+    of 8 KB (TMA, w >= 64), else 64 rows of the padded depth in bf16."""
+    return -(-w // 64) * 8192 if w >= 64 else 64 * depth(w) * 2
+
+
+def ring_stages(w: int, nwg: int) -> int:
+    """K/V stages that fit beside ``nwg`` Q tiles, at most 8 (``Tile::stages``)."""
+    return min(8, (SMEM_LIMIT - 2048 - nwg * _tile_bytes(w)) // (2 * _tile_bytes(w)))
+
+
+def plan_fits(w: int, nwg: int) -> bool:
+    """Whether instance ``w`` runs with ``nwg`` consumer warpgroups: its
+    registers within :data:`CONSUMER_REGISTERS` and a ring of three stages."""
+    return w // 2 + _FIXED_REGISTERS <= CONSUMER_REGISTERS[nwg] and ring_stages(w, nwg) >= 3
+
+
 def row_plans(sq: int, d: int) -> tuple[int, ...]:
-    """The query rows per block the kernel can run ``sq`` queries of head
-    width ``d`` with: 64 per consumer warpgroup, one, two or (d = 40 only:
-    wider heads do not fit the register file) four warpgroups per block."""
+    """The query rows per block the bf16 kernel can run ``sq`` queries of
+    head dim ``d`` with: 64 per consumer warpgroup, one, two (instances up
+    to 160 wide) or four (up to 40 wide) warpgroups per block, as
+    :func:`plan_fits` allows."""
     if sq <= 0 or sq % KEY_TILE:
         raise ValueError(f"sequence length {sq} must be a multiple of {KEY_TILE}")
-    return tuple(rows for rows in (256, 128, 64) if sq % rows == 0 and (rows < 256 or d == 40))
+    w = instance_width(d)
+    return tuple(rows for rows, nwg in ((256, 4), (128, 2), (64, 1))
+                 if sq % rows == 0 and plan_fits(w, nwg))
 
 
 def block_rows(sq: int, bh: int, d: int) -> int:
@@ -122,7 +181,8 @@ def flash_attention(q, k, v, *, num_heads: int):
 
 
 def _check(q, k, v, heads: int):
-    """Raise on what the kernel does not take; returns (B, Sq, Sk, D)."""
+    """Raise on what the kernels do not take, strides aside; returns
+    (B, Sq, Sk, D)."""
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
         raise ValueError(f"expected 3-D q/k/v, got {q.shape} {k.shape} {v.shape}")
     b, sq, dm = q.shape
@@ -130,19 +190,21 @@ def _check(q, k, v, heads: int):
     if k.shape[0] != b or k.shape[2] != dm or dm % heads:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
     d = dm // heads
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is above {MAX_HEAD_DIM}, the widest instance (d = 512 "
+                         f"waits for the KL VAE's attention)")
     if sq % KEY_TILE or sk % KEY_TILE or not sq or not sk or not b:
         raise ValueError(f"sequence lengths {sq}/{sk} must be multiples of {KEY_TILE}")
+    if q.dtype not in _ALIGN:
+        raise ValueError(f"q must be bfloat16 or float32, got {q.dtype} (no bundle of the port "
+                         f"is float16)")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} like q, got {t.dtype}")
         if t.stride(2) != 1:
             raise ValueError(f"{name} must have a unit inner stride, got {t.stride()}")
-        # torch allocates storage at 16-byte multiples, so the offset decides
-        if t.stride(0) % 8 or t.stride(1) % 8 or t.storage_offset() % 8:
-            raise ValueError(f"{name} must be 16-byte aligned in every row: strides "
-                             f"{t.stride()}, storage offset {t.storage_offset()}")
+    if d % _ALIGN[q.dtype] == 0:  # read in place (any other d goes through a padded copy)
+        _check_aligned(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash attention kernel needs q/k/v on one CUDA device, "
@@ -150,35 +212,80 @@ def _check(q, k, v, heads: int):
     return b, sq, sk, d
 
 
+def _check_aligned(q, k, v):
+    """Raise unless every row of q, k and v starts 16 bytes aligned."""
+    align = _ALIGN[q.dtype]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # torch allocates storage at 16-byte multiples, so the offset decides
+        if t.stride(0) % align or t.stride(1) % align or t.storage_offset() % align:
+            raise ValueError(f"{name} must be 16-byte aligned in every row: strides "
+                             f"{t.stride()}, storage offset {t.storage_offset()}")
+
+
+def _fold_padded(x, heads: int, dp: int):
+    """``[B, S, H*d]`` -> a zero-padded ``[B*H, S, dp]`` copy."""
+    b, s, dm = x.shape
+    d = dm // heads
+    out = x.new_zeros(b * heads, s, dp)
+    out[..., :d] = x.reshape(b, s, heads, d).transpose(1, 2).reshape(b * heads, s, d)
+    return out
+
+
+def _unfold_cut(out, b: int, heads: int, d: int):
+    """The inverse of :func:`_fold_padded` on an output: ``[B*H, S, dp]`` ->
+    ``[B, S, H*d]``, the padded columns dropped."""
+    sq = out.shape[1]
+    return out[..., :d].reshape(b, heads, sq, d).transpose(1, 2).reshape(b, sq, heads * d)
+
+
 def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
-    """Launches the kernel; ``block_m`` overrides :func:`block_rows` with
-    another of :func:`row_plans` (``chip_smoke.py`` times them all)."""
-    global launches
+    """Launches the kernel of q's dtype; ``block_m`` overrides
+    :func:`block_rows` with another of :func:`row_plans` (``chip_smoke.py``
+    times them all; the fp32 kernel runs 64 rows per block)."""
+    b, sq, sk, d = _check(q, k, v, heads)
+    align = _ALIGN[q.dtype]
+    if d % align:
+        # rows of d elements are not 16-byte aligned: pad d as the TPU wrapper does
+        dp = -(-d // align) * align
+        out = _launch(*(_fold_padded(x, heads, dp) for x in (q, k, v)), 1, sm_scale, block_m)
+        return _unfold_cut(out, b, heads, d)
+    fp32 = q.dtype == torch.float32
+    plans = (KEY_TILE,) if fp32 else row_plans(sq, d)
+    if block_m is None:
+        block_m = KEY_TILE if fp32 else block_rows(sq, b * heads, d)
+    elif block_m not in plans:
+        raise ValueError(f"{block_m} rows per block not in {plans} for {sq} queries of head "
+                         f"dim {d} in {q.dtype}")
+    return _run(q, k, v, heads, d, sm_scale, block_m, fp32)
+
+
+def _run(q, k, v, heads, d, sm_scale, block_m, fp32):
+    global launches, launches_fp32
     from videosd_tpu_torch._build import load_library
 
-    b, sq, sk, d = _check(q, k, v, heads)
-    if block_m is None:
-        block_m = block_rows(sq, b * heads, d)
-    elif block_m not in row_plans(sq, d):
-        raise ValueError(f"{block_m} rows per block not in {row_plans(sq, d)} for "
-                         f"{sq} queries of head dim {d}")
+    b, sq, _ = q.shape
+    sk = k.shape[1]
     out = torch.empty((b, sq, heads * d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
     )
     lib = load_library()
-    args = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, heads, sq, sk, d, strides, float(sm_scale), block_m,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, heads, sq, sk, d, strides, float(sm_scale)]
+    if not fp32:
+        args.append(block_m)
+    args += [q.device.index, torch.cuda.current_stream(q.device).cuda_stream]
+    fn = lib.videosd_flash_attention_fp32_fwd if fp32 else lib.videosd_flash_attention_fwd
     if q.device.index == torch.cuda.current_device():
-        err = lib.videosd_flash_attention_fwd(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(q.device):
-            err = lib.videosd_flash_attention_fwd(*args)
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: cudaError {err}")
-    launches += 1
+    if fp32:
+        launches_fp32 += 1
+    else:
+        launches += 1
     return out

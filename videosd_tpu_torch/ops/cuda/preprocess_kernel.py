@@ -14,9 +14,17 @@ caller that wants the model input and the edge map of a frame together.
   wrappers.  A CPU tensor takes the plain version; a CUDA tensor launches
   the kernel or raises.  Each launch adds one to :data:`launches`.  Any
   H and W are taken (the TPU kernel needed multiples of 128).
+* ``fused_preprocess`` is one cooperative launch over a persistent grid
+  (:func:`cooperative_grid`, :func:`tile_walk`, :func:`launch_plan`): img
+  and the blocks' maxima of |grad|, a grid barrier, then the edge, from
+  |grad| held in shared memory for a block's first :data:`HELD_TILES` tiles
+  and recomputed out of the frame past them.  Its scratch holds one slot per
+  block, every one written before it is read, so nothing is zeroed.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,18 +32,30 @@ from videosd_tpu_torch.ops.sobel import div_rn, rgb_to_gray, sobel_edges
 from videosd_tpu_torch.ops.sobel import sobel_magnitude as sobel_magnitude_reference
 
 __all__ = [
+    "HELD_TILES",
+    "MAX_BLOCKS_PER_SM",
+    "TILE",
+    "cooperative_grid",
     "fused_preprocess",
     "fused_preprocess_reference",
+    "launch_plan",
     "launches",
+    "recomputed_tiles",
     "sobel_magnitude",
     "sobel_magnitude_reference",
+    "tile_walk",
 ]
+
+TILE = (16, 32)  # rows and columns of a tile (preprocess.cu: kTileH, kTileW)
+MAX_BLOCKS_PER_SM = 8  # co-resident blocks of the cooperative grid, at most
+HELD_TILES = 8  # tiles per block whose |grad| stays in shared memory (kHeld)
 
 # output dtypes of the kernel's img, by the flag the C entry takes
 _IMG_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
+_SMS = {}  # streaming multiprocessors per device
 
 
 def fused_preprocess_reference(frame_u8, low=0.11, high=0.8, *, out_dtype=torch.bfloat16):
@@ -44,6 +64,48 @@ def fused_preprocess_reference(frame_u8, low=0.11, high=0.8, *, out_dtype=torch.
     x01 = div_rn(frame_u8.float(), 255.0)
     img = (x01 * 2.0 - 1.0).to(out_dtype)
     return img, sobel_edges(rgb_to_gray(x01), float(low), float(high))
+
+
+def cooperative_grid(h: int, w: int, sms: int, resident: int) -> int:
+    """Blocks of the fused kernel's cooperative launch on ``sms`` SMs where
+    ``resident`` of its blocks fit on one SM at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): one per tile, at
+    most ``min(resident, 8)`` per SM, so the grid is always co-resident
+    (``preprocess.cu::fused_grid``)."""
+    if min(h, w, sms, resident) < 1:
+        raise ValueError(f"need a frame and a resident block, got {(h, w, sms, resident)}")
+    tiles = -(-h // TILE[0]) * -(-w // TILE[1])
+    return min(tiles, sms * min(resident, MAX_BLOCKS_PER_SM))
+
+
+def tile_walk(h: int, w: int, grid: int, block: int) -> list:
+    """(y0, x0) of the tiles block ``block`` of ``grid`` walks, in order, in
+    each phase of the fused kernel (the two phases walk the same tiles)."""
+    tiles_x = -(-w // TILE[1])
+    n_tiles = tiles_x * -(-h // TILE[0])
+    return [(t // tiles_x * TILE[0], t % tiles_x * TILE[1]) for t in range(block, n_tiles, grid)]
+
+
+def recomputed_tiles(h: int, w: int, grid: int) -> int:
+    """Tiles whose |grad| the fused kernel recomputes after the barrier:
+    those past each block's first :data:`HELD_TILES`."""
+    return sum(max(0, len(tile_walk(h, w, grid, b)) - HELD_TILES) for b in range(grid))
+
+
+def launch_plan(h: int, w: int, device, out_dtype=torch.bfloat16) -> tuple[int, int]:
+    """(blocks, co-resident blocks per SM) of the fused kernel's launch for an
+    ``h`` x ``w`` frame on a CUDA ``device``, as the kernel computes them."""
+    from videosd_tpu_torch._build import load_library
+
+    grid, per_sm = ctypes.c_int(), ctypes.c_int()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        index = torch.cuda.current_device()
+        err = load_library().videosd_fused_preprocess_grid(
+            h, w, _IMG_BF16[out_dtype], index, ctypes.byref(grid), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"videosd_fused_preprocess_grid failed: cudaError {err}")
+    return grid.value, per_sm.value
 
 
 def fused_preprocess(frame_u8, low=0.11, high=0.8, *, out_dtype=torch.bfloat16):
@@ -59,11 +121,18 @@ def fused_preprocess(frame_u8, low=0.11, high=0.8, *, out_dtype=torch.bfloat16):
     h, w, _ = frame_u8.shape
     img = torch.empty((h, w, 3), dtype=out_dtype, device=frame_u8.device)
     edge = torch.empty((h, w), dtype=torch.float32, device=frame_u8.device)
-    mx_bits = torch.empty((1,), dtype=torch.int32, device=frame_u8.device)
+    n_slots = MAX_BLOCKS_PER_SM * _sms(frame_u8.device)
+    slots = torch.empty((n_slots,), dtype=torch.float32, device=frame_u8.device)
     _call(frame_u8, "videosd_fused_preprocess", frame_u8.data_ptr(), img.data_ptr(),
-          _IMG_BF16[out_dtype], edge.data_ptr(), mx_bits.data_ptr(), h, w, float(low),
-          float(high))
+          _IMG_BF16[out_dtype], edge.data_ptr(), slots.data_ptr(), n_slots, h, w, float(low),
+          float(high), frame_u8.device.index)
     return img, edge
+
+
+def _sms(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def sobel_magnitude(gray):

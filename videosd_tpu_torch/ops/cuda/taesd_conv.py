@@ -1,10 +1,13 @@
 """The TAESD residual-block 3x3 conv with its fused epilogue (kernel K3).
 
 Replaces ``videosd_tpu/ops/pallas/taesd_conv.py::packed_conv3x3`` (the TPU
-kernel).  The CUDA source is ``videosd_tpu_torch/csrc/taesd_conv.cu`` (wgmma
-with the output channels on M and the pixels on N, the nine taps resident in
-shared memory, a ring of TMA halo stages, a persistent grid); it is built on
-first launch by :mod:`videosd_tpu_torch._build`.
+kernel), which keeps its input's dtype.  Two CUDA sources, built on first
+launch by :mod:`videosd_tpu_torch._build`: ``videosd_tpu_torch/csrc/
+taesd_conv.cu`` for bf16 (wgmma with the output channels on M and the pixels
+on N, the nine taps resident in shared memory, a ring of TMA halo stages, a
+persistent grid) and ``videosd_tpu_torch/csrc/taesd_conv_fp32.cu`` for fp32
+(FFMA over resident fp32 taps and a cp.async halo, tiles of
+:data:`FP32_TILE_ROWS` rows x 64 pixels, no TF32).
 
 Activations keep the TPU kernel's pixel-pair-packed signature
 ``[B, H, W/2, 2C]``, which is the same memory as NHWC ``[B, H, W, C]``; the
@@ -17,12 +20,17 @@ taps only filled the TPU's 128 lanes).
 * :func:`packed_conv3x3_reference` is the plain PyTorch version, with the
   TPU kernel's precision points: fp32 accumulation, the bias, ReLU and skip
   epilogue in fp32, one cast to the input dtype at the end.
-* :func:`packed_conv3x3` is the kernel's wrapper.  A CPU tensor takes the
-  plain version; a CUDA tensor launches the kernel (bf16 only) or raises.
-  Each launch adds one to :data:`launches`.
-* :func:`tile_width` picks the kernel's tile, one output row of WT pixels,
-  from the shape, among :data:`TILE_WIDTHS`; :func:`smem_bytes` and
-  :func:`tile_origins` mirror the kernel's shared memory and tile order.
+* :func:`packed_conv3x3` is the kernels' wrapper.  A CPU tensor takes the
+  plain version; a CUDA tensor launches the kernel of its dtype (bf16 or
+  fp32: xp, skip and weight alike) or raises.  Each launch adds one to
+  :data:`launches` (bf16) or :data:`launches_fp32`.
+* :func:`tile_width` picks the bf16 kernel's tile, one output row of WT
+  pixels, from the shape, among :data:`TILE_WIDTHS`; :func:`smem_bytes` and
+  :func:`tile_origins` mirror the kernel's shared memory and tile order;
+  :func:`fp32_tile_rows` picks the fp32 kernel's tile height, and
+  :func:`fp32_smem_bytes` and :func:`fp32_tile_origins` mirror it.
+* The taps are laid out once per weight and kernel dtype (:func:`taps_for`)
+  and kept on the weight.
 """
 
 from __future__ import annotations
@@ -31,12 +39,18 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "FP32_TILE_ROWS",
     "TILE_WIDTHS",
+    "fp32_smem_bytes",
+    "fp32_tile_origins",
+    "fp32_tile_rows",
     "launches",
+    "launches_fp32",
     "packed_conv3x3",
     "packed_conv3x3_reference",
     "smem_bytes",
     "supports",
+    "taps_for",
     "tile_origins",
     "tile_width",
 ]
@@ -51,9 +65,17 @@ _PIXEL_BYTES = 2 * CHANNELS
 _TAPS_BYTES = 9 * CHANNELS * _PIXEL_BYTES
 _CONSUMERS = 2  # consumer warpgroups per block, each with its own output tile
 _MAX_STAGES = 4
+# The fp32 kernel's tiles: rows of 64 output pixels, most rows first
+# (taesd_conv_fp32.cu: TR, kTW); a halo stage holds 16 input channels of a
+# pixel at 20 floats
+FP32_TILE_ROWS = (4, 2, 1)
+FP32_TILE_W = 64
+_FP32_PIXEL_FLOATS = 20
 
-# kernel launches since the count was last set to 0 (read by chip_smoke.py)
+# launches of the bf16 and of the fp32 kernel since the count was last set
+# to 0 (read by chip_smoke.py)
 launches = 0
+launches_fp32 = 0
 
 
 def supports(xp_shape) -> bool:
@@ -139,15 +161,55 @@ def tile_width(b: int, h: int, w: int) -> int:
     return next((wt for wt in TILE_WIDTHS if b * h * -(-w // wt) >= NUM_SMS), TILE_WIDTHS[-1])
 
 
-def _cached(t, name: str, make):
-    """``make(t)``, kept on ``t`` itself (so outside any state dict) until
-    ``t`` is written in place or its storage changes (inference tensors
-    keep no version count)."""
+def fp32_smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of one block of the fp32 kernel with tiles of
+    ``rows`` rows (``taesd_conv_fp32.cu::Plan::kSmem``): the fp32 taps and
+    two halo stages of (rows + 2) x 66 pixels of 16 channels."""
+    halo = (rows + 2) * (FP32_TILE_W + 2) * _FP32_PIXEL_FLOATS
+    return 4 * (9 * CHANNELS * CHANNELS + 2 * halo)
+
+
+def fp32_tile_origins(b: int, h: int, w: int, rows: int) -> list:
+    """(image, y0, x0) of every tile of the fp32 kernel in its order, x
+    fastest; a tile covers ``rows`` x 64 pixels from there."""
+    tx, ty = -(-w // FP32_TILE_W), -(-h // rows)
+    return [(t // (tx * ty), t // tx % ty * rows, t % tx * FP32_TILE_W)
+            for t in range(b * ty * tx)]
+
+
+def fp32_tile_rows(b: int, h: int, w: int) -> int:
+    """The fp32 kernel's tile height for ``b`` images of ``h`` x ``w``: the
+    one of :data:`FP32_TILE_ROWS` with the fewest tile rows per SM in the
+    busiest SM (rounds of tiles x rows), the tallest on a tie.
+
+    A tile row is 2.4 MFMA on one SM, so rows on idle SMs are lost, and a
+    taller tile reads its taps and halo for more rows.  On an H100 at 700 W
+    (``chip_smoke.py`` times every height at the 512^2 frame's TAESD sizes):
+    4 rows at 512^2 and 256^2, 2 at 128^2 (128 tiles on 132 SMs, where 1 row
+    takes two rounds), 1 at 64^2 (4 rows: 16 SMs busy, twice cuDNN's time).
+    """
+    if min(b, h, w) < 1:
+        raise ValueError(f"empty shape {(b, h, w)}")
+    tiles_x = -(-w // FP32_TILE_W)
+
+    def cost(rows):
+        return -(-(b * -(-h // rows) * tiles_x) // NUM_SMS) * rows
+
+    return min(FP32_TILE_ROWS, key=lambda r: (cost(r), -r))
+
+
+def _cached(t, name: str, dtype, make):
+    """``make(t)`` for the kernel of ``dtype``, kept on ``t`` itself (so
+    outside any state dict) under ``(name, dtype)`` until ``t`` is written in
+    place or its storage changes (inference tensors keep no version count)."""
     key = (0 if t.is_inference() else t._version, t.data_ptr(), t.dtype)
-    hit = getattr(t, name, None)
+    store = getattr(t, "_k3_cache", None)
+    if store is None:
+        store = {}
+        t._k3_cache = store
+    hit = store.get((name, dtype))
     if hit is None or hit[0] != key:
-        hit = (key, make(t.detach()))
-        setattr(t, name, hit)
+        hit = store[(name, dtype)] = (key, make(t.detach()))
     return hit[1]
 
 
@@ -168,60 +230,95 @@ def _taps(weight):
     return t.gather(2, _swizzle_index(co, ci, t.device).expand_as(t)).reshape(9, co, ci)
 
 
+def _taps_fp32(weight):
+    """``[Co, Ci, 3, 3]`` -> ``[9, Ci, Co]`` fp32, tap = 3 * dy + dx: one
+    row of the 64 output channels per input channel, as the fp32 kernel
+    reads them."""
+    co, ci = weight.shape[:2]
+    return weight.permute(2, 3, 1, 0).reshape(9, ci, co).float().contiguous()
+
+
+def taps_for(weight, dtype):
+    """The taps of ``weight`` laid out for the kernel of ``dtype``, made once
+    per weight and dtype: bf16 and fp32 layouts never share a cache entry."""
+    if dtype == torch.bfloat16:
+        return _cached(weight, "taps", dtype, _taps)
+    if dtype == torch.float32:
+        return _cached(weight, "taps", dtype, _taps_fp32)
+    raise ValueError(f"no TAESD conv kernel for {dtype}")
+
+
 def _check(weight, bias, xp, skip) -> None:
-    """Raise on what the kernel does not take, the device type aside."""
+    """Raise on what the kernels do not take, the device type aside."""
     if not supports(xp.shape):
         raise ValueError(f"packed shape {tuple(xp.shape)} is not [B, H, W/2, {2 * CHANNELS}]")
     if tuple(weight.shape) != (CHANNELS, CHANNELS, 3, 3):
         raise ValueError(f"weight must be [{CHANNELS}, {CHANNELS}, 3, 3], got {tuple(weight.shape)}")
     if bias is not None and tuple(bias.shape) != (CHANNELS,):
         raise ValueError(f"bias must be [{CHANNELS}], got {tuple(bias.shape)}")
+    if xp.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"xp must be bfloat16 or float32, got {xp.dtype}")
+    for name, t in (("skip", skip), ("weight", weight)):
+        if t is not None and t.dtype != xp.dtype:
+            raise ValueError(f"{name} must be {xp.dtype} like xp, got {t.dtype}")
     for name, t in (("xp", xp), ("skip", skip)):
         if t is None:
             continue
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
         if t.shape != xp.shape or t.device != xp.device:
             raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not match xp")
         # torch allocates storage at 16-byte multiples, so the offset decides
-        if not t.is_contiguous() or t.storage_offset() % 8:
+        if not t.is_contiguous() or t.storage_offset() * t.element_size() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in (("weight", weight), ("bias", bias)):
         if t is not None and t.device != xp.device:
             raise ValueError(f"{name} on {t.device}, xp on {xp.device}")
 
 
-def _launch(weight, bias, xp, relu: bool, skip, tile_w=None):
-    """Launches the kernel; ``tile_w`` overrides :func:`tile_width` with
-    another of :data:`TILE_WIDTHS` (``chip_smoke.py`` times them all)."""
-    global launches
+def _launch(weight, bias, xp, relu: bool, skip, tile_w=None, tile_rows=None):
+    """Launches the kernel of xp's dtype; ``tile_w`` overrides the bf16
+    kernel's :func:`tile_width` with another of :data:`TILE_WIDTHS`, and
+    ``tile_rows`` the fp32 kernel's :func:`fp32_tile_rows` with another of
+    :data:`FP32_TILE_ROWS` (``chip_smoke.py`` times them all)."""
+    global launches, launches_fp32
     from videosd_tpu_torch._build import load_library
 
     if xp.device.type != "cuda":
         raise ValueError(f"the TAESD conv kernel needs CUDA tensors, got {xp.device}")
     _check(weight, bias, xp, skip)
+    fp32 = xp.dtype == torch.float32
     b, h, wp, _ = xp.shape
-    if tile_w is None:
-        tile_w = tile_width(b, h, 2 * wp)
-    elif tile_w not in TILE_WIDTHS:
-        raise ValueError(f"tile width {tile_w} not in {TILE_WIDTHS}")
+    if (tile_w, tile_rows)[not fp32] is not None:
+        raise ValueError(f"{'tile width' if fp32 else 'tile rows'} is for the "
+                         f"{'bf16' if fp32 else 'fp32'} kernel")
+    if fp32:
+        tile = fp32_tile_rows(b, h, 2 * wp) if tile_rows is None else tile_rows
+        if tile not in FP32_TILE_ROWS:
+            raise ValueError(f"tile rows {tile} not in {FP32_TILE_ROWS}")
+    else:
+        tile = tile_width(b, h, 2 * wp) if tile_w is None else tile_w
+        if tile not in TILE_WIDTHS:
+            raise ValueError(f"tile width {tile} not in {TILE_WIDTHS}")
     lib = load_library()
-    taps = _cached(weight, "_k3_taps", _taps)
-    bias32 = None if bias is None else _cached(bias, "_k3_bias", lambda t: t.float().contiguous())
+    taps = taps_for(weight, xp.dtype)
+    bias32 = None if bias is None else _cached(bias, "bias", torch.float32,
+                                               lambda t: t.float().contiguous())
     out = torch.empty_like(xp)  # never xp: neighbouring tiles still read it
     dev = xp.device.index
     args = (
         xp.data_ptr(), taps.data_ptr(), None if bias32 is None else bias32.data_ptr(),
-        None if skip is None else skip.data_ptr(), out.data_ptr(),
-        b, h, 2 * wp, int(relu), tile_w, dev,
-        torch.cuda.current_stream(xp.device).cuda_stream,
+        None if skip is None else skip.data_ptr(), out.data_ptr(), b, h, 2 * wp, int(relu),
+        tile, dev, torch.cuda.current_stream(xp.device).cuda_stream,
     )
+    fn = lib.videosd_taesd_conv3x3_fp32 if fp32 else lib.videosd_taesd_conv3x3
     if dev == torch.cuda.current_device():
-        err = lib.videosd_taesd_conv3x3(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(xp.device):
-            err = lib.videosd_taesd_conv3x3(*args)
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"TAESD conv launch failed: cudaError {err}")
-    launches += 1
+    if fp32:
+        launches_fp32 += 1
+    else:
+        launches += 1
     return out
