@@ -20,12 +20,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    outputs must agree, and at 128x128 and 256x256 the routed attentions
    (d = 8 and 16) must launch K1's fp32 kernel: the path of that kernel;
 5. the main path: a random-weight sd15 bundle in bf16, the prompt encoder,
-   and the 512x512 4-step ControlNet + TAESD frame program for a few
-   frames; K1's launch count over those frames must be 84 per frame;
+   and the 512x512 4-step ControlNet + TAESD frame program of
+   ``build_frame_program``, whose first call captures one CUDA graph that
+   the further frames replay; the graph must hold 84 K1 launches per frame
+   (counted by the wrapper while it was captured);
 6. the ``taesd_pallas`` path: the phase-5 frame program with
-   ``TAESDConfig(pallas_convs=True)``, timed right after phase 5; K3 must
-   launch 60 times and K1 84 times per frame, and the image must stay
+   ``TAESDConfig(pallas_convs=True)``, timed right after phase 5; its graph
+   must hold 60 K3 and 84 K1 launches per frame, and the image must stay
    close to phase 5's;
+6a. the graphs: in every bucket (parity at batch 1 and 4, the five
+   production variants, the engine-shaped call, the ``taesd_pallas``
+   bundle) two calls in a row with other seeds, each replayed from the
+   captured graph and equal bit for bit to the eager ``frame_program`` of
+   the same inputs (images, latents, caches), eager first held against
+   itself; each graph's kernel launches per frame as captured; the eager
+   and the replayed parity frame timed in alternating turns (the replay
+   must be faster in each); the peak memory with every graph held; then
+   the port bench's code (``videosd_tpu_torch/bench.py``) once with short
+   windows;
 6b. production: the phase-5 bundle through the five FrameSpec variants
    that ``bench.py`` measures (ControlNet and DeepCache intervals,
    temporal DeepCache produce/reuse), each with its exact K1 launch count
@@ -58,13 +70,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
     the packed library route, the fp32 copy through K3's fp32 kernel
     against the fp32 default route (the path of that kernel), and the
     device time of encode + decode on every route;
-11. last, one torch.profiler pass over two main-path frames: kernel
-    launches and device-busy time per frame, K1's share, and the copy
-    kernels (K1 reads the heads in place, so no fold copies remain).
+11. last, one torch.profiler pass over two replayed main-path frames:
+    kernel launches and device-busy time per frame, the card's idle share
+    of the replayed frame, and device time by class of operation (K1,
+    GEMMs, convolutions, layout transposes, copies and casts, elementwise,
+    reductions, norms, softmax).
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
-are not counted.  The line before the last is a JSON object of per-kernel
+are not counted.  A graph replay calls no wrapper: a path's count is what
+its wrappers launched while the program warmed up and captured its graph,
+and the graph's launches per frame are those of the capture.  The line
+before the last is a JSON object of per-kernel
 results (each with its bound, computed from the shapes: the largest of its
 bytes over 3.35 TB/s, its flops over the peak of their type (989 TFLOP/s in
 bf16; fp32 FFMA, 132 SMs x 128 lanes x 2 at the SM clock) and, for K1, its
@@ -86,6 +103,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,7 +111,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from videosd_tpu_torch import _build  # noqa: E402
+from videosd_tpu_torch import _build, bench  # noqa: E402
 from videosd_tpu_torch.models import layers  # noqa: E402
 from videosd_tpu_torch.models.taesd import taesd_decode, taesd_encode  # noqa: E402
 from videosd_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
@@ -110,6 +128,7 @@ from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     ModelBundle,
     build_frame_program,
     build_prompt_encoder,
+    frame_program,
 )
 
 # K1's shapes on the main path, [B*H, S, d_head]: sd15 at 512x512 has 8 heads
@@ -237,6 +256,9 @@ MAILBOX_HW, CAMERA_HW = (768, 768), (480, 640)
 # taps land on the same pixels (positions are exact fp32 arithmetic); only
 # sin and the order of the tap sums differ, a few fp32 ulps of [0, 1]
 CROP_ATOL = 1e-5
+# the eager and the replayed parity frame, timed in alternating turns of
+# GRAPH_TURN_FRAMES blocking frames each
+GRAPH_TURNS, GRAPH_TURN_FRAMES = 4, 5
 
 
 def fail(msg: str) -> None:
@@ -552,7 +574,8 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
 def phase_tiny() -> int:
     """The tiny checkpoint's fp32 2-step program, CUDA against the CPU, at
     every TINY_SIZES side; returns the launches of K1's fp32 kernel over the
-    CUDA runs at 128^2 and 256^2 (its path), counted from 0 just before."""
+    CUDA runs at 128^2 and 256^2 (its path: the warm-up and the capture of
+    each graph), counted from 0 just before."""
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "toy_tiny_ckpt")
     bundles = {dev: ModelBundle.from_dir(ckpt, device=dev) for dev in ("cuda", "cpu")}
     embeds = {dev: build_prompt_encoder(b)(b.tokenizer(["a portrait", "a landscape"]))[0]
@@ -567,27 +590,31 @@ def phase_tiny() -> int:
         outs = {}
         for dev, b in bundles.items():
             fa.launches = fa.launches_fp32 = 0
-            img, lat = build_frame_program(b, spec)(frame, embeds[dev], *args, noise=noise)
+            program = build_frame_program(b, spec)
+            img, lat = program(frame, embeds[dev], *args, noise=noise)
             outs[dev] = (img.cpu().numpy().astype(int), lat.float().cpu().numpy())
             if dev == "cuda":
                 torch.cuda.synchronize()
-                launched = (fa.launches, fa.launches_fp32)
+                per_frame = program.last_launches
+                launched = (per_frame["flash_attention"], per_frame["flash_attention_fp32"])
+                fp32_launches += fa.launches_fp32
         dlat = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
         dimg = np.abs(outs["cuda"][0] - outs["cpu"][0]).max()
         print(f"tiny fp32 2-step {side}x{side} batch 2, CUDA vs CPU: latents max|d| {dlat:.3e} "
               f"(bound {TINY_LAT_ATOL:g}), image max|d| {dimg} levels (bound {TINY_IMG_LEVELS}); "
-              f"K1 launches on CUDA: fp32 {launched[1]}, bf16 {launched[0]}")
+              f"K1 launches per frame in the CUDA graph: fp32 {launched[1]}, bf16 {launched[0]}")
         if not (np.isfinite(outs["cuda"][1]).all() and dlat <= TINY_LAT_ATOL
                 and dimg <= TINY_IMG_LEVELS):
             fail(f"the tiny program on CUDA disagrees with the CPU at {side}x{side}")
         if launched[0] or (side > 64) != (launched[1] > 0):
             fail(f"the tiny fp32 program at {side}x{side} launched K1 {launched}, expected the "
                  f"fp32 kernel {'> 0' if side > 64 else '0'} times and the bf16 one 0")
-        fp32_launches += launched[1]
     return fp32_launches
 
 
 def phase_main(card: str) -> int:
+    """The main path through the entry points: its first frame captures the
+    graph, the timed frames replay it."""
     t0 = time.perf_counter()
     bundle = ModelBundle.random("sd15", dtype=torch.bfloat16, device="cuda")
     encoder = build_prompt_encoder(bundle)
@@ -622,17 +649,19 @@ def phase_main(card: str) -> int:
     if not (torch.isfinite(eps).all() and rel <= UNET_REL_L2):
         fail("the UNet with K1 disagrees with the plain attention")
 
-    img, lat = program(frame, embeds, *args)  # warm-up: cuDNN/cuBLAS plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.launches_fp32 = k2.launches = k3.launches = k3.launches_fp32 = 0
+    img, lat = program(frame, embeds, *args)  # warm-up and capture
+    torch.cuda.synchronize()
+    (bucket,) = program.buckets.values()
     times = []
     for _ in range(MAIN_FRAMES):
         t0 = time.perf_counter()
         img, lat = program(frame, embeds, *args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = fa.launches
+    launches, per_frame = fa.launches, program.last_launches
     if k2.launches or k3.launches or fa.launches_fp32 or k3.launches_fp32:
         fail(f"the default bf16 route launched K2 {k2.launches}, K3 {k3.launches}, K1 fp32 "
              f"{fa.launches_fp32} and K3 fp32 {k3.launches_fp32} times")
@@ -641,14 +670,15 @@ def phase_main(card: str) -> int:
         fail(f"image {tuple(img.shape)} {img.dtype}")
     if lat.shape != (1, 64, 64, 4) or lat.dtype != torch.bfloat16 or not torch.isfinite(lat).all():
         fail(f"latents {tuple(lat.shape)} {lat.dtype} or not finite")
-    if launches != K1_PER_FRAME * MAIN_FRAMES:
-        fail(f"K1 launched {launches} times over {MAIN_FRAMES} frames, "
-             f"expected {K1_PER_FRAME} per frame")
-    print(f"sd15 512x512 4-step CN+TAESD bf16 batch 1 on {card}: median "
+    if per_frame["flash_attention"] != K1_PER_FRAME or launches != 2 * K1_PER_FRAME:
+        fail(f"K1 launched {per_frame['flash_attention']} times in the captured frame and "
+             f"{launches} times in the warm-up and the capture, expected {K1_PER_FRAME} per frame")
+    print(f"sd15 512x512 4-step CN+TAESD bf16 batch 1 on {card}, CUDA graph replays: median "
           f"{statistics.median(times):.2f} ms/frame over {MAIN_FRAMES} frames "
           f"(min {min(times):.2f}, max {max(times):.2f}), peak allocated {peak:.2f} GiB, "
-          f"K1 launches {launches // MAIN_FRAMES}/frame")
-    return launches, (bundle, embeds, frame, args, img)
+          f"K1 launches {per_frame['flash_attention']}/frame in the graph ({launches} by the "
+          f"wrapper: warm-up and capture); warm-up + capture {bucket.capture_s:.2f} s")
+    return launches, (bundle, embeds, frame, args, img, program)
 
 
 def phase_k2(card: str, clock: float) -> dict:
@@ -922,48 +952,49 @@ def _psnr(a, b) -> float:
     return math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
 
 
-def phase_taesd_pallas(card: str, main) -> int:
+def phase_taesd_pallas(card: str, main) -> tuple:
     """The phase-5 frame program on the taesd_pallas path, timed right after
-    phase 5 and before any profiler session."""
-    bundle, embeds, frame, args, img_default = main
+    phase 5 and before any profiler session; returns K3's launches on the
+    path (warm-up and capture) and the program."""
+    bundle, embeds, frame, args, img_default, _ = main
     pallas = dataclasses.replace(bundle, taesd_cfg=_taesd_routes(bundle)["pallas"])
     program = build_frame_program(pallas, FrameSpec(batch=1, height=512, width=512, steps=4))
-    img, lat = program(frame, embeds, *args)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = k2.launches = k3.launches = 0
+    img, lat = program(frame, embeds, *args)  # warm-up and capture
     times = []
     for _ in range(MAIN_FRAMES):
         t0 = time.perf_counter()
         img, lat = program(frame, embeds, *args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    k1_launches, k3_launches = fa.launches, k3.launches
+    k3_launches, per_frame = k3.launches, program.last_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8 or not torch.isfinite(lat).all():
         fail(f"taesd_pallas image {tuple(img.shape)} {img.dtype} or latents not finite")
-    if (k3_launches, k1_launches) != (K3_PER_FRAME * MAIN_FRAMES, K1_PER_FRAME * MAIN_FRAMES):
-        fail(f"taesd_pallas launched K3 {k3_launches} and K1 {k1_launches} times over "
-             f"{MAIN_FRAMES} frames, expected {K3_PER_FRAME} and {K1_PER_FRAME} per frame")
+    got = (per_frame["taesd_conv3x3"], per_frame["flash_attention"])
+    if got != (K3_PER_FRAME, K1_PER_FRAME) or k3_launches != 2 * K3_PER_FRAME:
+        fail(f"the taesd_pallas graph holds K3 {got[0]} and K1 {got[1]} launches per frame (K3 "
+             f"{k3_launches} in warm-up and capture), expected {K3_PER_FRAME} and {K1_PER_FRAME}")
     psnr = _psnr(img, img_default)
-    print(f"sd15 512x512 4-step CN+TAESD bf16 batch 1, taesd_pallas, on {card}: median "
-          f"{statistics.median(times):.2f} ms/frame over {MAIN_FRAMES} frames "
+    print(f"sd15 512x512 4-step CN+TAESD bf16 batch 1, taesd_pallas, on {card}, CUDA graph "
+          f"replays: median {statistics.median(times):.2f} ms/frame over {MAIN_FRAMES} frames "
           f"(min {min(times):.2f}, max {max(times):.2f}), peak allocated {peak:.2f} GiB, "
-          f"K3 {k3_launches // MAIN_FRAMES}/frame, K1 {k1_launches // MAIN_FRAMES}/frame; "
+          f"K3 {got[0]}/frame, K1 {got[1]}/frame in the graph; "
           f"image PSNR vs the default route {psnr:.2f} dB (bound {FRAME_PSNR_DB:g})")
     if psnr < FRAME_PSNR_DB:
         fail("the taesd_pallas image drifted from the default route's")
-    return k3_launches
+    return k3_launches, program
 
 
 def _timed_frame(program, *a, **kw):
     """One frame program call: (outputs, host ms to the synchronize, K1
-    launches)."""
-    fa.launches = 0
+    launches per frame in the graph it replayed)."""
     t0 = time.perf_counter()
     out = program(*a, **kw)
     torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3, fa.launches
+    return out, (time.perf_counter() - t0) * 1e3, program.last_launches["flash_attention"]
 
 
 def _check_frame(name: str, out) -> None:
@@ -974,16 +1005,14 @@ def _check_frame(name: str, out) -> None:
         fail(f"{name}: latents {tuple(lat.shape)} or caches not finite")
 
 
-def phase_production(card: str, main) -> None:
-    """The five production variants on the phase-5 bundle and frame, timed
-    before any profiler session; each frame's K1 launches must be exact.
-    The host's speed drifts within a call, so each variant frame is timed
-    in turn with a parity frame and reported as a ratio to it."""
-    bundle, embeds, frame, args, _ = main
-    spec = FrameSpec(batch=1, height=512, width=512, steps=4)
-    parity = build_frame_program(bundle, spec)
+def phase_production(card: str, main, programs: dict) -> None:
+    """The five production variants on the phase-5 bundle and frame (their
+    graphs from phase 6a), timed before any profiler session; each frame's
+    K1 launches must be exact.  Each variant frame is timed in turn with a
+    parity frame and reported as a ratio to it."""
+    bundle, embeds, frame, args, _, parity = main
     for name, (fields, want) in PRODUCTION.items():
-        program = build_frame_program(bundle, dataclasses.replace(spec, **fields))
+        program = programs[name]
         temporal = fields.get("deepcache_temporal", False)
         kinds = ("produce", "reuse") if temporal else ("frame",)
         want = dict(zip(kinds, want if temporal else (want,)))
@@ -1042,7 +1071,7 @@ def phase_engine_call(card: str, main) -> None:
     """The call the serving engine makes: an I420 mailbox with the camera's
     center-crop box, temporal DeepCache N=2 with the ControlNet every step,
     and the previous frame's latents as warm start."""
-    bundle, embeds, _, args, _ = main
+    bundle, embeds, _, args, _, main_program = main
     want_produce, want_reuse = PRODUCTION["production_temporal2_cn1"][1]
     rng = np.random.default_rng(1)
     mail = [torch.from_numpy(_i420_mailbox(rng.integers(0, 256, (*CAMERA_HW, 3), dtype=np.uint8))
@@ -1090,8 +1119,11 @@ def phase_engine_call(card: str, main) -> None:
     if not same or moved == 0.0 or psnr < FRAME_PSNR_DB:
         fail("the engine-shaped call's warm start or temporal reuse is wrong")
 
+    # the cadence's two signatures (produce and reuse, each with a warm start),
+    # captured before the timing
+    warm_kw = {"src_box": box, "warm_latents": prev[1], "warm_alpha": [0.3]}
+    program(mail[0], embeds, *args, deep_caches=prev[2], **warm_kw)
     torch.cuda.reset_peak_memory_stats()
-    main_program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4))
     times, par_times, lat, caches = {"produce": [], "reuse": []}, [], prev[1], None
     for i in range(PRODUCTION_FRAMES):  # the N=2 cadence with a warm start, frames alternating
         par_times.append(_timed_frame(main_program, main[2], embeds, *args)[1])
@@ -1112,6 +1144,143 @@ def phase_engine_call(card: str, main) -> None:
                       for k, v in times.items())
           + f" of the parity frames in turn ({par:.2f} ms); peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _spread(a, b) -> list:
+    return [(x.float() - y.float()).abs().max().item() for x, y in zip(a, b)]
+
+
+def _replay_vs_eager(name: str, program, calls: list, want: dict) -> list:
+    """Two calls in a row of one signature of ``program`` (replays of the
+    graph its first call captured), each against the eager frame_program of
+    the same inputs bit for bit, after eager against itself; the graph's
+    launches per frame must be ``want``.  Returns the replays' outputs."""
+    before = set(program.buckets)
+    got = [program(*a, **kw) for a, kw in calls]
+    launches = program.last_launches
+    captured = [b.capture_s for k, b in program.buckets.items() if k not in before]
+    torch.cuda.synchronize()
+    eager = [frame_program(program.bundle, program.spec, *a, **kw) for a, kw in calls]
+    again = frame_program(program.bundle, program.spec, *calls[0][0], **calls[0][1])
+    stable = _same(eager[0], again)
+    bar = [0.0] * len(again) if stable else _spread(eager[0], again)
+    diffs = [_spread(g, e) for g, e in zip(got, eager)]
+    same = [_same(g, e) for g, e in zip(got, eager)]
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    print(f"graph {name}: two calls replayed, equal to eager frame_program bit for bit: {same}"
+          + ("" if all(same) else f" (max|d| per output {diffs})")
+          + f"; eager equal to itself: {stable}"
+          + ("" if stable else f" (spread {bar}, the bar)")
+          + f"; launches per frame in the graph {launches}"
+          + (f"; warm-up + capture {captured[0]:.2f} s" if captured else ""))
+    if not all(d <= b for diff in diffs for d, b in zip(diff, bar)):
+        fail(f"graph {name}: the replay differs from eager frame_program")
+    if wrong:
+        fail(f"graph {name}: the graph holds {wrong} launches per frame, expected {want}")
+    return got
+
+
+def phase_graph(card: str, main, pallas_program) -> tuple[dict, float]:
+    """Every bucket's graph against eager frame_program, eager and replayed
+    parity frames timed in turns, and the peak memory with every graph
+    held; returns the programs by name and the replayed parity ms/frame."""
+    bundle, embeds, frame, args, img, parity = main
+    spec = parity.spec
+    programs = {"parity": parity, "taesd_pallas": pallas_program}
+
+    def calls(frames, b=1, **kw):  # two calls in a row, other seeds and frames
+        return [((frames[i], embeds.expand(b, -1, -1), [0.6] * b, [5.0] * b, [2.0] * b,
+                  [23 + b * i + j for j in range(b)]), dict(kw)) for i in range(2)]
+
+    rng = np.random.default_rng(2)
+    frames = [frame, torch.from_numpy(rng.integers(0, 256, frame.shape, dtype=np.uint8)).cuda()]
+    k1 = {"flash_attention": K1_PER_FRAME}
+    _replay_vs_eager("parity batch 1", parity, calls(frames), {**k1, "taesd_conv3x3": 0})
+    _replay_vs_eager("taesd_pallas", pallas_program, calls(frames),
+                     {**k1, "taesd_conv3x3": K3_PER_FRAME})
+    programs["parity_b4"] = build_frame_program(bundle, dataclasses.replace(spec, batch=4))
+    frames4 = [torch.from_numpy(rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8)).cuda()
+               for _ in range(2)]
+    _replay_vs_eager("parity batch 4", programs["parity_b4"], calls(frames4, 4), k1)
+    for name, (fields, want) in PRODUCTION.items():
+        program = programs[name] = build_frame_program(bundle, dataclasses.replace(spec, **fields))
+        if not fields.get("deepcache_temporal"):
+            _replay_vs_eager(name, program, calls(frames), {"flash_attention": want})
+            continue
+        produced = _replay_vs_eager(f"{name} produce", program, calls(frames),
+                                    {"flash_attention": want[0]})
+        reuse = calls(frames)
+        for (_, kw), out in zip(reuse, produced):
+            kw["deep_caches"] = out[2]
+        _replay_vs_eager(f"{name} reuse", program, reuse, {"flash_attention": want[1]})
+
+    # the engine-shaped call: I420 mailbox, camera box, warm start, temporal N=2 cn1
+    mail = [torch.from_numpy(_i420_mailbox(rng.integers(0, 256, (*CAMERA_HW, 3), dtype=np.uint8))
+                             )[None].cuda() for _ in range(2)]
+    left, top, right, bottom = center_crop_box(CAMERA_HW[1], CAMERA_HW[0], 512, 512)
+    box = torch.tensor([[top, left, bottom - top, right - left]], dtype=torch.int32, device="cuda")
+    engine = programs["engine"] = build_frame_program(bundle, dataclasses.replace(
+        spec, in_height=MAILBOX_HW[0], in_width=MAILBOX_HW[1], in_format="i420",
+        deepcache_temporal=True))
+    warm = {"src_box": box, "warm_latents": parity(frame, embeds, *args)[1], "warm_alpha": [0.3]}
+    want_produce, want_reuse = PRODUCTION["production_temporal2_cn1"][1]
+    produced = _replay_vs_eager("engine-shaped produce", engine, calls(mail, **warm),
+                                {"flash_attention": want_produce})
+    reuse = calls(mail, **warm)
+    for (_, kw), out in zip(reuse, produced):
+        kw["deep_caches"] = out[2]
+    _replay_vs_eager("engine-shaped reuse", engine, reuse, {"flash_attention": want_reuse})
+    held = torch.cuda.memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    graphs = sum(len(p.buckets) for p in programs.values())
+    print(f"graphs held: {graphs} in {len(programs)} programs, {held:.2f} GiB allocated with "
+          f"the bundle's weights, peak allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB "
+          f"(the graphs' private pools keep the blocks their captures freed) ({card})")
+
+    # eager and replayed parity frames in alternating turns (before any profiler session)
+    turns = []
+    for turn in range(GRAPH_TURNS):
+        row = {}
+        for kind in ("eager", "replay"):
+            ms = []
+            for i in range(GRAPH_TURN_FRAMES):
+                a = (frame, embeds, *args[:3], [23 + i])
+                t0 = time.perf_counter()
+                if kind == "eager":
+                    frame_program(bundle, spec, *a)
+                else:
+                    parity(*a)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[kind] = statistics.median(ms)
+        turns.append(row)
+        print(f"turn {turn}: eager frame_program {row['eager']:.2f} ms/frame, CUDA graph replay "
+              f"{row['replay']:.2f} ms/frame (median of {GRAPH_TURN_FRAMES} blocking frames; "
+              f"{row['eager'] / row['replay']:.2f}x) ({card})")
+    if any(row["replay"] >= row["eager"] for row in turns):
+        fail("a turn's replayed frame was not faster than the eager one")
+    return programs, statistics.median(row["replay"] for row in turns)
+
+
+# the bench's window sizes for one short pass through its code
+BENCH_SHORT = {"windows": 1, "frames": 3, "latency_frames": 3, "batch4_frames": 2,
+               "temporal_frames": 4}
+
+
+def phase_bench(bundle) -> None:
+    """The port bench's code once with short windows, on the phase-5
+    bundle: its JSON keys, with positive finite rates."""
+    result = bench.run(bundle, **BENCH_SHORT)
+    print(f"bench, short windows {BENCH_SHORT}: {json.dumps(result)}")
+    rates = [v for k, v in result.items() if k.endswith("_fps") and v is not None]
+    rates += [result["value"], result["p50_latency_ms"]]
+    if len(rates) != 8 or not all(math.isfinite(r) and r > 0 for r in rates):
+        fail("the bench gave a rate that is not positive and finite")
 
 
 def _taesd_routes(bundle) -> dict:
@@ -1188,11 +1357,58 @@ def phase_taesd_routes(card: str, bundle) -> int:
     return fp32_launches
 
 
-def phase_profile(card: str, main) -> None:
-    """One profiler pass over two main-path frames, after every frame timing
-    (a profiler session slows the host's later launches)."""
-    bundle, embeds, frame, args, _ = main
-    program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4))
+# device time by class of operation: the first class whose pattern is in a
+# kernel's name (K1 and K3 before the library convs and GEMMs, whose names
+# share words; convolutions before GEMMs: cuDNN's are implicit GEMMs)
+OP_CLASSES = (
+    ("K1 flash attention", ("flash_fwd",)),
+    ("K3 TAESD conv", ("conv3x3_kernel",)),
+    ("cuDNN NCHW<->NHWC layout transposes", ("nchwToNhwc", "nhwcToNchw", "tensorTransform",
+                                             "nhwcAddPadding")),
+    ("convolutions (cuDNN)", ("fprop", "convolve", "cudnn")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "splitKreduce")),
+    ("softmax (plain-route attention)", ("softmax",)),
+    ("layer norm", ("layer_norm",)),
+    ("reductions (group-norm statistics, maxima)", ("reduce_kernel",)),
+    ("copies and dtype casts", ("copy", "Copy", "Memcpy", "Memset", "memset")),
+    ("elementwise (group-norm arithmetic, silu, adds, scales)", ("elementwise",)),
+)
+
+
+def _op_class(name: str) -> str:
+    return next((cls for cls, keys in OP_CLASSES if any(k in name for k in keys)), "other")
+
+
+def _timeline(fn, iters: int) -> tuple[float, float]:
+    """(span, busy) in ms of ``iters`` calls of ``fn`` under one profiler
+    session: from the first kernel's start to the last kernel's end, and the
+    union of the kernels' intervals, read from the session's exported trace."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    if not spans:
+        fail("torch.profiler's trace holds no kernel of the replayed frames")
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return (end - spans[0][0]) / 1e3, busy / 1e3
+
+
+def phase_profile(card: str, main, replay_ms: float) -> None:
+    """One profiler pass over two replayed main-path frames, after every
+    frame timing (a profiler session slows the host's later launches):
+    kernels and device-busy time per frame, K1's 84, the idle share of the
+    card in the profiled frames, and device time by class of operation."""
+    bundle, embeds, frame, args, _, program = main
     frames = 2
     events = _profiled(lambda: program(frame, embeds, *args), frames)
 
@@ -1203,11 +1419,24 @@ def phase_profile(card: str, main) -> None:
 
     n_all, ms_all = per_frame(lambda key: True)
     n_k1, ms_k1 = per_frame(lambda key: "flash_fwd_kernel" in key)
-    n_copy, ms_copy = per_frame(lambda key: "copy" in key.lower())
-    print(f"profile of {frames} main-path frames on {card}: {n_all:.0f} kernel launches/frame, "
+    span, busy = _timeline(lambda: program(frame, embeds, *args), frames)
+    print(f"profile of {frames} replayed main-path frames on {card}: {n_all:.0f} kernels/frame, "
           f"device busy {ms_all:.2f} ms/frame; K1 {n_k1:.0f} launches and {ms_k1:.3f} ms/frame; "
-          f"copy and cast kernels "
-          f"{n_copy:.0f} launches and {ms_copy:.2f} ms/frame")
+          f"one more session's timeline: {span:.2f} ms from the first kernel to the last, "
+          f"{busy:.2f} ms busy, idle share {1 - busy / span:.2%} (the two frames and the staging "
+          f"between them); unprofiled replay {replay_ms:.2f} ms/frame (device busy over it "
+          f"{ms_all / replay_ms:.1%})")
+    classes = collections.defaultdict(lambda: [0.0, 0.0])
+    for e in events:
+        classes[_op_class(e.key)][0] += e.count / frames
+        classes[_op_class(e.key)][1] += e.device_us / frames / 1e3
+    print("device time by class of operation, per replayed frame (ms, share, kernels):")
+    for cls, (n, ms) in sorted(classes.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {cls}: {ms:.2f} ms, {ms / ms_all:.1%}, {n:.0f}")
+    top = sorted(events, key=lambda e: -e.device_us)[:12]
+    print("  the longest kernels: " + "; ".join(
+        f"{_op_class(e.key)} {e.device_us / frames / 1e3:.3f} ms x{e.count // frames} "
+        f"{_demangle(e.key)[:60]}" for e in top))
     if n_k1 != K1_PER_FRAME:
         fail(f"the profiler saw {n_k1} K1 kernels per frame, expected {K1_PER_FRAME}")
 
@@ -1222,16 +1451,19 @@ def main() -> None:
     k1_err, k1_fp32_err = phase_k1()
     k1_fp32_launches = phase_tiny()
     k1_launches, main = phase_main(card)
-    k3_launches = phase_taesd_pallas(card, main)
-    phase_production(card, main)
+    k3_launches, pallas_program = phase_taesd_pallas(card, main)
+    programs, replay_ms = phase_graph(card, main, pallas_program)
+    phase_production(card, main, programs)
     phase_engine_call(card, main)
+    del programs, pallas_program
+    phase_bench(main[0])
     k1_times, k1_fp32_times = phase_k1_times(card, clock)
     k2_res = phase_k2(card, clock)
     k3_res = phase_k3(card, clock)
     k3_fp32_res = phase_k3_fp32(card, clock)
     k2_launches = phase_k2_path(main[2])
     k3_fp32_launches = phase_taesd_routes(card, main[0])
-    phase_profile(card, main)
+    phase_profile(card, main, replay_ms)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",

@@ -132,10 +132,17 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0)).astype(f32)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_resize_matrix` on ``device``, copied there once: a CUDA graph
+    that captures the resize reads these tensors, never a host array."""
+    return torch.from_numpy(_resize_matrix(in_size, out_size)).to(device)
+
+
 def _resize_lanczos3(x, out_h: int, out_w: int):
     """[..., H, W, C] fp32 -> [..., out_h, out_w, C]: the axis weights of
     :func:`_resize_matrix` applied as two fp32 products (TF32 off)."""
-    wh, ww = (torch.from_numpy(_resize_matrix(n, m)).to(x.device)
+    wh, ww = (_resize_weights(n, m, x.device)
               for n, m in ((x.shape[-3], out_h), (x.shape[-2], out_w)))
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False

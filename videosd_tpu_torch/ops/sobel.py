@@ -20,9 +20,11 @@ def div_rn(x, d: float):
 
     On CUDA, torch computes ``tensor / python_float`` as ``tensor * (1/d)``,
     which is off by one ulp for 126 of the 256 values ``u / 255``; dividing
-    by a 0-dim tensor on ``x``'s device is a true division everywhere.
+    by a 0-dim tensor on ``x``'s device is a true division everywhere.  The
+    divisor is filled on the device (``torch.full``), not copied from the
+    host, so a CUDA graph can capture the division.
     """
-    return x / x.new_tensor(d)
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def rgb_to_gray(rgb):

@@ -25,7 +25,15 @@ deep trunk between refresh steps; ``deepcache_temporal`` carries the
 trunk across frames (produce returns the per-step features, reuse runs
 shallow passes over them).
 
-The program runs eagerly; convs, GEMMs and norms are library calls, and
+A call stages its inputs on the host (checks, host-to-device copies, the
+seeded noise) and then runs the body, a function of device buffers alone.
+``frame_program`` runs the two eagerly, as JAX's ``frame_program`` is the
+function its ``build_frame_program`` jits; the program that
+``build_frame_program`` returns keeps static buffers per call signature and,
+on a CUDA bundle, replays one CUDA graph per signature, captured at its
+first call (the port's counterpart of ``jax.jit``).
+
+Convs, GEMMs and norms are library calls, and
 the long self-attentions go to kernel K1 (``ops/cuda/flash_attention.py``)
 on every UNet pass, full or shallow, and every ControlNet call.  TAESD
 follows ``bundle.taesd_cfg``; the ``taesd_pallas`` path of the JAX server
@@ -37,7 +45,11 @@ sends its residual-block convs to kernel K3 (``ops/cuda/taesd_conv.py``)::
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import gc
+import time
 from typing import Any
 
 import torch
@@ -49,6 +61,7 @@ from videosd_tpu_torch.models.controlnet import ControlNetModel
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.taesd import AutoencoderTiny, TAESDConfig, taesd_decode, taesd_encode
 from videosd_tpu_torch.models.unet import UNET_PRESETS, UNet2DConditionModel, UNetConfig
+from videosd_tpu_torch.ops.cuda import flash_attention, taesd_conv
 from videosd_tpu_torch.ops.preprocess import (
     crop_resize,
     i420_to_rgb255,
@@ -65,7 +78,15 @@ from videosd_tpu_torch.schedulers.lcm import (
 )
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer, find_vocab_dir
 
-__all__ = ["FrameSpec", "ModelBundle", "build_frame_program", "build_prompt_encoder"]
+__all__ = [
+    "FrameProgram",
+    "FrameSpec",
+    "ModelBundle",
+    "build_frame_program",
+    "build_prompt_encoder",
+    "frame_program",
+    "kernel_launches",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +190,9 @@ class ModelBundle:
         with_controlnet: bool = True,
     ) -> "ModelBundle":
         """Randomly initialized bundle, drawn with the JAX init rule from a
-        ``torch.Generator`` seeded with ``seed`` (not the JAX values)."""
+        ``torch.Generator`` seeded with ``seed`` (not the JAX values).  On
+        ``device="meta"`` the models have shapes and no values (for
+        counting, ``ops/flops.py``)."""
         if family not in UNET_PRESETS:
             raise NotImplementedError(f"family {family!r} is not ported yet")
         device = _resolve_device(device)
@@ -178,24 +201,24 @@ class ModelBundle:
         taesd_cfg = (
             TAESDConfig(hidden=16, blocks_per_stage=1) if family == "tiny" else TAESDConfig()
         )
-        gen = torch.Generator(device=device).manual_seed(seed)
         models = {"unet": _empty_module(lambda: UNet2DConditionModel(unet_cfg), dtype, device)}
-        init_like_jax(models["unet"], gen)
         if with_controlnet:
-            cn = _empty_module(lambda: ControlNetModel(unet_cfg), dtype, device)
-            init_like_jax(cn, gen, ControlNetModel.ZERO_INIT)
-            models["controlnet"] = cn
+            models["controlnet"] = _empty_module(lambda: ControlNetModel(unet_cfg), dtype, device)
         models["taesd"] = _empty_module(lambda: AutoencoderTiny(taesd_cfg), dtype, device)
-        init_like_jax(models["taesd"], gen)
-        clip = _empty_module(lambda: CLIPTextModel(clip_cfg), dtype, device)
-        init_like_jax(clip, gen)
-        emb = clip.text_model.embeddings
-        for table, std in ((emb.token_embedding, 0.02), (emb.position_embedding, 0.01)):
-            with torch.no_grad():
-                table.weight.copy_(
-                    torch.randn(table.weight.shape, generator=gen, device=device) * std
-                )
-        models["clip"] = clip
+        models["clip"] = _empty_module(lambda: CLIPTextModel(clip_cfg), dtype, device)
+        if device.type != "meta":
+            gen = torch.Generator(device=device).manual_seed(seed)
+            init_like_jax(models["unet"], gen)
+            if with_controlnet:
+                init_like_jax(models["controlnet"], gen, ControlNetModel.ZERO_INIT)
+            init_like_jax(models["taesd"], gen)
+            init_like_jax(models["clip"], gen)
+            emb = models["clip"].text_model.embeddings
+            for table, std in ((emb.token_embedding, 0.02), (emb.position_embedding, 0.01)):
+                with torch.no_grad():
+                    table.weight.copy_(
+                        torch.randn(table.weight.shape, generator=gen, device=device) * std
+                    )
         sched_cfg = LCMSchedulerConfig()
         return cls(
             family=family,
@@ -250,29 +273,33 @@ def _check_spec(bundle: ModelBundle, spec: FrameSpec) -> None:
         raise ValueError("spec.use_controlnet needs a bundle with a ControlNet")
 
 
-def _per_element(x, batch: int, dtype, device):
-    return torch.as_tensor(x, dtype=dtype).to(device).reshape(batch)
+def _per_element(x, batch: int):
+    return torch.as_tensor(x, dtype=torch.float32).reshape(batch)
 
 
-def _seeded_noise(seeds, steps: int, latent_shape, device):
-    """[S+1, B, h, w, 4] fp32: element b's rows from a generator seeded with
-    ``seeds[b]``."""
-    out = torch.empty((steps + 1, len(seeds), *latent_shape), dtype=torch.float32, device=device)
+def _latent_hw(bundle: ModelBundle, spec: FrameSpec) -> tuple[int, int]:
+    """The latents' height and width: TAESD's stride-2 convs round up."""
+    f = 2 ** bundle.taesd_cfg.num_stages
+    return -(-spec.height // f), -(-spec.width // f)
+
+
+def _draw_noise(seeds, out) -> None:
+    """Fill ``out`` [S+1, B, h, w, 4] fp32: element b's rows from a generator
+    seeded with ``seeds[b]``, on ``out``'s device."""
     for b, s in enumerate(seeds):
-        g = torch.Generator(device=device).manual_seed(int(s))
-        out[:, b] = torch.randn((steps + 1, *latent_shape), generator=g, device=device)
-    return out
+        g = torch.Generator(device=out.device).manual_seed(int(s))
+        out[:, b] = torch.randn((out.shape[0], *out.shape[2:]), generator=g, device=out.device)
 
 
 def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous()
 
 
-def _load_frames(spec: FrameSpec, frame_u8, dev):
-    """Check the upload layout and move it to ``dev``: [B, Hin, Win, 3]
-    for rgb, packed [B, Hin*3//2, Win] for i420."""
+def _check_frames(spec: FrameSpec, frame_u8):
+    """Check the upload layout: [B, Hin, Win, 3] for rgb, packed
+    [B, Hin*3//2, Win] for i420."""
     B = spec.batch
-    frame_u8 = torch.as_tensor(frame_u8).to(dev)
+    frame_u8 = torch.as_tensor(frame_u8)
     if spec.in_format == "i420":
         hin, win = spec.resolved_in_shape()
         want = (B, hin * 3 // 2, win)
@@ -286,78 +313,124 @@ def _load_frames(spec: FrameSpec, frame_u8, dev):
     return frame_u8
 
 
-@torch.inference_mode()
-def frame_program(
-    bundle: ModelBundle,
-    spec: FrameSpec,
-    frame_u8,
-    prompt_embeds,
-    strength,
-    guidance_scale,
-    controlnet_scale,
-    seed,
-    noise=None,
-    *,
-    warm_latents=None,
-    warm_alpha=None,
-    pooled_embeds=None,
-    src_box=None,
-    deep_caches=None,
-):
-    """One frame batch.
-
-    ``frame_u8``: uint8 [B, Hin, Win, 3], or packed [B, Hin*3//2, Win] for
-    ``in_format="i420"``.  ``src_box``: optional [B, 4] int (top, left,
-    height, width), the true camera extent inside a mailbox frame, resized
-    by ``crop_resize``; without it the whole frame is center-cropped.
-    ``prompt_embeds`` [B, 77, D]; ``strength``/``guidance_scale``/
-    ``controlnet_scale`` [B] floats, ``seed`` [B] ints.
-    ``warm_latents`` [B, h, w, 4] with ``warm_alpha`` [B]: the encoded
-    frame becomes ``(1-a)*encoded + a*warm`` (fp32 blend, cast back);
-    ``a = 0`` leaves it unchanged.  ``deep_caches`` [B, S, h', w', c']
-    (``deepcache_temporal`` only): reuse mode.
-
-    Returns (images_u8 [B,H,W,3], denoised latents [B,h,w,4] in the bundle
-    dtype), and in temporal produce mode (``deepcache_temporal`` without
-    ``deep_caches``) also the per-step deep features [B, S, h', w', c'].
-    """
-    _check_spec(bundle, spec)
+def _call_inputs(bundle: ModelBundle, spec: FrameSpec, frame_u8, prompt_embeds, strength,
+                 guidance_scale, controlnet_scale, noise, warm_latents, warm_alpha,
+                 pooled_embeds, src_box, deep_caches) -> dict:
+    """Check one call's inputs and bring them to their staged dtypes and
+    shapes, on whatever device they arrived: ``{name: tensor or None}``
+    named and ordered as :func:`_frame_body`'s arguments (``noise`` None:
+    drawn from the seeds)."""
     if pooled_embeds is not None:
         raise NotImplementedError("frame_program(pooled_embeds=...) (SDXL) is not ported yet")
-    dev, dtype = bundle.device, bundle.dtype
     B, S = spec.batch, spec.steps
-    frame_u8 = _load_frames(spec, frame_u8, dev)
-    strength = _per_element(strength, B, torch.float32, dev)
-    guidance_scale = _per_element(guidance_scale, B, torch.float32, dev)
-    controlnet_scale = _per_element(controlnet_scale, B, torch.float32, dev)
+    latent = (B, *_latent_hw(bundle, spec), 4)
+    if warm_latents is not None:
+        if warm_alpha is None:
+            raise ValueError("warm_latents needs warm_alpha")
+        warm_latents = torch.as_tensor(warm_latents)
+        if tuple(warm_latents.shape) != latent:
+            raise ValueError(f"warm_latents must be {latent}, got {tuple(warm_latents.shape)}")
+        warm_alpha = _per_element(warm_alpha, B)
+    else:
+        warm_alpha = None
+    if noise is not None:
+        noise = torch.as_tensor(noise, dtype=torch.float32)
+        if tuple(noise.shape) != (S + 1, *latent):
+            raise ValueError(f"noise must be {(S + 1, *latent)}, got {tuple(noise.shape)}")
+    if src_box is not None:
+        src_box = torch.as_tensor(src_box)
+        if tuple(src_box.shape) != (B, 4):
+            raise ValueError(f"src_box must be [{B}, 4], got {tuple(src_box.shape)}")
+    if deep_caches is not None:
+        if not spec.deepcache_temporal:
+            raise ValueError("deep_caches needs FrameSpec.deepcache_temporal")
+        deep_caches = torch.as_tensor(deep_caches)
+        if tuple(deep_caches.shape[:2]) != (B, S):
+            raise ValueError(f"deep_caches must be [{B}, {S}, h, w, c], got "
+                             f"{tuple(deep_caches.shape)}")
+    return {
+        "frame": _check_frames(spec, frame_u8),
+        "context": torch.as_tensor(prompt_embeds),
+        "strength": _per_element(strength, B),
+        "guidance": _per_element(guidance_scale, B),
+        "cn_scale": _per_element(controlnet_scale, B),
+        "noise": noise,
+        "warm_latents": warm_latents,
+        "warm_alpha": warm_alpha,
+        "src_box": src_box,
+        "deep_caches": deep_caches,
+    }
+
+
+def _staged_dtype(bundle: ModelBundle, name: str, x) -> torch.dtype:
+    if name == "context":
+        return bundle.dtype
+    if name in ("noise", "warm_latents"):
+        return torch.float32
+    return x.dtype  # frame (uint8), the per-element fp32 scalars, src_box, deep_caches
+
+
+def _new_buffers(bundle: ModelBundle, spec: FrameSpec, inputs: dict) -> dict:
+    """Empty device buffers for ``inputs``, each in its staged dtype; the
+    noise buffer always exists."""
+    dev = bundle.device
+    bufs = {name: None if x is None else torch.empty(x.shape, dtype=_staged_dtype(bundle, name, x),
+                                                     device=dev)
+            for name, x in inputs.items()}
+    bufs["noise"] = torch.empty((spec.steps + 1, spec.batch, *_latent_hw(bundle, spec), 4),
+                                dtype=torch.float32, device=dev)
+    return bufs
+
+
+def _stage(bufs: dict, inputs: dict, seed, batch: int) -> None:
+    """Copy a call's inputs into the device buffers and fill the noise:
+    the host side of the frame program, where every host-to-device copy and
+    every read of the seeds happen."""
+    for name, x in inputs.items():
+        if x is not None:
+            bufs[name].copy_(x)
+    if inputs["noise"] is None:
+        _draw_noise(torch.as_tensor(seed).reshape(batch).tolist(), bufs["noise"])
+
+
+def _apply_hook(hook, images):
+    """The bundle's safety hook; under a CUDA graph capture a hook that
+    syncs with the host or copies from it fails, and the error names it."""
+    if not (images.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return hook(images)
+    try:
+        return hook(images)
+    except RuntimeError as err:
+        raise RuntimeError(f"the bundle's safety_hook {hook!r} failed inside the frame "
+                           f"program's CUDA graph capture (a host sync or a host copy?): "
+                           f"{err}") from err
+
+
+def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, guidance,
+                cn_scale, noise, warm_latents=None, warm_alpha=None, src_box=None,
+                deep_caches=None):
+    """The device side of :func:`frame_program`: a function of staged device
+    tensors that makes no host sync, no host-to-device copy and allocates no
+    host constant, so a CUDA graph can capture it."""
+    dtype, S = bundle.dtype, spec.steps
     unet, models = bundle.models["unet"], bundle.models
     cfg = bundle.unet_cfg
 
-    frame = i420_to_rgb255(frame_u8) if spec.in_format == "i420" else frame_u8
+    rgb = i420_to_rgb255(frame) if spec.in_format == "i420" else frame
     if src_box is not None:
-        img01 = crop_resize(frame, src_box, spec.height, spec.width)
+        img01 = crop_resize(rgb, src_box, spec.height, spec.width)
     else:
-        img01 = preprocess_frame(frame, spec.height, spec.width)
+        img01 = preprocess_frame(rgb, spec.height, spec.width)
     ctrl = None
     if spec.use_controlnet:
         ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
     img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
     latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
     if warm_latents is not None:
-        if warm_alpha is None:
-            raise ValueError("warm_latents needs warm_alpha")
-        a = _per_element(warm_alpha, B, torch.float32, dev)[:, None, None, None]
-        warm = torch.as_tensor(warm_latents).to(dev, torch.float32)
-        latents0 = ((1.0 - a) * latents0.float() + a * warm).to(latents0.dtype)
+        a = warm_alpha[:, None, None, None]
+        latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
 
     ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
-    if noise is None:
-        seeds = torch.as_tensor(seed).reshape(B).tolist()
-        noise = _seeded_noise(seeds, S, latents0.shape[1:], dev)
-    else:
-        noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
-        if tuple(noise.shape) != (S + 1, *latents0.shape):
-            raise ValueError(f"noise must be {(S + 1, *latents0.shape)}, got {tuple(noise.shape)}")
 
     # forward-noise to the first VALID ladder step
     alphas = bundle.alphas_cumprod
@@ -367,21 +440,13 @@ def frame_program(
 
     w_emb = None
     if cfg.time_cond_proj_dim is not None:
-        w_emb = guidance_embedding(guidance_scale, cfg.time_cond_proj_dim).to(dtype)
-    context = prompt_embeds.to(dev, dtype)
+        w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
     denoised = latents0
 
     cn_interval = max(1, int(spec.controlnet_interval))
     dc_interval = max(1, int(spec.deepcache_interval))
     cn_cache = None  # residuals at the base scale, reused between refreshes
     dc_cache = None  # NCHW deep-trunk feature, reused between refreshes
-    if deep_caches is not None:
-        if not spec.deepcache_temporal:
-            raise ValueError("deep_caches needs FrameSpec.deepcache_temporal")
-        deep_caches = torch.as_tensor(deep_caches).to(dev)
-        if tuple(deep_caches.shape[:2]) != (B, S):
-            raise ValueError(f"deep_caches must be [{B}, {S}, h, w, c], got "
-                             f"{tuple(deep_caches.shape)}")
     temporal_produce = spec.deepcache_temporal and deep_caches is None
     new_caches = []
 
@@ -401,8 +466,7 @@ def frame_program(
         if spec.use_controlnet and keep > 0.0:
             if cn_interval == 1 or cn_cache is None or refresh(s, cn_interval):
                 cn_cache = models["controlnet"](
-                    x, t, context, ctrl, conditioning_scale=controlnet_scale,
-                    timestep_cond=w_emb,
+                    x, t, context, ctrl, conditioning_scale=cn_scale, timestep_cond=w_emb,
                 )
             down_res, mid_res = cn_cache
         unet_kw = dict(timestep_cond=w_emb, down_block_additional_residuals=down_res)
@@ -430,32 +494,179 @@ def frame_program(
 
     out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
     if bundle.safety_hook is not None:
-        out = bundle.safety_hook(out)
+        out = _apply_hook(bundle.safety_hook, out)
     if temporal_produce:
         caches = torch.stack([f.permute(0, 2, 3, 1) for f in new_caches], dim=1)
         return postprocess_image(out), denoised, caches
     return postprocess_image(out), denoised
 
 
-def build_frame_program(bundle: ModelBundle, spec: FrameSpec):
+@torch.inference_mode()
+def frame_program(
+    bundle: ModelBundle,
+    spec: FrameSpec,
+    frame_u8,
+    prompt_embeds,
+    strength,
+    guidance_scale,
+    controlnet_scale,
+    seed,
+    noise=None,
+    *,
+    warm_latents=None,
+    warm_alpha=None,
+    pooled_embeds=None,
+    src_box=None,
+    deep_caches=None,
+):
+    """One frame batch, run eagerly: staging, then :func:`_frame_body`.
+
+    ``frame_u8``: uint8 [B, Hin, Win, 3], or packed [B, Hin*3//2, Win] for
+    ``in_format="i420"``.  ``src_box``: optional [B, 4] int (top, left,
+    height, width), the true camera extent inside a mailbox frame, resized
+    by ``crop_resize``; without it the whole frame is center-cropped.
+    ``prompt_embeds`` [B, 77, D]; ``strength``/``guidance_scale``/
+    ``controlnet_scale`` [B] floats, ``seed`` [B] ints.
+    ``warm_latents`` [B, h, w, 4] with ``warm_alpha`` [B]: the encoded
+    frame becomes ``(1-a)*encoded + a*warm`` (fp32 blend, cast back);
+    ``a = 0`` leaves it unchanged.  ``deep_caches`` [B, S, h', w', c']
+    (``deepcache_temporal`` only): reuse mode.
+
+    Returns (images_u8 [B,H,W,3], denoised latents [B,h,w,4] in the bundle
+    dtype), and in temporal produce mode (``deepcache_temporal`` without
+    ``deep_caches``) also the per-step deep features [B, S, h', w', c'].
+    """
+    _check_spec(bundle, spec)
+    inputs = _call_inputs(bundle, spec, frame_u8, prompt_embeds, strength, guidance_scale,
+                          controlnet_scale, noise, warm_latents, warm_alpha, pooled_embeds,
+                          src_box, deep_caches)
+    bufs = _new_buffers(bundle, spec, inputs)
+    _stage(bufs, inputs, seed, spec.batch)
+    return _frame_body(bundle, spec, **bufs)
+
+
+def kernel_launches() -> dict:
+    """The launch counts of the kernels a frame may run (K1 and K3, bf16 and
+    fp32), as their wrappers keep them."""
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_fp32": flash_attention.launches_fp32,
+            "taesd_conv3x3": taesd_conv.launches,
+            "taesd_conv3x3_fp32": taesd_conv.launches_fp32}
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The one side stream of ``device`` that every warm-up and capture runs
+    on (as ``torch.cuda.graph``'s default capture stream): its library
+    handles and cached blocks serve every bucket."""
+    return torch.cuda.Stream(device)
+
+
+class _Bucket:
+    """One call signature of a :class:`FrameProgram`: its static input
+    buffers and, on a CUDA bundle, the CUDA graph captured over them and its
+    static outputs."""
+
+    def __init__(self, bundle: ModelBundle, spec: FrameSpec, inputs: dict):
+        self.bundle, self.spec = bundle, spec
+        self.buffers = _new_buffers(bundle, spec, inputs)
+        self.graph = self.outputs = None
+        self.launches = dict.fromkeys(kernel_launches(), 0)
+        self.capture_s = 0.0  # wall time of the warm-up and the capture
+
+    def run(self) -> tuple:
+        if self.bundle.device.type != "cuda":
+            return _frame_body(self.bundle, self.spec, **self.buffers)
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        return self.outputs
+
+    def _capture(self) -> None:
+        """Warm up eagerly on a side stream (library plans and handles, K1's
+        library and tensor maps, K3's taps, the resize matrices: every cache
+        built at first use), then capture the body on that stream.  A fault
+        raises; nothing falls back to the eager program."""
+        dev = self.bundle.device
+        t0 = time.perf_counter()
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _frame_body(self.bundle, self.spec, **self.buffers)
+            torch.cuda.synchronize(dev)
+            gc.collect()  # no tensor of the warm-up is freed by the collector mid-capture
+            torch.cuda.empty_cache()
+            before = kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            try:
+                outputs = _frame_body(self.bundle, self.spec, **self.buffers)
+            except BaseException:
+                # the fault invalidated the capture, so ending it fails too
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.launches = {k: n - before[k] for k, n in kernel_launches().items()}
+        self.graph, self.outputs = graph, outputs
+        self.capture_s = time.perf_counter() - t0
+
+
+class FrameProgram:
+    """The frame program of one (bundle, spec) bucket, the port's
+    counterpart of the JAX package's jitted ``build_frame_program``.
+
+    Each call signature (which optional inputs are given, with their shapes
+    and dtypes: warm start, ``src_box``, temporal reuse) has its own static
+    device buffers.  A call checks its inputs, copies them into those
+    buffers and draws the noise there (:func:`_stage`), then runs
+    :func:`_frame_body` over them: on a CUDA bundle by replaying the CUDA
+    graph captured at the signature's first call, on any other device
+    eagerly.  It returns new tensors (clones of the body's outputs), so a
+    later call never overwrites an earlier call's results.  Calls are
+    ordered on the caller's current stream; the first call of a signature
+    also warms up and captures (``bucket.capture_s``).
+
+    ``last_launches``: the kernel launches of one call of the signature the
+    last call ran (:func:`kernel_launches`' names), counted while its graph
+    was captured; a replay calls no wrapper, so the wrappers' own counts
+    move only at capture.
+    """
+
+    def __init__(self, bundle: ModelBundle, spec: FrameSpec):
+        _check_spec(bundle, spec)
+        self.bundle, self.spec = bundle, spec
+        self.buckets: dict = {}
+        self.last_launches: dict | None = None
+
+    @torch.inference_mode()
+    def __call__(self, frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise=None,
+                 *, warm_latents=None, warm_alpha=None, pooled_embeds=None, src_box=None,
+                 deep_caches=None):
+        inputs = _call_inputs(self.bundle, self.spec, frame_u8, prompt_embeds, strength,
+                              guidance, cn_scale, noise, warm_latents, warm_alpha, pooled_embeds,
+                              src_box, deep_caches)
+        key = tuple((name, tuple(x.shape), _staged_dtype(self.bundle, name, x))
+                    for name, x in inputs.items() if x is not None and name != "noise")
+        bucket = self.buckets.get(key)
+        if bucket is None:
+            bucket = self.buckets[key] = _Bucket(self.bundle, self.spec, inputs)
+        _stage(bucket.buffers, inputs, seed, self.spec.batch)
+        outputs = bucket.run()
+        self.last_launches = bucket.launches
+        return tuple(x.clone() for x in outputs)
+
+
+def build_frame_program(bundle: ModelBundle, spec: FrameSpec) -> FrameProgram:
     """Check ``spec`` against what the port runs and return
     ``f(frame_u8, prompt_embeds, strength, guidance, cn_scale, seed,
     noise=None, *, warm_latents, warm_alpha, pooled_embeds, src_box,
     deep_caches)`` -> ``(images_u8, denoised_latents[, deep_caches])``: the
     JAX program's arguments without its ``params`` (the models live on the
-    bundle), plus the noise seam."""
-    _check_spec(bundle, spec)
-
-    def program(frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise=None, *,
-                warm_latents=None, warm_alpha=None, pooled_embeds=None, src_box=None,
-                deep_caches=None):
-        return frame_program(
-            bundle, spec, frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise,
-            warm_latents=warm_latents, warm_alpha=warm_alpha, pooled_embeds=pooled_embeds,
-            src_box=src_box, deep_caches=deep_caches,
-        )
-
-    return program
+    bundle), plus the noise seam.  On a CUDA bundle each call signature is
+    one CUDA graph, captured at its first call (:class:`FrameProgram`)."""
+    return FrameProgram(bundle, spec)
 
 
 def build_prompt_encoder(bundle: ModelBundle):

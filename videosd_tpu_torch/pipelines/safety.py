@@ -24,8 +24,7 @@ def make_blackout_hook(classify: Callable) -> Callable:
     def hook(images_pm1):
         img01 = torch.clamp(images_pm1.float() * 0.5 + 0.5, 0.0, 1.0)
         flagged = classify(img01)
-        black = images_pm1.new_tensor(-1.0)
-        return torch.where(flagged[:, None, None, None], black, images_pm1)
+        return torch.where(flagged[:, None, None, None], -1.0, images_pm1)
 
     return hook
 

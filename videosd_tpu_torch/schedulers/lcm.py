@@ -122,8 +122,8 @@ def timestep_schedule(
     steps = num_inference_steps
     c = cfg.num_train_timesteps // lcm_origin_steps
     strength = torch.as_tensor(strength, dtype=torch.float32)
-    origin = torch.tensor(float(lcm_origin_steps), dtype=torch.float32, device=strength.device)
-    n = torch.floor(origin * strength).to(torch.int64)[..., None]
+    # a Python float, not a tensor copied from the host (the product is the same)
+    n = torch.floor(strength * float(lcm_origin_steps)).to(torch.int64)[..., None]
     skip = torch.clamp(n // steps, min=1)
     k = torch.clamp((n + skip - 1) // skip, max=steps)
     s = torch.arange(steps, dtype=torch.int64, device=strength.device)
