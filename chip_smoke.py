@@ -13,12 +13,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    16, d below its instance's width, d off the 16-byte rows, the widest),
    with the heads read in place beside heads of large values, and the
    in-place ``[B, S, H*D]`` entry against the folded one; then its fp32
-   kernel against the plain version in fp32;
+   kernel against the plain version in fp32; then K1 above d = 256 (the
+   wide kernel, ``csrc/flash_attention_wide.cu``) at d = 264, 320, 512
+   (the KL VAE's [1, 4096, 512] and [4, 4096, 512]) and 640 in bf16 and
+   fp32, keys != queries included;
 4. the committed trained tiny checkpoint (``examples/toy_tiny_ckpt``) runs
    its 2-step frame program on CUDA and on the CPU in fp32, with TF32 off,
    from the same inputs and noise, at 64x64, 128x128 and 256x256; the
    outputs must agree, and at 128x128 and 256x256 the routed attentions
    (d = 8 and 16) must launch K1's fp32 kernel: the path of that kernel;
+   then a random fp32 tiny bundle with a KL VAE (``vae="kl"``), CUDA
+   against the CPU at 128x128 and 256x256, with exactly 10 and 14 fp32 K1
+   launches per frame (the UNet's 8 and 12, and the VAE's mid attention in
+   encode and decode);
 5. the main path: a random-weight sd15 bundle in bf16, the prompt encoder,
    and the 512x512 4-step ControlNet + TAESD frame program of
    ``build_frame_program``, whose first call captures one CUDA graph that
@@ -38,6 +45,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    must be faster in each); the peak memory with every graph held; then
    the port bench's code (``videosd_tpu_torch/bench.py``) once with short
    windows;
+6a'. the KL path: a random sd15 bundle with the KL VAE (``with_kl_vae``),
+   the 512x512 4-step ControlNet + KL frame in bf16 through
+   ``build_frame_program`` (``FrameSpec(vae="kl")``): two replayed calls
+   equal to the eager ``frame_program`` bit for bit, exactly 86 K1
+   launches per frame at capture (84 in the UNet and ControlNet, 2 of the
+   wide kernel in the VAE at d = 512), eager and replayed frames timed in
+   turns, FLOPs per frame (``ops/flops.py``) and peak memory; the fp32 copy
+   of its VAE at 512x512 through the wide fp32 kernel against the plain
+   attention; one ``tiled_decode`` of a 128x128 latent grid (nine 64-latent
+   tiles, one wide launch each);
 6b. production: the phase-5 bundle through the five FrameSpec variants
    that ``bench.py`` measures (ControlNet and DeepCache intervals,
    temporal DeepCache produce/reuse), each with its exact K1 launch count
@@ -74,7 +91,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     kernel launches and device-busy time per frame, the card's idle share
     of the replayed frame, and device time by class of operation (K1,
     GEMMs, convolutions, layout transposes, copies and casts, elementwise,
-    reductions, norms, softmax).
+    reductions, norms, softmax); then the same over two replayed KL
+    frames.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
@@ -114,21 +132,25 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from videosd_tpu_torch import _build, bench  # noqa: E402
 from videosd_tpu_torch.models import layers  # noqa: E402
 from videosd_tpu_torch.models.taesd import taesd_decode, taesd_encode  # noqa: E402
+from videosd_tpu_torch.models.vae import vae_decode, vae_encode  # noqa: E402
 from videosd_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from videosd_tpu_torch.ops.cuda import preprocess_kernel as k2  # noqa: E402
 from videosd_tpu_torch.ops.cuda import taesd_conv as k3  # noqa: E402
+from videosd_tpu_torch.ops.flops import frame_flops  # noqa: E402
 from videosd_tpu_torch.ops.preprocess import (  # noqa: E402
     center_crop_box,
     crop_resize,
     i420_to_rgb255,
     rgb_to_i420_host,
 )
+from videosd_tpu_torch.ops.tiling import tiled_decode  # noqa: E402
 from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     FrameSpec,
     ModelBundle,
     build_frame_program,
     build_prompt_encoder,
     frame_program,
+    kernel_launches,
 )
 
 # K1's shapes on the main path, [B*H, S, d_head]: sd15 at 512x512 has 8 heads
@@ -156,6 +178,25 @@ K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16),
 K1_TIMED = {"bf16": [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
                      (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)],
             "fp32": [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)]}
+# K1 above d = 256 (the wide kernel), as (B, H, Sq, Sk, d), in bf16 and fp32 with
+# loud neighbours where H = 2: two column slices (264, 320, 512) and three
+# (640), keys != queries, and the KL VAE's mid attention at 512x512 (one head of
+# 512 over 64^2 latents) at batch 1 and 4
+K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
+           (4, 1, 4096, 4096, 512), (2, 2, 256, 512, 640)]
+K1_WIDE_TIMED = {"bf16": [(1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)],
+                 "fp32": [(1, 1, 4096, 4096, 512)]}
+# the tiny KL frame sizes, with K1's fp32 launches per frame: the UNet's 8 and
+# 12 (as the checkpoint's) and the VAE's 2 (d = 16 at 256 and 1024 tokens)
+TINY_KL = {128: 10, 256: 14}
+# the fp32 KL VAE at 512^2, wide fp32 kernel against the plain attention (both
+# fp32, TF32 off: ~1e-6 relative apart in the attention, carried through the
+# decoder's convs; a wrong attention is O(1e-2) off)
+KL_FP32_REL_L2 = 1e-4
+# tiled_decode of a 128^2 latent grid in 64-latent tiles overlapping by 8
+KL_TILED_GRID, KL_TILES = 128, 9
+# eager and replayed KL frames in alternating turns
+KL_TURNS, KL_TURN_FRAMES = 3, 3
 # the card's published peaks (H100 SXM): dense bf16 tensor-core rate, HBM rate;
 # and the rates that scale with the SM clock: FFMA lanes and ex2 per SM
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -180,6 +221,10 @@ K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
 # routed self-attentions per sd15 512^2 4-step frame: per step 15 in the UNet
 # (down 0-2 x 2, up 1-3 x 3) and 6 in the ControlNet (down 0-2 x 2)
 K1_PER_FRAME = 84
+# K1 launches per sd15 512^2 4-step CN + KL frame: the 84 routed attentions of
+# the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
+# decode on the wide kernel
+K1_KL_PER_FRAME = {"flash_attention": K1_PER_FRAME, "flash_attention_wide": 2}
 # tiny fp32 checkpoint, CUDA against CPU: cuDNN and the CPU sum in other
 # orders (fp32, TF32 off); latents are O(1), so 1e-3 absolute is ~1e4 ulps
 # of drift over two denoise steps, and images may move by one level
@@ -458,7 +503,12 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
         bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: {K1_MAX_ULPS} ulps of the largest output) "
                 f"mean|d| {mean:.3e} (bar {mean_bar:.3e}: 2^-7 of mean|o| "
                 f"{ref.float().abs().mean().item():.3e})")
-        plan = f"bf16, {fa.block_rows(sq, b * h, d)} rows/block on the {fa.instance_width(d)}-wide instance"
+        plan = (f"bf16, the wide kernel, Q {'resident' if fa.wide_q_resident(d) else 'streamed'}"
+                if d > fa.MAX_HEAD_DIM else
+                f"bf16, {fa.block_rows(sq, b * h, d)} rows/block on the {fa.instance_width(d)}-wide "
+                f"instance")
+    if d > fa.MAX_HEAD_DIM:
+        plan += f", {fa.wide_slices(d)} slices of {fa.WIDE_SLICE} columns x 64 rows per query tile"
     print(f"K1 {name} {plan}{', loud neighbours' if loud else ''}: {bars}; in-place entry "
           f"equals the folded one bit for bit: {same}")
     if not ok:
@@ -472,22 +522,23 @@ def _k1_cases():
     return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA
 
 
-def phase_k1() -> tuple[float, float]:
+def phase_k1() -> tuple[float, float, float, float]:
     """K1 against its plain version at every shape: the largest |d| of the
-    bf16 kernel and of the fp32 kernel."""
+    bf16 kernel, the fp32 kernel, and the wide kernel in bf16 and fp32."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     bf16 = max(_k1_case(gen, *case) for case in _k1_cases())
     bf16 = max([bf16] + [_k1_case(gen, *case, loud=True) for case in K1_HEAD_DIMS])
     fp32 = max(_k1_case(gen, *case, dtype=torch.float32, loud=True) for case in K1_FP32)
-    for bad, dtype in ((64, torch.float16), (264, torch.bfloat16)):  # what K1 still refuses
-        x = torch.zeros(1, 64, 2 * bad, dtype=dtype, device="cuda")
-        try:
-            fa.flash_attention(x, x, x, num_heads=2)
-        except ValueError as err:
-            print(f"K1 refuses d = {bad} in {dtype}: {err}")
-        else:
-            fail(f"K1 took d = {bad} in {dtype}")
-    return bf16, fp32
+    wide = max(_k1_case(gen, *case, loud=True) for case in K1_WIDE)
+    wide_fp32 = max(_k1_case(gen, *case, dtype=torch.float32, loud=True) for case in K1_WIDE)
+    x = torch.zeros(1, 64, 1024, dtype=torch.float16, device="cuda")  # what K1 still refuses
+    try:
+        fa.flash_attention(x, x, x, num_heads=2)
+    except ValueError as err:
+        print(f"K1 refuses float16 (d = 512): {err}")
+    else:
+        fail("K1 took float16")
+    return bf16, fp32, wide, wide_fp32
 
 
 def _k1_time(gen, b, h, sq, sk, d, dtype, card, clock) -> dict:
@@ -505,6 +556,21 @@ def _k1_time(gen, b, h, sq, sk, d, dtype, card, clock) -> dict:
     if kernels != 1:
         fail(f"K1 at [{b},{h},{sq},{sk},{d}] {dtype} ran {kernels:g} kernels per attention: a copy?")
     t_l = timed(lambda: sdpa(q4, k4, v4))
+    backend = ""
+    if d > fa.MAX_HEAD_DIM:  # which of PyTorch's SDPA backends take this head dim, and ran
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        takes = []
+        for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                   SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([be]):
+                    sdpa(q4, k4, v4)
+                takes.append(be.name)
+            except RuntimeError:
+                pass
+        ran = sorted({_demangle(e.key)[:48] for e in _profiled(lambda: sdpa(q4, k4, v4), 2)})
+        backend = f" (backends that take d = {d}: {takes}; the default ran {ran})"
     t_p = cuda_ms(lambda: fa.flash_attention_reference(qf, kf, vf, d ** -0.5), iters=5)
     flops = 4.0 * b * h * sq * sk * d
     kind = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -512,7 +578,8 @@ def _k1_time(gen, b, h, sq, sk, d, dtype, card, clock) -> dict:
     print(f"K1 [{b},{h},{sq},{sk},{d}] {kind}: device {t_k[1]:.4f} ms ({flops / t_k[1] / 1e9:.1f} "
           f"TFLOP/s; CUDA events {t_k[0]:.4f}; {kernels:g} kernel(s) per attention), bound "
           f"{bound * 1e3:.2f} us by {term} (reached {bound / t_k[1]:.1%}), library SDPA "
-          f"{kind} device {t_l[1]:.4f} ms (events {t_l[0]:.4f}), plain {t_p:.4f} ms ({card})")
+          f"{kind} device {t_l[1]:.4f} ms (events {t_l[0]:.4f}){backend}, plain {t_p:.4f} ms "
+          f"({card})")
     return {"shape": [h, sq, d] if b == 1 and sq == sk else [b, h, sq, sk, d],
             "device_ms": t_k[1], "ms": t_k[0], "plain_ms": t_p, "library_ms": t_l[1],
             "bound_ms": bound, "bound_by": by, "bound_term": term,
@@ -568,7 +635,16 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
         print(f"K1 {kind}, one call at each of its {len(main_rows)} timed main shapes: "
               + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
         result[kind] = {**total, "per_shape": per_shape}
-    return result["bf16"], result["fp32"]
+        # the wide kernel: the KL VAE's [1, 4096, 512] (its main-path shape, twice
+        # per KL frame) carries the entry's numbers
+        rows = []
+        for case in K1_WIDE_TIMED[kind]:
+            rows.append(_k1_time(gen, *case, dtype, card, clock))
+            for key in ("q", "k", "v", "qf", "kf", "vf"):
+                rows[-1].pop(key)
+        main_row = {k: v for k, v in rows[0].items() if k != "shape"}
+        result[f"wide_{kind}"] = {**main_row, "per_shape": rows}
+    return result["bf16"], result["fp32"], result["wide_bf16"], result["wide_fp32"]
 
 
 def phase_tiny() -> int:
@@ -609,6 +685,57 @@ def phase_tiny() -> int:
         if launched[0] or (side > 64) != (launched[1] > 0):
             fail(f"the tiny fp32 program at {side}x{side} launched K1 {launched}, expected the "
                  f"fp32 kernel {'> 0' if side > 64 else '0'} times and the bf16 one 0")
+    return fp32_launches
+
+
+def _zero_counts() -> None:
+    """Sets every kernel wrapper's launch count to 0."""
+    fa.launches = fa.launches_fp32 = fa.launches_wide = fa.launches_wide_fp32 = 0
+    k2.launches = k3.launches = k3.launches_fp32 = 0
+
+
+def phase_tiny_kl() -> int:
+    """A random fp32 tiny bundle with a KL VAE (drawn on the CPU, loaded on
+    the card through ``from_state_dicts``) runs its 2-step ``vae="kl"``
+    frame program on CUDA and on the CPU at every TINY_KL side, within the
+    tiny checkpoint's bars; the graph must hold exactly TINY_KL fp32 K1
+    launches per frame.  Returns the fp32 kernel's launches over the CUDA
+    runs (warm-up and capture), counted from 0 just before each."""
+    cpu = ModelBundle.random("tiny", dtype=torch.float32, device="cpu", with_kl_vae=True)
+    cuda = ModelBundle.from_state_dicts(
+        "tiny", {name: m.state_dict() for name, m in cpu.models.items()}, dtype=torch.float32,
+        device="cuda")
+    bundles = {"cuda": cuda, "cpu": cpu}
+    embeds = {dev: build_prompt_encoder(b)(b.tokenizer(["a portrait", "a landscape"]))[0]
+              for dev, b in bundles.items()}
+    args = ([0.6, 0.02], [5.0, 3.0], [2.0, 0.5], [23, 7])
+    fp32_launches = 0
+    for side, want in TINY_KL.items():
+        spec = FrameSpec(batch=2, height=side, width=side, steps=2, vae="kl")
+        rng = np.random.default_rng(17)
+        frame = rng.integers(0, 256, (2, side, side, 3), dtype=np.uint8)
+        noise = rng.standard_normal((3, 2, side // 8, side // 8, 4)).astype(np.float32)
+        outs = {}
+        for dev, b in bundles.items():
+            _zero_counts()
+            program = build_frame_program(b, spec)
+            img, lat = program(frame, embeds[dev], *args, noise=noise)
+            outs[dev] = (img.cpu().numpy().astype(int), lat.float().cpu().numpy())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                per_frame = {k: n for k, n in program.last_launches.items() if n}
+                fp32_launches += fa.launches_fp32
+        dlat = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
+        dimg = np.abs(outs["cuda"][0] - outs["cpu"][0]).max()
+        print(f"tiny fp32 KL 2-step {side}x{side} batch 2, CUDA vs CPU: latents max|d| {dlat:.3e} "
+              f"(bound {TINY_LAT_ATOL:g}), image max|d| {dimg} levels (bound {TINY_IMG_LEVELS}); "
+              f"kernel launches per frame in the CUDA graph: {per_frame}")
+        if not (np.isfinite(outs["cuda"][1]).all() and dlat <= TINY_LAT_ATOL
+                and dimg <= TINY_IMG_LEVELS):
+            fail(f"the tiny KL program on CUDA disagrees with the CPU at {side}x{side}")
+        if per_frame != {"flash_attention_fp32": want}:
+            fail(f"the tiny KL program at {side}x{side} launched {per_frame} per frame, expected "
+                 f"{want} of K1's fp32 kernel and nothing else")
     return fp32_launches
 
 
@@ -1154,13 +1281,18 @@ def _spread(a, b) -> list:
     return [(x.float() - y.float()).abs().max().item() for x, y in zip(a, b)]
 
 
-def _replay_vs_eager(name: str, program, calls: list, want: dict) -> list:
+def _replay_vs_eager(name: str, program, calls: list, want: dict,
+                     counted: dict | None = None) -> list:
     """Two calls in a row of one signature of ``program`` (replays of the
     graph its first call captured), each against the eager frame_program of
     the same inputs bit for bit, after eager against itself; the graph's
-    launches per frame must be ``want``.  Returns the replays' outputs."""
+    launches per frame must be ``want``.  ``counted`` receives the wrappers'
+    counts right after the program's calls.  Returns the replays' outputs."""
     before = set(program.buckets)
     got = [program(*a, **kw) for a, kw in calls]
+    if counted is not None:
+        torch.cuda.synchronize()
+        counted.update(kernel_launches())
     launches = program.last_launches
     captured = [b.capture_s for k, b in program.buckets.items() if k not in before]
     torch.cuda.synchronize()
@@ -1267,6 +1399,138 @@ def phase_graph(card: str, main, pallas_program) -> tuple[dict, float]:
     return programs, statistics.median(row["replay"] for row in turns)
 
 
+def _turns(eager, replay, turns: int, frames: int) -> list:
+    """Blocking frames of ``eager`` and ``replay`` (functions of the frame
+    index) in alternating turns: the median ms of each per turn."""
+    rows = []
+    for _ in range(turns):
+        row = {}
+        for kind, fn in (("eager", eager), ("replay", replay)):
+            ms = []
+            for i in range(frames):
+                t0 = time.perf_counter()
+                fn(i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[kind] = statistics.median(ms)
+        rows.append(row)
+    return rows
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_kl(card: str) -> dict:
+    """The KL path at full width: a random sd15 bundle with the KL VAE, the
+    512x512 4-step CN + KL bf16 frame through build_frame_program (two
+    replayed calls bit for bit the eager frame_program, K1_KL_PER_FRAME
+    launches per frame at capture, eager and replayed frames in turns, the
+    FLOPs per frame and the memory); the fp32 copy of its VAE through the
+    wide fp32 kernel against the plain attention; one tiled_decode.  Each
+    path's counts are set to 0 just before it and read just after."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30  # the earlier phases' bundles and graphs
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", dtype=torch.bfloat16, device="cuda", with_kl_vae=True)
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    spec = FrameSpec(batch=1, height=512, width=512, steps=4, vae="kl")
+    program = build_frame_program(bundle, spec)
+    rng = np.random.default_rng(8)
+    frames = [torch.from_numpy(rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda()
+              for _ in range(2)]
+    args = ([0.6], [5.0], [2.0])
+    calls = [((frames[i], embeds, *args, [23 + i]), {}) for i in range(2)]
+    torch.cuda.synchronize()
+    print(f"sd15 bundle with the KL VAE + prompt: {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    counted = {}
+    got = _replay_vs_eager("sd15 512x512 4-step CN+KL bf16", program, calls, K1_KL_PER_FRAME,
+                           counted)
+    _check_frame("KL frame", got[-1])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    want = {k: 2 * n for k, n in K1_KL_PER_FRAME.items()}  # warm-up and capture
+    if {k: n for k, n in counted.items() if n} != want:
+        fail(f"the KL path launched {counted} in its warm-up and capture, expected {want}")
+    (bucket,) = program.buckets.values()
+    print(f"KL graph: warm-up + capture {bucket.capture_s:.2f} s; peak allocated {peak:.2f} GiB "
+          f"({peak - held:.2f} above the {held:.2f} GiB the earlier phases hold: this bundle, its "
+          f"warm-up, capture and two calls), peak reserved {reserved:.2f} GiB ({card})")
+
+    turns = _turns(lambda i: frame_program(bundle, spec, frames[i % 2], embeds, *args, [23 + i]),
+                   lambda i: program(frames[i % 2], embeds, *args, [23 + i]),
+                   KL_TURNS, KL_TURN_FRAMES)
+    for i, row in enumerate(turns):
+        print(f"KL turn {i}: eager frame_program {row['eager']:.2f} ms/frame, CUDA graph replay "
+              f"{row['replay']:.2f} ms/frame (median of {KL_TURN_FRAMES} blocking frames; "
+              f"{row['eager'] / row['replay']:.2f}x) ({card})")
+    if any(row["replay"] >= row["eager"] for row in turns):
+        fail("a turn's replayed KL frame was not faster than the eager one")
+    replay_ms = statistics.median(row["replay"] for row in turns)
+    count = frame_flops(bundle, spec)
+    print(f"KL frame FLOPs (ops/flops.py): {count['logical'] / 1e12:.3f} TFLOP logical, "
+          f"{count['padded'] / 1e12:.3f} padded; at the replayed {replay_ms:.2f} ms/frame "
+          f"{count['logical'] / (replay_ms / 1e3) / 1e12:.1f} TFLOP/s, MFU "
+          f"{count['logical'] / (replay_ms / 1e3) / PEAK_BF16_FLOPS:.4f} (padded "
+          f"{count['padded'] / (replay_ms / 1e3) / PEAK_BF16_FLOPS:.4f}) of 989 TFLOP/s ({card})")
+
+    # the wide fp32 kernel's path: the VAE in fp32 (TF32 off), against the plain attention
+    vae32 = copy.deepcopy(bundle.models["vae"]).float()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
+    with torch.inference_mode():
+        _zero_counts()
+        out = (vae_encode(vae32, x), vae_decode(vae32, z))
+        torch.cuda.synchronize()
+        fp32_launches = fa.launches_wide_fp32
+        others = fa.launches + fa.launches_fp32 + fa.launches_wide
+        routed = layers.flash_attention
+        layers.flash_attention = lambda q, k, v, *, num_heads: layers._attention_plain(
+            q, k, v, num_heads)
+        try:
+            plain = (vae_encode(vae32, x), vae_decode(vae32, z))
+        finally:
+            layers.flash_attention = routed
+    rel = [_rel_l2(a, b) for a, b in zip(out, plain)]
+    print(f"KL VAE fp32 512x512 encode + decode, the wide fp32 kernel ({fp32_launches} launches) vs "
+          f"the plain attention: rel L2 encode {rel[0]:.3e}, decode {rel[1]:.3e} (bound "
+          f"{KL_FP32_REL_L2:g})")
+    if not (all(torch.isfinite(t).all() for t in out) and max(rel) <= KL_FP32_REL_L2
+            and fp32_launches == 2 and others == 0):
+        fail(f"the fp32 KL VAE disagrees with the plain attention, or launched the wide fp32 "
+             f"kernel {fp32_launches} times (expected 2) and K1's others {others}")
+
+    # tiled_decode of a large latent grid: one wide launch per 64-latent tile
+    vae = bundle.models["vae"]
+    zt = torch.randn(1, KL_TILED_GRID, KL_TILED_GRID, 4, generator=gen, device="cuda").bfloat16()
+    with torch.inference_mode():
+        _zero_counts()
+        t0 = time.perf_counter()
+        tiled = tiled_decode(lambda t: vae_decode(vae, t), zt)
+        torch.cuda.synchronize()
+        tiled_ms = (time.perf_counter() - t0) * 1e3
+        tiled_launches = fa.launches_wide
+        first = vae_decode(vae, zt[:, :64, :64]).float()
+    # pixels [0, 448) of each axis lie in the first tile alone: out * w / w
+    alone = (tiled[:, :448, :448] - first[:, :448, :448]).abs().max().item()
+    print(f"tiled_decode of a {KL_TILED_GRID}x{KL_TILED_GRID} latent grid (64-latent tiles, "
+          f"overlap 8) -> {list(tiled.shape)} {tiled.dtype} in {tiled_ms:.1f} ms, wide K1 "
+          f"launches {tiled_launches} (expected {KL_TILES}); where the first tile is alone, "
+          f"max|d| from its own decode {alone:.3e} ({card})")
+    if not (tiled.shape == (1, 8 * KL_TILED_GRID, 8 * KL_TILED_GRID, 3)
+            and torch.isfinite(tiled).all() and tiled_launches == KL_TILES
+            and alone <= 1e-6 * first.abs().max().item()):
+        fail("tiled_decode is off its tiles, or launched the wide kernel the wrong number of times")
+    return {"bundle": bundle, "program": program, "embeds": embeds, "frame": frames[0],
+            "args": (*args, [23]), "launches": counted["flash_attention_wide"],
+            "fp32_launches": fp32_launches, "tiled_launches": tiled_launches,
+            "replay_ms": replay_ms}
+
+
 # the bench's window sizes for one short pass through its code
 BENCH_SHORT = {"windows": 1, "frames": 3, "latency_frames": 3, "batch4_frames": 2,
                "temporal_frames": 4}
@@ -1361,7 +1625,7 @@ def phase_taesd_routes(card: str, bundle) -> int:
 # kernel's name (K1 and K3 before the library convs and GEMMs, whose names
 # share words; convolutions before GEMMs: cuDNN's are implicit GEMMs)
 OP_CLASSES = (
-    ("K1 flash attention", ("flash_fwd",)),
+    ("K1 flash attention", ("flash_fwd", "flash_wide_fwd")),
     ("K3 TAESD conv", ("conv3x3_kernel",)),
     ("cuDNN NCHW<->NHWC layout transposes", ("nchwToNhwc", "nhwcToNchw", "tensorTransform",
                                              "nhwcAddPadding")),
@@ -1409,8 +1673,22 @@ def phase_profile(card: str, main, replay_ms: float) -> None:
     kernels and device-busy time per frame, K1's 84, the idle share of the
     card in the profiled frames, and device time by class of operation."""
     bundle, embeds, frame, args, _, program = main
+    _profile_frames(card, "main-path", lambda: program(frame, embeds, *args), replay_ms,
+                    {"flash_fwd_kernel": K1_PER_FRAME})
+
+
+def phase_kl_profile(card: str, kl: dict) -> None:
+    """The same over two replayed KL frames: K1's 84 and the wide kernel's 2."""
+    program, embeds, frame, args = kl["program"], kl["embeds"], kl["frame"], kl["args"]
+    _profile_frames(card, "KL", lambda: program(frame, embeds, *args), kl["replay_ms"],
+                    {"flash_fwd_kernel": K1_PER_FRAME, "flash_wide_fwd_kernel": 2})
+
+
+def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -> None:
+    """Profiles two calls of ``call``; ``want``: kernels per frame by a
+    substring of their names."""
     frames = 2
-    events = _profiled(lambda: program(frame, embeds, *args), frames)
+    events = _profiled(call, frames)
 
     def per_frame(pred):
         picked = [e for e in events if pred(e.key)]
@@ -1418,10 +1696,12 @@ def phase_profile(card: str, main, replay_ms: float) -> None:
                 sum(e.device_us for e in picked) / frames / 1e3)
 
     n_all, ms_all = per_frame(lambda key: True)
-    n_k1, ms_k1 = per_frame(lambda key: "flash_fwd_kernel" in key)
-    span, busy = _timeline(lambda: program(frame, embeds, *args), frames)
-    print(f"profile of {frames} replayed main-path frames on {card}: {n_all:.0f} kernels/frame, "
-          f"device busy {ms_all:.2f} ms/frame; K1 {n_k1:.0f} launches and {ms_k1:.3f} ms/frame; "
+    k1 = {name: per_frame(lambda key, name=name: name in key) for name in want}
+    span, busy = _timeline(call, frames)
+    print(f"profile of {frames} replayed {label} frames on {card}: {n_all:.0f} kernels/frame, "
+          f"device busy {ms_all:.2f} ms/frame; "
+          + "; ".join(f"{name} {n:.0f} launches and {ms:.3f} ms/frame"
+                      for name, (n, ms) in k1.items()) + "; "
           f"one more session's timeline: {span:.2f} ms from the first kernel to the last, "
           f"{busy:.2f} ms busy, idle share {1 - busy / span:.2%} (the two frames and the staging "
           f"between them); unprofiled replay {replay_ms:.2f} ms/frame (device busy over it "
@@ -1437,8 +1717,9 @@ def phase_profile(card: str, main, replay_ms: float) -> None:
     print("  the longest kernels: " + "; ".join(
         f"{_op_class(e.key)} {e.device_us / frames / 1e3:.3f} ms x{e.count // frames} "
         f"{_demangle(e.key)[:60]}" for e in top))
-    if n_k1 != K1_PER_FRAME:
-        fail(f"the profiler saw {n_k1} K1 kernels per frame, expected {K1_PER_FRAME}")
+    seen = {name: n for name, (n, _) in k1.items()}
+    if seen != want:
+        fail(f"the profiler saw {seen} K1 kernels per {label} frame, expected {want}")
 
 
 def main() -> None:
@@ -1448,22 +1729,24 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    k1_err, k1_fp32_err = phase_k1()
-    k1_fp32_launches = phase_tiny()
+    k1_err, k1_fp32_err, k1_wide_err, k1_wide_fp32_err = phase_k1()
+    k1_fp32_launches = phase_tiny() + phase_tiny_kl()
     k1_launches, main = phase_main(card)
     k3_launches, pallas_program = phase_taesd_pallas(card, main)
     programs, replay_ms = phase_graph(card, main, pallas_program)
     phase_production(card, main, programs)
     phase_engine_call(card, main)
     del programs, pallas_program
+    kl = phase_kl(card)
     phase_bench(main[0])
-    k1_times, k1_fp32_times = phase_k1_times(card, clock)
+    k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k2_res = phase_k2(card, clock)
     k3_res = phase_k3(card, clock)
     k3_fp32_res = phase_k3_fp32(card, clock)
     k2_launches = phase_k2_path(main[2])
     k3_fp32_launches = phase_taesd_routes(card, main[0])
     phase_profile(card, main, replay_ms)
+    phase_kl_profile(card, kl)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1472,6 +1755,12 @@ def main() -> None:
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
          "launches": k1_fp32_launches, "max_abs_err": k1_fp32_err, **k1_fp32_times},
+        {"name": "flash_attention_wide", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
+         "launches": kl["launches"], "max_abs_err": k1_wide_err, **k1_wide_times},
+        {"name": "flash_attention_wide_fp32", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
+         "launches": kl["fp32_launches"], "max_abs_err": k1_wide_fp32_err, **k1_wide_fp32_times},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",
          "replaces": "videosd_tpu/ops/pallas/preprocess_kernel.py:64",

@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's numpy code stay equal to it.
 
 The port never imports ``videosd_tpu``, so it carries its own copies of the
-weight plans, the CLIP tokenizer, the alphas table, the safetensors
-reader and the host I420 helpers.  Each is held equal to the original here, and the port's modules
+weight plans, the snapshot loader ``load_model_dir``, the CLIP tokenizer,
+the alphas table, the safetensors reader and the host I420 helpers.  Each is held equal to the original here, and the port's modules
 own exactly the state-dict keys their plan names.  Also: the port imports
 with JAX unavailable.
 """
@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +22,8 @@ from videosd_tpu.io import weights as JW
 from videosd_tpu.models.clip_text import CLIP_PRESETS as J_CLIP
 from videosd_tpu.models.taesd import TAESDConfig as JTAESDConfig
 from videosd_tpu.models.unet import UNET_PRESETS as J_UNET
+from videosd_tpu.models.vae import VAEConfig as JVAEConfig
+from videosd_tpu.models.vae import vae_init
 from videosd_tpu.ops import preprocess as JP
 from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
 from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
@@ -31,6 +34,8 @@ from videosd_tpu_torch.ops import preprocess as PP
 from videosd_tpu_torch.models import (
     CLIP_PRESETS,
     UNET_PRESETS,
+    VAE_PRESETS,
+    AutoencoderKL,
     AutoencoderTiny,
     CLIPTextModel,
     ControlNetModel,
@@ -47,12 +52,16 @@ torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TAESD = {"sd15": {}, "tiny": {"hidden": 16, "blocks_per_stage": 1}}
+# the JAX package's KL VAE configs by family (ModelBundle.random)
+_J_VAE = {"sd15": JVAEConfig(), "tiny": JVAEConfig(block_out_channels=(8, 16, 16, 16),
+                                                   layers_per_block=1, norm_num_groups=4)}
 
 # (plan, port module, JAX config table, port config table)
 _MODELS = {
     "unet": (PW.unet_plan, JW.unet_plan, UNet2DConditionModel, J_UNET, UNET_PRESETS),
     "controlnet": (PW.controlnet_plan, JW.controlnet_plan, ControlNetModel, J_UNET, UNET_PRESETS),
     "clip": (PW.clip_plan, JW.clip_plan, CLIPTextModel, J_CLIP, CLIP_PRESETS),
+    "vae": (PW.vae_plan, JW.vae_plan, AutoencoderKL, _J_VAE, VAE_PRESETS),
 }
 
 
@@ -72,14 +81,14 @@ def _plans(name, family):
 
 
 @pytest.mark.parametrize("family", ["tiny", "sd15"])
-@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd"])
+@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd", "vae"])
 def test_plan_copy_equals_original(name, family):
     jplan, pplan, _ = _plans(name, family)
     assert pplan == jplan
 
 
 @pytest.mark.parametrize("family", ["tiny", "sd15"])
-@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd"])
+@pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd", "vae"])
 def test_module_keys_equal_plan_keys(name, family):
     _, pplan, ctor = _plans(name, family)
     with torch.device("meta"):
@@ -130,6 +139,43 @@ def test_safetensors_copy_reads_what_the_original_reads(tmp_path):
         np.testing.assert_array_equal(PS.read_safetensors(ckpt)[k], v)
 
 
+@pytest.mark.parametrize("case", ["complete", "extra_tensor", "missing_tensor", "empty_dir"])
+def test_load_model_dir_copy_loads_what_the_original_loads(tmp_path, case):
+    """The port's ``load_model_dir`` on a ``vae/`` of two safetensors files
+    (the tiny VAE's tensors split between them): the same tensors as JAX's
+    (whose tree is exported back to diffusers names), an extra tensor
+    ignored by both, a missing one ``KeyError`` on both, and a directory
+    without safetensors ``FileNotFoundError`` on both."""
+    jcfg, pcfg = _J_VAE["tiny"], VAE_PRESETS["tiny"]
+    rng = np.random.default_rng(1)
+    shapes = JW.export(vae_init(jax.random.PRNGKey(0), jcfg), JW.vae_plan(jcfg))
+    tensors = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in shapes.items()}
+    if case == "extra_tensor":
+        tensors["encoder.unused"] = np.ones(2, np.float32)
+    if case == "missing_tensor":
+        del tensors["decoder.conv_out.bias"]
+    names = sorted(tensors)
+    os.makedirs(tmp_path / "vae")
+    if case != "empty_dir":
+        for i, part in enumerate((names[::2], names[1::2])):
+            PS.write_safetensors(str(tmp_path / "vae" / f"part{i}.safetensors"),
+                                 {k: tensors[k] for k in part})
+    if case in ("missing_tensor", "empty_dir"):
+        err = KeyError if case == "missing_tensor" else FileNotFoundError
+        with pytest.raises(err):
+            JW.load_model_dir(str(tmp_path), "vae", JW.vae_plan(jcfg))
+        with pytest.raises(err):
+            PW.load_model_dir(str(tmp_path), "vae", PW.vae_plan(pcfg))
+        return
+    theirs = JW.export(JW.load_model_dir(str(tmp_path), "vae", JW.vae_plan(jcfg)),
+                       JW.vae_plan(jcfg))
+    ours = PW.load_model_dir(str(tmp_path), "vae", PW.vae_plan(pcfg))
+    assert ours.keys() == theirs.keys()
+    for k, v in ours.items():
+        assert v.dtype == torch.float32
+        np.testing.assert_array_equal(v.numpy(), theirs[k])
+
+
 @pytest.mark.parametrize("name", ["rgb_to_i420_host", "i420_to_rgb_host"])
 def test_i420_host_copy_equals_original(name):
     rng = np.random.default_rng(5)
@@ -144,7 +190,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['videosd_tpu'] = None\n"
         "import videosd_tpu_torch.pipelines.lcm_img2img\n"
-        "import videosd_tpu_torch.ops, videosd_tpu_torch.schedulers\n"
+        "import videosd_tpu_torch.ops, videosd_tpu_torch.schedulers, videosd_tpu_torch.ops.tiling\n"
+        "import videosd_tpu_torch.models.vae, videosd_tpu_torch.ops.flops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'videosd_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

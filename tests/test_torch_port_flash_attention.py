@@ -245,7 +245,8 @@ _F16 = torch.float16
     [
         (_meta(1, 128, 80, dtype=_F16), _meta(1, 128, 80, dtype=_F16),
          _meta(1, 128, 80, dtype=_F16), 2, "got torch.float16"),
-        (_meta(1, 128, 528), _meta(1, 128, 528), _meta(1, 128, 528), 2, "head dim 264"),
+        (_meta(1, 128, 528, dtype=_F16), _meta(1, 128, 528, dtype=_F16),
+         _meta(1, 128, 528, dtype=_F16), 2, "got torch.float16"),
         (_meta(1, 100, 80), _meta(1, 128, 80), _meta(1, 128, 80), 2, "multiples of 64"),
         (_meta(1, 128, 80), _meta(1, 96, 80), _meta(1, 96, 80), 2, "multiples of 64"),
         (_meta(1, 128, 80), _meta(1, 128, 80), _meta(1, 256, 80), 2, "3-D q/k/v"),
@@ -257,7 +258,7 @@ _F16 = torch.float16
         (_meta(1, 128, 80), torch.zeros(1, 128, 80, dtype=torch.bfloat16),
          _meta(1, 128, 80), 2, "one CUDA device"),
         (_meta(1, 128, 80), _meta(1, 128, 80), _meta(1, 128, 80), 2, "one CUDA device"),
-        (_meta(1, 128, 1024), _meta(1, 128, 1024), _meta(1, 128, 1024), 2, "head dim 512"),
+        (_meta(1, 100, 1024), _meta(1, 128, 1024), _meta(1, 128, 1024), 2, "multiples of 64"),
         (_meta(1, 128, 80, dtype=torch.float32), _meta(1, 128, 80), _meta(1, 128, 80), 2,
          "like q"),
         (_meta(1, 128, 84, dtype=torch.float32)[:, :, 2:82], _meta(1, 128, 80, dtype=torch.float32),
@@ -304,6 +305,48 @@ def test_plain_version_matches_jax_at_every_head_dim(rng, b, sq, sk, h, dh, dtyp
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     else:
         assert _within_k1_bar(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,dh", [(1, 128, 256, 2, 264), (1, 256, 256, 1, 512)],
+                         ids=["d264", "vae_d512"])
+def test_plain_version_matches_jax_above_256(rng, b, sq, sk, h, dh, dtype):
+    """Above d = 256 (the wide kernel's range; the KL VAE's mid attention is
+    one head of 512): the plain version against ``_attention_xla`` at the
+    same bars as below, through the routed ``layers.attention``."""
+    assert PL.routes_to_flash(sq, sk, masked=False)
+    q, k, v = _qkv(rng, b, sq, sk, h, dh)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    if dtype == "bf16":
+        tq, tk, tv = (x.bfloat16() for x in (tq, tk, tv))
+        jq, jk, jv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv))
+    launches = FA.launches_wide, FA.launches_wide_fp32
+    got = PL.attention(tq, tk, tv, num_heads=h)
+    assert (FA.launches_wide, FA.launches_wide_fp32) == launches  # the CPU never launches
+    want = np.asarray(_attention_xla(jq, jk, jv, h).astype(jnp.float32))
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        assert _within_k1_bar(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("d, slices, resident", [(257, 2, True), (264, 2, True), (512, 2, True),
+                                                 (640, 3, True), (1216, 5, True),
+                                                 (1217, 5, False), (1600, 7, False)])
+def test_wide_plan(d, slices, resident):
+    """The wide kernel's plan: one block per 256 output columns of each
+    query tile; Q's 64-column panels resident beside a ring of 8 panels up
+    to d = 1216 (19 panels of the block's 27), streamed with K's above; the
+    d <= 256 kernels' range refused."""
+    assert FA.wide_slices(d) == slices
+    assert FA.wide_q_resident(d) is resident
+    panels = -(-d // 64)
+    ring = FA.WIDE_SLOTS - panels if resident else FA.WIDE_SLOTS
+    assert ring >= FA.WIDE_MIN_RING
+    assert FA.WIDE_SLOTS * 8192 + 1024 + (2 * FA.WIDE_SLOTS + 1) * 8 <= FA.SMEM_LIMIT
+    with pytest.raises(ValueError, match="d <= 256"):
+        FA.wide_slices(256)
 
 
 @pytest.mark.parametrize("d,dp", [(20, 24), (5, 8), (6, 8), (250, 256)])

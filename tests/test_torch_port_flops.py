@@ -127,11 +127,37 @@ def test_sd15_512_frame_is_jax_count(batch):
     assert r["padded"] - r["logical"] == extra
 
 
+def test_kl_frame_flops_match_jax(monkeypatch):
+    """A tiny fp32 KL frame at 128x128 (the VAE's mid attention at S = 256
+    routes to K1 in encode and decode): the port's count equals JAX's
+    jaxpr walk exactly."""
+    spec_kw = {"height": 128, "width": 128, "steps": 2, "vae": "kl"}
+    jb = J.ModelBundle.random("tiny", dtype=jnp.float32, with_kl_vae=True)
+    want = _jax_count(jb, spec_kw, None, {}, monkeypatch)
+    meta = P.ModelBundle.random("tiny", dtype=torch.float32, device="meta", with_kl_vae=True)
+    assert PF.frame_flops(meta, P.FrameSpec(**spec_kw))["logical"] == want
+
+
+def test_sd15_kl_frame_pads_the_wide_attention():
+    """sd15 512x512 with the KL VAE: the padded count adds, beside the
+    UNet's d = 40 padding, the wide kernel's recomputed logits at the VAE's
+    d = 512 (two slices of 256 columns: 2 Q·Kᵀ + 1 P·V, a width of 768 in
+    ``4 Sq Sk w``) in encode and in decode, at [1, 4096, 4096]."""
+    meta = P.ModelBundle.random("sd15", dtype=torch.bfloat16, device="meta", with_kl_vae=True)
+    kl = PF.frame_flops(meta, P.FrameSpec(height=512, width=512, steps=4, vae="kl"))
+    taesd = PF.frame_flops(meta, P.FrameSpec(height=512, width=512, steps=4))
+    unet_pad = 28 * 4.0 * 8 * 4096 * 4096 * (48 - 40)
+    assert kl["padded"] - kl["logical"] == unet_pad + 2 * 4.0 * 4096 * 4096 * (768 - 512)
+    assert taesd["padded"] - taesd["logical"] == unet_pad
+    assert kl["logical"] > taesd["logical"]
+
+
 @pytest.mark.parametrize("d, dtype, width", [
     (40, torch.bfloat16, 48), (80, torch.bfloat16, 80), (160, torch.bfloat16, 160),
     (8, torch.bfloat16, 16), (24, torch.bfloat16, 48), (72, torch.bfloat16, 80),
     (256, torch.bfloat16, 256), (8, torch.float32, 8), (20, torch.float32, 20),
-    (6, torch.float32, 8),
+    (6, torch.float32, 8), (512, torch.bfloat16, 768), (512, torch.float32, 768),
+    (264, torch.bfloat16, 480), (264, torch.float32, 396), (640, torch.bfloat16, 1280),
 ])
 def test_padded_width_is_the_kernels(d, dtype, width):
     assert PF.attention_padded_width(d, dtype) == width

@@ -284,6 +284,45 @@ def test_k1_fp32_on_card(gen, no_tf32, shape):
         FA._launch(q, k, v, h, d ** -0.5, block_m=128)
 
 
+# (batch, heads, sq, sk, d) above d = 256, for the wide kernel: two slices
+# (264, 320, 512) and three (640), keys != queries, the KL VAE's [1, 4096, 512]
+# at 512x512, a d whose Q streams through the ring (1600: past the resident
+# limit), and one off the 16-byte rows in bf16 (260: a padded copy)
+_K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
+            (2, 2, 256, 512, 640), (1, 1, 256, 192, 1600), (1, 2, 128, 192, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", _K1_WIDE, ids=lambda s: "x".join(map(str, s)))
+def test_k1_wide_on_card(gen, no_tf32, shape, dtype):
+    """K1 above d = 256, heads in place beside loud neighbours: one launch of
+    the wide kernel per attention, within the dtype's bar of the plain
+    version, equal bit for bit to the folded entry."""
+    b, h, sq, sk, d = shape
+    q, k, v = _loud_heads(gen, b, h, sq, sk, d, dtype)
+    counts = ("launches_wide_fp32" if dtype == torch.float32 else "launches_wide",
+              "launches", "launches_fp32")
+    before = [getattr(FA, name) for name in counts]
+    out = FA.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    assert [getattr(FA, name) for name in counts] == [before[0] + 1, *before[1:]]
+    ref = _folded_reference(q, k, v, h)
+    if dtype == torch.float32:
+        _assert_fp32_close(out, ref)
+    else:
+        _assert_k1_close(out, ref)
+
+    def fold(x):
+        return x.reshape(b, x.shape[1], h, d).transpose(1, 2).reshape(b * h, x.shape[1], d)
+
+    folded = FA.flash_attention_bhsd(fold(q).contiguous(), fold(k).contiguous(),
+                                     fold(v).contiguous(), d ** -0.5)
+    assert torch.equal(folded.reshape(b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d), out)
+    with pytest.raises(ValueError, match="rows per block"):
+        FA._launch(q, k, v, h, d ** -0.5, block_m=128)
+
+
 @pytest.mark.cuda
 def test_k2_graph_replay_on_card(gen):
     """One cooperative launch captured in a CUDA graph replays bit for bit

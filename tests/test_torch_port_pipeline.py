@@ -124,7 +124,8 @@ def test_port_tiny_program_matches_live_jax_batch2(bundles):
 
 def test_port_program_rejects_unported_spec_fields(bundles):
     _, pb = bundles
-    with pytest.raises(NotImplementedError, match="vae"):
+    # vae="kl" is ported; this bundle was built without a KL VAE
+    with pytest.raises(ValueError, match="KL VAE"):
         P.build_frame_program(pb, P.FrameSpec(height=32, width=32, vae="kl"))
     with pytest.raises(ValueError, match="mutually exclusive"):
         P.build_frame_program(pb, P.FrameSpec(height=32, width=32, deepcache_temporal=True,

@@ -118,6 +118,10 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp,
     ]
     lib.videosd_flash_attention_fp32_fwd.restype = ci
+    for fn in (lib.videosd_flash_attention_wide_fwd, lib.videosd_flash_attention_wide_fp32_fwd):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp]
+        fn.restype = ci
     lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.videosd_taesd_conv3x3.restype = ci
     lib.videosd_taesd_conv3x3_fp32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]

@@ -1,8 +1,8 @@
 """Weight plans and the weight crossing from the JAX package to the port.
 
 The plan functions are a numpy copy of ``videosd_tpu/io/weights.py``
-(``unet_plan``, ``controlnet_plan``, ``clip_plan``, ``taesd_plan``), built
-on the port's own config dataclasses: each walks a model's structure and
+(``unet_plan``, ``controlnet_plan``, ``clip_plan``, ``taesd_plan``,
+``vae_plan``), built on the port's own config dataclasses: each walks a model's structure and
 emits ``(jax_path, torch_key, kind)`` triples, where ``kind`` fixes the
 layout change (conv HWIO <-> OIHW, linear [in,out] <-> [out,in], norm
 scale <-> weight, raw as is).  The torch keys are diffusers' state-dict
@@ -10,12 +10,15 @@ names, which are also the port modules' own.
 
 :func:`state_dict_from_jax` is the crossing: it turns a JAX parameter tree
 with numpy leaves into a state dict the port's modules load.
+:func:`load_model_dir` reads one model of a diffusers snapshot (``unet/``,
+``vae/``, ...) and :func:`load_bundle_dir` a ``bundle.json`` directory.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections.abc import Iterable
 
 import numpy as np
 import torch
@@ -24,15 +27,18 @@ from videosd_tpu_torch.io.safetensors import read_safetensors
 from videosd_tpu_torch.models.clip_text import CLIPTextConfig
 from videosd_tpu_torch.models.taesd import TAESDConfig
 from videosd_tpu_torch.models.unet import UNetConfig
+from videosd_tpu_torch.models.vae import VAEConfig
 
 __all__ = [
     "Plan",
     "clip_plan",
     "controlnet_plan",
     "load_bundle_dir",
+    "load_model_dir",
     "state_dict_from_jax",
     "taesd_plan",
     "unet_plan",
+    "vae_plan",
 ]
 
 Plan = list[tuple[tuple, str, str]]  # (jax_path, torch_prefix, kind)
@@ -272,6 +278,59 @@ def taesd_plan(cfg: TAESDConfig = TAESDConfig()) -> Plan:
     return plan
 
 
+def vae_plan(cfg: VAEConfig = VAEConfig()) -> Plan:
+    plan: Plan = []
+    n = len(cfg.block_out_channels)
+
+    def half(prefix_j: str, prefix_t: str, channels: Iterable[int], *, encoder: bool):
+        chans = list(channels)
+        ch = chans[0] if encoder else chans[-1]
+        layers = cfg.layers_per_block + (0 if encoder else 1)
+        blocks = chans if encoder else list(reversed(chans))
+        for i, out_ch in enumerate(blocks):
+            for j in range(layers):
+                in_ch = ch if j == 0 else out_ch
+                _resnet_plan(
+                    plan,
+                    (prefix_j, f"{'down' if encoder else 'up'}_blocks", i, "resnets", j),
+                    f"{prefix_t}.{'down' if encoder else 'up'}_blocks.{i}.resnets.{j}",
+                    in_ch != out_ch,
+                    time_emb=False,
+                )
+            if i != n - 1:
+                kind = "downsamplers" if encoder else "upsamplers"
+                _wb(
+                    plan,
+                    (prefix_j, f"{'down' if encoder else 'up'}_blocks", i, kind, 0, "conv"),
+                    f"{prefix_t}.{'down' if encoder else 'up'}_blocks.{i}.{kind}.0.conv",
+                    "conv",
+                )
+            ch = out_ch
+        for r in (0, 1):
+            _resnet_plan(
+                plan,
+                (prefix_j, "mid", "resnets", r),
+                f"{prefix_t}.mid_block.resnets.{r}",
+                False,
+                time_emb=False,
+            )
+        ap = (prefix_j, "mid", "attentions", 0)
+        tp = f"{prefix_t}.mid_block.attentions.0"
+        _wb(plan, ap + ("group_norm",), tp + ".group_norm", "norm")
+        for name in ("to_q", "to_k", "to_v"):
+            _wb(plan, ap + (name,), f"{tp}.{name}", "linear")
+        _wb(plan, ap + ("to_out",), tp + ".to_out.0", "linear")
+        _wb(plan, (prefix_j, "conv_norm_out"), f"{prefix_t}.conv_norm_out", "norm")
+        _wb(plan, (prefix_j, "conv_in"), f"{prefix_t}.conv_in", "conv")
+        _wb(plan, (prefix_j, "conv_out"), f"{prefix_t}.conv_out", "conv")
+
+    half("encoder", "encoder", cfg.block_out_channels, encoder=True)
+    half("decoder", "decoder", cfg.block_out_channels, encoder=False)
+    _wb(plan, ("encoder", "quant_conv"), "quant_conv", "conv")
+    _wb(plan, ("decoder", "post_quant_conv"), "post_quant_conv", "conv")
+    return plan
+
+
 def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return np.transpose(arr, (3, 2, 0, 1))
@@ -312,3 +371,24 @@ def load_bundle_dir(ckpt_dir: str) -> tuple[str, dict[str, dict[str, torch.Tenso
         tensors = read_safetensors(os.path.join(ckpt_dir, f"{name}.safetensors"))
         state_dicts[name] = {k: torch.from_numpy(v) for k, v in tensors.items()}
     return meta["family"], state_dicts
+
+
+def load_model_dir(model_dir: str, subdir: str, plan: Plan) -> dict[str, torch.Tensor]:
+    """One model of a diffusers-layout snapshot (e.g. ``<snapshot>/unet``):
+    every ``*.safetensors`` in the directory, read with the port's reader,
+    as a state dict of the plan's diffusers names (fp32, CPU).  The
+    counterpart of ``videosd_tpu/io/weights.py::load_model_dir``: a
+    directory without ``.safetensors`` raises ``FileNotFoundError``, a
+    missing plan key ``KeyError``, and tensors the plan does not name are
+    ignored, as JAX's ``convert`` ignores them."""
+    d = os.path.join(model_dir, subdir) if subdir else model_dir
+    tensors: dict[str, np.ndarray] = {}
+    for fn in sorted(os.listdir(d)):
+        if fn.endswith(".safetensors"):
+            tensors.update(read_safetensors(os.path.join(d, fn)))
+    if not tensors:
+        raise FileNotFoundError(f"no .safetensors under {d}")
+    missing = [tk for _, tk, _ in plan if tk not in tensors]
+    if missing:
+        raise KeyError(f"checkpoint missing {len(missing)} keys, e.g. {missing[:5]}")
+    return {tk: torch.from_numpy(np.array(tensors[tk], np.float32)) for _, tk, _ in plan}

@@ -7,8 +7,16 @@ from videosd_tpu_torch.models.unet import (
     UNetConfig,
     unet_apply,
 )
+from videosd_tpu_torch.models.vae import (
+    VAE_PRESETS,
+    AutoencoderKL,
+    VAEConfig,
+    vae_decode,
+    vae_encode,
+)
 
 __all__ = [
+    "AutoencoderKL",
     "AutoencoderTiny",
     "CLIP_PRESETS",
     "CLIPTextConfig",
@@ -18,8 +26,12 @@ __all__ = [
     "UNET_PRESETS",
     "UNet2DConditionModel",
     "UNetConfig",
+    "VAEConfig",
+    "VAE_PRESETS",
     "controlnet_apply",
     "taesd_decode",
     "taesd_encode",
     "unet_apply",
+    "vae_decode",
+    "vae_encode",
 ]

@@ -1,12 +1,16 @@
 """Flash attention (kernel K1) for the UNet and ControlNet self-attention.
 
 Replaces ``videosd_tpu/ops/pallas/flash_attention.py::mha_flash`` (the TPU
-kernel) and its head-split wrapper ``flash_attention``.  Two CUDA sources,
+kernel) and its head-split wrapper ``flash_attention``.  Three CUDA sources,
 built on first launch by :mod:`videosd_tpu_torch._build`:
-``videosd_tpu_torch/csrc/flash_attention.cu`` for bf16 (wgmma for both
-products, a ring of K/V stages filled by TMA or cp.async, heads read in
-place) and ``videosd_tpu_torch/csrc/flash_attention_fp32.cu`` for fp32 (FFMA
-products from shared memory, no TF32).
+``videosd_tpu_torch/csrc/flash_attention.cu`` for bf16 up to d = 256 (wgmma
+for both products, a ring of K/V stages filled by TMA or cp.async, heads
+read in place), ``videosd_tpu_torch/csrc/flash_attention_fp32.cu`` for fp32
+up to d = 256 (FFMA products from shared memory, no TF32), and
+``videosd_tpu_torch/csrc/flash_attention_wide.cu`` for every d above 256 in
+both dtypes (the KL VAE's d = 512: each block keeps one slice of at most
+256 output columns and forms the logits over the whole depth,
+:func:`wide_slices`).
 
 * :func:`flash_attention_reference` is the plain PyTorch version: the
   ``_attention_xla`` math of the JAX package (fp32 logits and softmax, the
@@ -19,18 +23,19 @@ products from shared memory, no TF32).
 * A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
   raises.  Each attention that launches the bf16 kernel adds one to
   :data:`launches`, each that launches the fp32 kernel to
-  :data:`launches_fp32`.
+  :data:`launches_fp32`, and above d = 256 to :data:`launches_wide` and
+  :data:`launches_wide_fp32`.
 * :func:`block_rows` picks the bf16 kernel's query rows per block from the
   shape, among :func:`row_plans`; the keys of one query tile are never split
   over blocks.  :func:`instance_width` is the kernel instance a head dim
   runs on.
 
-Taken on CUDA: bfloat16 or float32 (q, k and v alike), any head dim from 1
-to 256, both sequence lengths multiples of 64 (Sk may differ from Sq), no
-mask.  Heads are read in place where their rows are 16-byte aligned (d a
-multiple of 8 in bf16, of 4 in fp32); any other d is copied into a folded,
-zero-padded ``[B*H, S, D]`` buffer first, as the TPU kernel's wrapper pads d
-to 128 lanes.  float16 and d above 256 raise.
+Taken on CUDA: bfloat16 or float32 (q, k and v alike), any head dim, both
+sequence lengths multiples of 64 (Sk may differ from Sq), no mask.  Heads
+are read in place where their rows are 16-byte aligned (d a multiple of 8 in
+bf16, of 4 in fp32); any other d is copied into a folded, zero-padded
+``[B*H, S, D]`` buffer first, as the TPU kernel's wrapper pads d to 128
+lanes.  float16 raises.
 """
 
 from __future__ import annotations
@@ -52,8 +57,12 @@ __all__ = [
     "instance_width",
     "launches",
     "launches_fp32",
+    "launches_wide",
+    "launches_wide_fp32",
     "plan_fits",
     "row_plans",
+    "wide_q_resident",
+    "wide_slices",
 ]
 
 # the bf16 kernel's template instances: a head dim d runs on the narrowest
@@ -73,10 +82,18 @@ _FIXED_REGISTERS = 48 + 44
 # rows of 16 bytes: the element alignment of a head read in place
 _ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 
-# attentions sent to the bf16 kernel, and to the fp32 one, since the count
-# was last set to 0 (read by chip_smoke.py)
+# the wide kernel (d > 256): output columns per block, and the panels of 64
+# columns a block's shared memory holds; Q stays resident beside a ring of
+# at least 8 panels (flash_attention_wide.cu)
+WIDE_SLICE = 256
+WIDE_SLOTS, WIDE_MIN_RING = 27, 8
+
+# attentions sent to the bf16 kernel, to the fp32 one, and to the wide
+# kernel's two dtypes, since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
 launches_fp32 = 0
+launches_wide = 0
+launches_wide_fp32 = 0
 
 
 def flash_attention_reference(q, k, v, sm_scale: float, mask=None):
@@ -157,6 +174,21 @@ def block_rows(sq: int, bh: int, d: int) -> int:
     return next((rows for rows in plans if sq // rows * bh >= FULL_GRID), KEY_TILE)
 
 
+def wide_slices(d: int) -> int:
+    """Blocks per query tile of the wide kernel at head dim ``d`` > 256:
+    one per slice of at most :data:`WIDE_SLICE` output columns, each of
+    which forms the logits over the whole depth again."""
+    if d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} runs on the d <= {MAX_HEAD_DIM} kernels")
+    return -(-d // WIDE_SLICE)
+
+
+def wide_q_resident(d: int) -> bool:
+    """Whether the bf16 wide kernel keeps Q's 64-column panels resident
+    (beside a ring of :data:`WIDE_MIN_RING` panels) or streams them with K's."""
+    return -(-d // 64) + WIDE_MIN_RING <= WIDE_SLOTS
+
+
 def flash_attention_bhsd(q, k, v, sm_scale: float):
     """q ``[BH, Sq, D]``, k/v ``[BH, Sk, D]`` -> ``[BH, Sq, D]``."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
@@ -190,9 +222,8 @@ def _check(q, k, v, heads: int):
     if k.shape[0] != b or k.shape[2] != dm or dm % heads:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
     d = dm // heads
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} is above {MAX_HEAD_DIM}, the widest instance (d = 512 "
-                         f"waits for the KL VAE's attention)")
+    if d <= 0:
+        raise ValueError(f"head dim {d} is empty")
     if sq % KEY_TILE or sk % KEY_TILE or not sq or not sk or not b:
         raise ValueError(f"sequence lengths {sq}/{sk} must be multiples of {KEY_TILE}")
     if q.dtype not in _ALIGN:
@@ -239,9 +270,9 @@ def _unfold_cut(out, b: int, heads: int, d: int):
 
 
 def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
-    """Launches the kernel of q's dtype; ``block_m`` overrides
+    """Launches the kernel of q's dtype and head dim; ``block_m`` overrides
     :func:`block_rows` with another of :func:`row_plans` (``chip_smoke.py``
-    times them all; the fp32 kernel runs 64 rows per block)."""
+    times them all; the fp32 and the wide kernels run 64 rows per block)."""
     b, sq, sk, d = _check(q, k, v, heads)
     align = _ALIGN[q.dtype]
     if d % align:
@@ -250,17 +281,20 @@ def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
         out = _launch(*(_fold_padded(x, heads, dp) for x in (q, k, v)), 1, sm_scale, block_m)
         return _unfold_cut(out, b, heads, d)
     fp32 = q.dtype == torch.float32
-    plans = (KEY_TILE,) if fp32 else row_plans(sq, d)
+    wide = d > MAX_HEAD_DIM
+    plans = (KEY_TILE,) if fp32 or wide else row_plans(sq, d)
     if block_m is None:
-        block_m = KEY_TILE if fp32 else block_rows(sq, b * heads, d)
+        block_m = plans[0] if fp32 or wide else block_rows(sq, b * heads, d)
     elif block_m not in plans:
         raise ValueError(f"{block_m} rows per block not in {plans} for {sq} queries of head "
                          f"dim {d} in {q.dtype}")
-    return _run(q, k, v, heads, d, sm_scale, block_m, fp32)
+    if wide and b * heads > 65535:
+        raise ValueError(f"{b * heads} heads exceed the wide kernel's grid (65535)")
+    return _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide)
 
 
-def _run(q, k, v, heads, d, sm_scale, block_m, fp32):
-    global launches, launches_fp32
+def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide):
+    global launches, launches_fp32, launches_wide, launches_wide_fp32
     from videosd_tpu_torch._build import load_library
 
     b, sq, _ = q.shape
@@ -273,10 +307,13 @@ def _run(q, k, v, heads, d, sm_scale, block_m, fp32):
     lib = load_library()
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, heads, sq, sk, d, strides, float(sm_scale)]
-    if not fp32:
+    if not (fp32 or wide):
         args.append(block_m)
     args += [q.device.index, torch.cuda.current_stream(q.device).cuda_stream]
-    fn = lib.videosd_flash_attention_fp32_fwd if fp32 else lib.videosd_flash_attention_fwd
+    fn = {(False, False): lib.videosd_flash_attention_fwd,
+          (True, False): lib.videosd_flash_attention_fp32_fwd,
+          (False, True): lib.videosd_flash_attention_wide_fwd,
+          (True, True): lib.videosd_flash_attention_wide_fp32_fwd}[fp32, wide]
     if q.device.index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -284,7 +321,11 @@ def _run(q, k, v, heads, d, sm_scale, block_m, fp32):
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: cudaError {err}")
-    if fp32:
+    if wide and fp32:
+        launches_wide_fp32 += 1
+    elif wide:
+        launches_wide += 1
+    elif fp32:
         launches_fp32 += 1
     else:
         launches += 1

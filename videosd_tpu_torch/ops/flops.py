@@ -18,8 +18,10 @@ the same 3×3 convs.
 K1's two products at the head width its kernel computes (the bf16
 kernel's instance, :data:`~videosd_tpu_torch.ops.cuda.flash_attention.INSTANCE_WIDTHS`,
 rounded up to ``wgmma``'s bf16 K-step of 16; the fp32 kernel's head dim
-rounded up to its 16-byte rows of 4), and every product the libraries run
-(cuBLAS, cuDNN) as it is, logical.
+rounded up to its 16-byte rows of 4; above d = 256 the wide kernel's
+Q·Kᵀ once per slice of output columns, at the depth padded to 64 columns
+in bf16, and its P·V once), and every product the libraries run (cuBLAS,
+cuDNN) as it is, logical.
 
 Peaks: the dense bf16 tensor-core rate from NVIDIA's data sheet
 (:func:`device_peak_flops`).
@@ -34,7 +36,12 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from videosd_tpu_torch.models import layers
-from videosd_tpu_torch.ops.cuda.flash_attention import depth, instance_width
+from videosd_tpu_torch.ops.cuda.flash_attention import (
+    MAX_HEAD_DIM,
+    depth,
+    instance_width,
+    wide_slices,
+)
 from videosd_tpu_torch.pipelines.lcm_img2img import (
     ModelBundle,
     _call_inputs,
@@ -70,8 +77,15 @@ def mfu(flops: float, seconds: float, peak: float | None) -> float | None:
 
 
 def attention_padded_width(d: int, dtype: torch.dtype) -> int:
-    """The head width K1's products run at for head dim ``d``: the bf16
-    instance rounded up to 16, or ``d`` rounded up to 4 in fp32."""
+    """The head width K1's two products run at for head dim ``d``, as the
+    width ``w`` of ``4 Sq Sk w`` flops: the bf16 instance rounded up to 16,
+    or ``d`` rounded up to 4 in fp32.  Above d = 256 the wide kernel runs
+    Q·Kᵀ once per slice (:func:`wide_slices`) and P·V once, each at ``d``
+    padded to 64 (bf16 panels) or 4 (fp32 rows): ``w`` is their mean, 768
+    at d = 512."""
+    if d > MAX_HEAD_DIM:
+        dp = -(-d // 4) * 4 if dtype == torch.float32 else -(-d // 64) * 64
+        return dp * (wide_slices(d) + 1) // 2
     if dtype == torch.float32:
         return -(-d // 4) * 4
     return depth(instance_width(d))
@@ -81,7 +95,8 @@ def _meta_bundle(bundle):
     """A bundle of ``bundle``'s family, dtype and hook on the meta device,
     without weights; TAESD on its default route."""
     meta = ModelBundle.random(bundle.family, dtype=bundle.dtype, device="meta",
-                              with_controlnet="controlnet" in bundle.models)
+                              with_controlnet="controlnet" in bundle.models,
+                              with_kl_vae="vae" in bundle.models)
     taesd_cfg = dataclasses.replace(bundle.taesd_cfg, packed_convs=False, pallas_convs=False)
     return dataclasses.replace(meta, taesd_cfg=taesd_cfg, safety_hook=bundle.safety_hook)
 

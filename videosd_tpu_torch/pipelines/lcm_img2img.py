@@ -5,9 +5,15 @@ prompt encoding, per frame:
 
     unpack I420 (optional) -> crop (the engine's per-element ``src_box``
     through lanczos3 ``crop_resize``, or the static center crop) ->
-    Sobel control image -> TAESD encode -> warm-start blend (optional) ->
+    Sobel control image -> VAE encode -> warm-start blend (optional) ->
     add_noise at the first valid ladder step -> S x (ControlNet + UNet +
-    LCM step) -> TAESD decode -> safety hook (optional) -> uint8
+    LCM step) -> VAE decode -> safety hook (optional) -> uint8
+
+The VAE is TAESD (``FrameSpec.vae="taesd"``, the default) or the stock KL
+autoencoder (``vae="kl"``, ``models/vae.py``: latents scaled by
+``scaling_factor`` after encode and unscaled before decode), which a bundle
+carries when it was built with ``with_kl_vae=True`` or loaded from a
+checkpoint that holds a ``vae``.
 
 ``strength``, ``guidance_scale``, ``controlnet_scale``, ``seed`` and
 ``warm_alpha`` are per batch element, as in the JAX program: each element
@@ -35,7 +41,9 @@ first call (the port's counterpart of ``jax.jit``).
 
 Convs, GEMMs and norms are library calls, and
 the long self-attentions go to kernel K1 (``ops/cuda/flash_attention.py``)
-on every UNet pass, full or shallow, and every ControlNet call.  TAESD
+on every UNet pass, full or shallow, every ControlNet call and, on the KL
+path, the VAE's mid attention in encode and decode (d = 512 at sd15 widths,
+K1's kernel for head dims above 256).  TAESD
 follows ``bundle.taesd_cfg``; the ``taesd_pallas`` path of the JAX server
 sends its residual-block convs to kernel K3 (``ops/cuda/taesd_conv.py``)::
 
@@ -49,18 +57,34 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import os
 import time
 from typing import Any
 
 import torch
 from torch import nn
 
-from videosd_tpu_torch.io.weights import load_bundle_dir
+from videosd_tpu_torch.io.weights import (
+    clip_plan,
+    controlnet_plan,
+    load_bundle_dir,
+    load_model_dir,
+    taesd_plan,
+    unet_plan,
+    vae_plan,
+)
 from videosd_tpu_torch.models.clip_text import CLIP_PRESETS, CLIPTextConfig, CLIPTextModel
 from videosd_tpu_torch.models.controlnet import ControlNetModel
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.taesd import AutoencoderTiny, TAESDConfig, taesd_decode, taesd_encode
 from videosd_tpu_torch.models.unet import UNET_PRESETS, UNet2DConditionModel, UNetConfig
+from videosd_tpu_torch.models.vae import (
+    VAE_PRESETS,
+    AutoencoderKL,
+    VAEConfig,
+    vae_decode,
+    vae_encode,
+)
 from videosd_tpu_torch.ops.cuda import flash_attention, taesd_conv
 from videosd_tpu_torch.ops.preprocess import (
     crop_resize,
@@ -68,7 +92,7 @@ from videosd_tpu_torch.ops.preprocess import (
     postprocess_image,
     preprocess_frame,
 )
-from videosd_tpu_torch.ops.sobel import sobel_control_image
+from videosd_tpu_torch.ops.sobel import div_rn, sobel_control_image
 from videosd_tpu_torch.schedulers.lcm import (
     LCMSchedulerConfig,
     add_noise,
@@ -92,8 +116,8 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class FrameSpec:
     """Static shape and schedule of one frame-program bucket: the fields of
-    the JAX ``FrameSpec``, with its meanings (``vae="kl"`` is not ported
-    and raises in :func:`build_frame_program`)."""
+    the JAX ``FrameSpec``, with its meanings (``vae``: ``"taesd"`` or
+    ``"kl"``, the latter on a bundle that carries a KL VAE)."""
 
     batch: int = 1
     height: int = 512
@@ -169,10 +193,11 @@ class ModelBundle:
     unet_cfg: UNetConfig
     clip_cfg: CLIPTextConfig
     sched_cfg: LCMSchedulerConfig
-    models: dict  # {"unet", "controlnet", "taesd", "clip"} -> nn.Module
+    models: dict  # {"unet", "controlnet", "taesd", "clip", "vae"} -> nn.Module
     alphas_cumprod: torch.Tensor
     tokenizer: CLIPTokenizer
     taesd_cfg: TAESDConfig
+    vae_cfg: VAEConfig  # the KL VAE's, whether or not ``models`` holds one
     dtype: torch.dtype
     device: torch.device
     # optional post-decode hook, images_pm1 [B,H,W,3] -> images_pm1
@@ -188,11 +213,13 @@ class ModelBundle:
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         with_controlnet: bool = True,
+        with_kl_vae: bool = False,
     ) -> "ModelBundle":
         """Randomly initialized bundle, drawn with the JAX init rule from a
-        ``torch.Generator`` seeded with ``seed`` (not the JAX values).  On
-        ``device="meta"`` the models have shapes and no values (for
-        counting, ``ops/flops.py``)."""
+        ``torch.Generator`` seeded with ``seed`` (not the JAX values; the
+        KL VAE, with ``with_kl_vae``, is drawn last, so the other models'
+        values do not depend on it).  On ``device="meta"`` the models have
+        shapes and no values (for counting, ``ops/flops.py``)."""
         if family not in UNET_PRESETS:
             raise NotImplementedError(f"family {family!r} is not ported yet")
         device = _resolve_device(device)
@@ -201,11 +228,14 @@ class ModelBundle:
         taesd_cfg = (
             TAESDConfig(hidden=16, blocks_per_stage=1) if family == "tiny" else TAESDConfig()
         )
+        vae_cfg = VAE_PRESETS[family]
         models = {"unet": _empty_module(lambda: UNet2DConditionModel(unet_cfg), dtype, device)}
         if with_controlnet:
             models["controlnet"] = _empty_module(lambda: ControlNetModel(unet_cfg), dtype, device)
         models["taesd"] = _empty_module(lambda: AutoencoderTiny(taesd_cfg), dtype, device)
         models["clip"] = _empty_module(lambda: CLIPTextModel(clip_cfg), dtype, device)
+        if with_kl_vae:
+            models["vae"] = _empty_module(lambda: AutoencoderKL(vae_cfg), dtype, device)
         if device.type != "meta":
             gen = torch.Generator(device=device).manual_seed(seed)
             init_like_jax(models["unet"], gen)
@@ -219,6 +249,8 @@ class ModelBundle:
                     table.weight.copy_(
                         torch.randn(table.weight.shape, generator=gen, device=device) * std
                     )
+            if with_kl_vae:
+                init_like_jax(models["vae"], gen)
         sched_cfg = LCMSchedulerConfig()
         return cls(
             family=family,
@@ -229,6 +261,7 @@ class ModelBundle:
             alphas_cumprod=torch.from_numpy(make_alphas_cumprod(sched_cfg)).to(device),
             tokenizer=CLIPTokenizer(find_vocab_dir(), vocab_size=clip_cfg.vocab_size),
             taesd_cfg=taesd_cfg,
+            vae_cfg=vae_cfg,
             dtype=dtype,
             device=device,
         )
@@ -241,7 +274,8 @@ class ModelBundle:
         (strictly: a missing or extra key raises); models absent from
         ``state_dicts`` keep the random init."""
         bundle = cls.random(family, dtype=dtype, device=device,
-                            with_controlnet="controlnet" in state_dicts)
+                            with_controlnet="controlnet" in state_dicts,
+                            with_kl_vae="vae" in state_dicts)
         for name, sd in state_dicts.items():
             if name not in bundle.models:
                 raise KeyError(f"no model {name!r} in a {family} bundle")
@@ -249,19 +283,76 @@ class ModelBundle:
         return bundle
 
     @classmethod
-    def from_dir(cls, path: str, *, dtype=None, device="cuda") -> "ModelBundle":
-        """Load a ``bundle.json`` checkpoint directory (e.g. the committed
-        ``examples/toy_tiny_ckpt``).  ``dtype=None`` picks fp32 for tiny
-        families and bf16 otherwise, like the JAX loader."""
+    def from_dir(cls, path: str, *, family: str = "sd15", dtype=None, device="cuda",
+                 **kw) -> "ModelBundle":
+        """Load a checkpoint directory of either layout, as the JAX loader
+        does: a ``bundle.json`` directory (``save_bundle``'s, e.g. the
+        committed ``examples/toy_tiny_ckpt``; its family is the recorded
+        one, and ``kw`` must be empty), else a diffusers snapshot through
+        :meth:`from_pretrained` (``family`` and ``kw`` passed on).
+        ``dtype=None`` picks fp32 for tiny families and bf16 otherwise."""
+        if not os.path.isfile(os.path.join(path, "bundle.json")):
+            return cls.from_pretrained(path, family=family, dtype=dtype or torch.bfloat16,
+                                       device=device, **kw)
+        if kw:
+            raise TypeError(f"from_dir(bundle.json layout) got unsupported kwargs {sorted(kw)}")
         family, state_dicts = load_bundle_dir(path)
         if dtype is None:
             dtype = torch.float32 if family.startswith("tiny") else torch.bfloat16
         return cls.from_state_dicts(family, state_dicts, dtype=dtype, device=device)
 
+    @classmethod
+    def from_pretrained(cls, model_dir: str, *, family: str = "sd15",
+                        controlnet_dir: str | None = None, taesd_dir: str | None = None,
+                        dtype=torch.bfloat16, with_controlnet: bool | None = None,
+                        device="cuda") -> "ModelBundle":
+        """Load a diffusers-layout snapshot (``unet/``, ``text_encoder/``,
+        optional ``vae/`` and ``tokenizer/``), the counterpart of the JAX
+        ``ModelBundle.from_pretrained``.  A snapshot without a loadable
+        ``vae/`` (no ``.safetensors``, or a missing tensor) gives a bundle
+        without a KL VAE, as a TAESD-only deployment.  The ControlNet and
+        TAESD come from their own directories; without them the ControlNet
+        (with ``with_controlnet``, default: whether ``controlnet_dir`` is
+        given) and TAESD keep the random init, the ControlNet's zeroed
+        output convs making it a no-op.  The tokenizer reads ``tokenizer/``
+        or the snapshot's own ``vocab.json``."""
+        if family not in UNET_PRESETS:
+            raise NotImplementedError(f"family {family!r} is not ported yet")
+        unet_cfg, clip_cfg = UNET_PRESETS[family], CLIP_PRESETS[family]
+        state_dicts = {
+            "unet": load_model_dir(model_dir, "unet", unet_plan(unet_cfg)),
+            "clip": load_model_dir(model_dir, "text_encoder", clip_plan(clip_cfg)),
+        }
+        try:
+            state_dicts["vae"] = load_model_dir(model_dir, "vae", vae_plan(VAE_PRESETS[family]))
+        except (FileNotFoundError, KeyError):
+            pass  # TAESD-only deployments (the reference swaps the VAE out)
+        if controlnet_dir:
+            state_dicts["controlnet"] = load_model_dir(controlnet_dir, "",
+                                                       controlnet_plan(unet_cfg))
+        if with_controlnet is None:
+            with_controlnet = controlnet_dir is not None
+        bundle = cls.random(family, dtype=dtype, device=device,
+                            with_controlnet=with_controlnet or "controlnet" in state_dicts,
+                            with_kl_vae="vae" in state_dicts)
+        if taesd_dir:
+            state_dicts["taesd"] = load_model_dir(taesd_dir, "", taesd_plan(bundle.taesd_cfg))
+        for name, sd in state_dicts.items():
+            bundle.models[name].load_state_dict(sd, strict=True)
+        for sub in ("tokenizer", ""):
+            cand = os.path.join(model_dir, sub)
+            if os.path.isfile(os.path.join(cand, "vocab.json")):
+                bundle.tokenizer = CLIPTokenizer(cand, pad_to_eos=family != "sd21")
+                break
+        return bundle
+
 
 def _check_spec(bundle: ModelBundle, spec: FrameSpec) -> None:
-    if spec.vae != "taesd":
-        raise NotImplementedError(f"FrameSpec.vae={spec.vae!r} is not ported yet")
+    if spec.vae not in ("taesd", "kl"):
+        raise ValueError(f"FrameSpec.vae must be taesd or kl, got {spec.vae!r}")
+    if spec.vae == "kl" and "vae" not in bundle.models:
+        raise ValueError('FrameSpec.vae="kl" needs a bundle with a KL VAE '
+                         "(ModelBundle.random(with_kl_vae=True), or a checkpoint with a vae)")
     if spec.in_format not in ("rgb", "i420"):
         raise ValueError(f"FrameSpec.in_format must be rgb or i420, got {spec.in_format!r}")
     if spec.deepcache_temporal and spec.deepcache_interval > 1:
@@ -278,9 +369,19 @@ def _per_element(x, batch: int):
 
 
 def _latent_hw(bundle: ModelBundle, spec: FrameSpec) -> tuple[int, int]:
-    """The latents' height and width: TAESD's stride-2 convs round up."""
+    """The latents' height and width: TAESD's stride-2 convs round up, the
+    KL encoder's (right and bottom padded by one) round down."""
+    if spec.vae == "kl":
+        f = 2 ** (len(bundle.vae_cfg.block_out_channels) - 1)
+        return spec.height // f, spec.width // f
     f = 2 ** bundle.taesd_cfg.num_stages
     return -(-spec.height // f), -(-spec.width // f)
+
+
+def _times(x, f: float):
+    """``x * f`` as JAX computes it with a Python float: ``f`` rounded to
+    ``x``'s dtype first, and filled on the device (no host copy)."""
+    return x * torch.full((), f, dtype=x.dtype, device=x.device)
 
 
 def _draw_noise(seeds, out) -> None:
@@ -425,7 +526,10 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
     if spec.use_controlnet:
         ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
     img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
-    latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
+    if spec.vae == "kl":
+        latents0 = _times(vae_encode(models["vae"], img_pm1), bundle.vae_cfg.scaling_factor)
+    else:
+        latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
     if warm_latents is not None:
         a = warm_alpha[:, None, None, None]
         latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
@@ -492,7 +596,11 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         latents = torch.where(m, new_lat, latents)
         denoised = torch.where(m, new_den, denoised)
 
-    out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
+    if spec.vae == "kl":
+        # a true division (torch on CUDA multiplies by the reciprocal of a float)
+        out = vae_decode(models["vae"], div_rn(denoised, bundle.vae_cfg.scaling_factor))
+    else:
+        out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
     if bundle.safety_hook is not None:
         out = _apply_hook(bundle.safety_hook, out)
     if temporal_produce:
@@ -546,10 +654,13 @@ def frame_program(
 
 
 def kernel_launches() -> dict:
-    """The launch counts of the kernels a frame may run (K1 and K3, bf16 and
-    fp32), as their wrappers keep them."""
+    """The launch counts of the kernels a frame may run (K1 up to d = 256
+    and above it, and K3, each in bf16 and fp32), as their wrappers keep
+    them."""
     return {"flash_attention": flash_attention.launches,
             "flash_attention_fp32": flash_attention.launches_fp32,
+            "flash_attention_wide": flash_attention.launches_wide,
+            "flash_attention_wide_fp32": flash_attention.launches_wide_fp32,
             "taesd_conv3x3": taesd_conv.launches,
             "taesd_conv3x3_fp32": taesd_conv.launches_fp32}
 
