@@ -16,7 +16,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernel against the plain version in fp32; then K1 above d = 256 (the
    wide kernel, ``csrc/flash_attention_wide.cu``) at d = 264, 320, 512
    (the KL VAE's [1, 4096, 512] and [4, 4096, 512]) and 640 in bf16 and
-   fp32, keys != queries included;
+   fp32 (the fp32 heads on ``csrc/flash_attention_wide_fp32.cu``, whose
+   3xTF32 products are its own arithmetic, not torch's TF32), keys !=
+   queries included;
 4. the committed trained tiny checkpoint (``examples/toy_tiny_ckpt``) runs
    its 2-step frame program on CUDA and on the CPU in fp32, with TF32 off,
    from the same inputs and noise, at 64x64, 128x128 and 256x256; the
@@ -102,7 +104,8 @@ and the graph's launches per frame are those of the capture.  The line
 before the last is a JSON object of per-kernel
 results (each with its bound, computed from the shapes: the largest of its
 bytes over 3.35 TB/s, its flops over the peak of their type (989 TFLOP/s in
-bf16; fp32 FFMA, 132 SMs x 128 lanes x 2 at the SM clock) and, for K1, its
+bf16; in fp32 the faster of FFMA, 132 SMs x 128 lanes x 2 at the SM clock,
+and 3xTF32 on the tensor cores, 494.7 / 3 TFLOP/s) and, for K1, its
 exponentials over the exp unit's 16 per clock per SM; the clock is the
 card's maximum SM clock, read from nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing here imports JAX.
@@ -178,14 +181,15 @@ K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16),
 K1_TIMED = {"bf16": [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
                      (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)],
             "fp32": [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)]}
-# K1 above d = 256 (the wide kernel), as (B, H, Sq, Sk, d), in bf16 and fp32 with
-# loud neighbours where H = 2: two column slices (264, 320, 512) and three
-# (640), keys != queries, and the KL VAE's mid attention at 512x512 (one head of
-# 512 over 64^2 latents) at batch 1 and 4
+# K1 above d = 256 (the wide kernels), as (B, H, Sq, Sk, d), in bf16 and fp32
+# with loud neighbours where H = 2: in bf16 two column slices (264, 320, 512)
+# and three (640), in fp32 one (up to 512) and two (640, Q streamed), keys !=
+# queries, and the KL VAE's mid attention at 512x512 (one head of 512 over
+# 64^2 latents) at batch 1 and 4
 K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
            (4, 1, 4096, 4096, 512), (2, 2, 256, 512, 640)]
 K1_WIDE_TIMED = {"bf16": [(1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)],
-                 "fp32": [(1, 1, 4096, 4096, 512)]}
+                 "fp32": [(1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]}
 # the tiny KL frame sizes, with K1's fp32 launches per frame: the UNet's 8 and
 # 12 (as the checkpoint's) and the VAE's 2 (d = 16 at 256 and 1024 tokens)
 TINY_KL = {128: 10, 256: 14}
@@ -197,9 +201,11 @@ KL_FP32_REL_L2 = 1e-4
 KL_TILED_GRID, KL_TILES = 128, 9
 # eager and replayed KL frames in alternating turns
 KL_TURNS, KL_TURN_FRAMES = 3, 3
-# the card's published peaks (H100 SXM): dense bf16 tensor-core rate, HBM rate;
-# and the rates that scale with the SM clock: FFMA lanes and ex2 per SM
+# the card's published peaks (H100 SXM): dense bf16 tensor-core rate, HBM rate,
+# and fp32 products as 3xTF32 (three products at the dense TF32 rate, half the
+# bf16 one); and the rates that scale with the SM clock: FFMA lanes and ex2 per SM
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_3XTF32_FLOPS = 494.7e12 / 3
 NUM_SMS, FFMA_LANES_PER_SM, EXP_PER_CLOCK_PER_SM = 132, 128, 16
 # fp32 kernels (K1 and K3) against their plain versions, which are fp32 too
 # (TF32 off): both sum fp32 products in other orders (~1e-6 relative apart)
@@ -208,6 +214,12 @@ NUM_SMS, FFMA_LANES_PER_SM, EXP_PER_CLOCK_PER_SM = 132, 128, 16
 # kernel that ran its products in TF32 (10-bit mantissa) is ~1e-3 relative
 # off, 60x over the mean bar
 FP32_MAX_REL, FP32_MEAN_REL = 2.0 ** -13, 2.0 ** -16
+# ... except K1's wide fp32 kernel, held to the same bars from the plain
+# version computed in fp64 and rounded to fp32: its 3xTF32 products round
+# unlike cuBLAS's fp32 ones, and on loud heads (logits 64x larger, a peaked
+# softmax) the fp32 plain version is itself up to a bar off the exact result
+# (on an H100: up to 0.42 of the max bar in 6 draws, and over 1 in one draw),
+# while the kernel stays within 0.15 of it
 # bf16 bar of K1 against its plain version, relative to the outputs (with
 # randn inputs |o| shrinks as the keys grow: ~0.02 at 4096 keys): both round
 # the output to bf16 (half an ulp, 2^-9 relative, each) and they round P at
@@ -375,10 +387,12 @@ def bound_ms(nbytes: float, flops: float, dtype: str, sm_clock_hz: float,
     """The least time the card could take: the largest of the bytes (each
     input read once, each output written once) over the memory rate, the
     flops over the peak of their type (``dtype`` "bf16": the tensor cores'
-    989 TFLOP/s; "fp32": the FFMA lanes, 132 SMs x 128 x 2 at the SM clock)
-    and the exponentials over the exp unit (16 per clock per SM).  Returns
-    (ms, "bytes" or "operations", the term that sets it)."""
-    peak = PEAK_BF16_FLOPS if dtype == "bf16" else NUM_SMS * FFMA_LANES_PER_SM * 2 * sm_clock_hz
+    989 TFLOP/s; "fp32": the faster of the FFMA lanes, 132 SMs x 128 x 2 at
+    the SM clock, and fp32 products as 3xTF32 on the tensor cores, 494.7 / 3
+    TFLOP/s) and the exponentials over the exp unit (16 per clock per SM).
+    Returns (ms, "bytes" or "operations", the term that sets it)."""
+    peak = (PEAK_BF16_FLOPS if dtype == "bf16" else
+            max(NUM_SMS * FFMA_LANES_PER_SM * 2 * sm_clock_hz, PEAK_3XTF32_FLOPS))
     terms = {"bytes": nbytes / PEAK_BYTES, f"{dtype} flops": flops / peak,
              "ex2": exps / (NUM_SMS * EXP_PER_CLOCK_PER_SM * sm_clock_hz)}
     term = max(terms, key=terms.get)
@@ -464,6 +478,13 @@ def _demangle(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
+def _attention_fp64(q, k, v, scale):
+    """The plain version's function, softmax(q k^T * scale) v, computed in
+    fp64 and rounded to fp32."""
+    logits = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(logits, dim=-1), v.double()).float()
+
+
 def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
     """K1 on [b, s, h*d] slices of one fused q|k|v buffer (the heads read in
     place), held against the plain version on the folded heads and, bit for
@@ -493,7 +514,20 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
     ref = unfold(fa.flash_attention_reference(qf, kf, vf, scale))
     name = f"[{b},{h},{sq},{sk},{d}]"
     same = torch.equal(unfold(folded), out)
-    if dtype == torch.float32:
+    if dtype == torch.float32 and d > fa.MAX_HEAD_DIM:
+        # the 3xTF32 kernel against the plain version computed exactly (fp64,
+        # then rounded): on loud heads the fp32 plain version's own logits
+        # are off by up to a bar (the note at FP32_MAX_REL); its distance is printed
+        exact = unfold(_attention_fp64(qf, kf, vf, scale))
+        ok, mx, mean, max_bar, mean_bar = fp32_within_bar(out, exact)
+        off = fp32_within_bar(out, ref)
+        bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: 2^-13 of max|o|) mean|d| {mean:.3e} (bar "
+                f"{mean_bar:.3e}: 2^-16 of mean|o|) from the plain version in fp64; from the "
+                f"fp32 plain version max|d| {off[1]:.3e}, mean|d| {off[2]:.3e}, which is "
+                f"max|d| {fp32_within_bar(ref, exact)[1]:.3e} from fp64")
+        plan = ("fp32, the wide kernel, 3xTF32, Q "
+                f"{'resident' if fa.wide_fp32_q_resident(d) else 'streamed'}")
+    elif dtype == torch.float32:
         ok, mx, mean, max_bar, mean_bar = fp32_within_bar(out, ref)
         bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: 2^-13 of max|o|) mean|d| {mean:.3e} (bar "
                 f"{mean_bar:.3e}: 2^-16 of mean|o|)")
@@ -508,7 +542,10 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
                 f"bf16, {fa.block_rows(sq, b * h, d)} rows/block on the {fa.instance_width(d)}-wide "
                 f"instance")
     if d > fa.MAX_HEAD_DIM:
-        plan += f", {fa.wide_slices(d)} slices of {fa.WIDE_SLICE} columns x 64 rows per query tile"
+        fp32 = dtype == torch.float32
+        plan += (f", {fa.wide_slices(d, dtype)} slices of "
+                 f"{fa.WIDE_SLICE_FP32 if fp32 else fa.WIDE_SLICE} columns x "
+                 f"{fa.WIDE_ROWS_FP32 if fp32 else 64} rows per query tile")
     print(f"K1 {name} {plan}{', loud neighbours' if loud else ''}: {bars}; in-place entry "
           f"equals the folded one bit for bit: {same}")
     if not ok:
@@ -1477,7 +1514,9 @@ def phase_kl(card: str) -> dict:
           f"{count['logical'] / (replay_ms / 1e3) / PEAK_BF16_FLOPS:.4f} (padded "
           f"{count['padded'] / (replay_ms / 1e3) / PEAK_BF16_FLOPS:.4f}) of 989 TFLOP/s ({card})")
 
-    # the wide fp32 kernel's path: the VAE in fp32 (TF32 off), against the plain attention
+    # the wide fp32 kernel's path: the VAE in fp32 (torch's TF32 off for the
+    # convs and the plain attention; the kernel's own 3xTF32 reads no flag),
+    # against the plain attention
     vae32 = copy.deepcopy(bundle.models["vae"]).float()
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
@@ -1759,7 +1798,7 @@ def main() -> None:
          "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
          "launches": kl["launches"], "max_abs_err": k1_wide_err, **k1_wide_times},
         {"name": "flash_attention_wide_fp32", "route": "cuda",
-         "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
+         "source": "videosd_tpu_torch/csrc/flash_attention_wide_fp32.cu", "replaces": k1_src,
          "launches": kl["fp32_launches"], "max_abs_err": k1_wide_fp32_err, **k1_wide_fp32_times},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",

@@ -200,16 +200,20 @@ def _smoke():
         (1, 8, 256, 256, 160, "bf16", 0.78, "bytes", "bytes"),
         (1, 4, 1024, 1024, 8, "bf16", 1.00, "operations", "ex2"),  # the tiny family
         (1, 4, 256, 256, 16, "bf16", 0.06, "operations", "ex2"),
-        (1, 8, 4096, 4096, 40, "fp32", 320.96, "operations", "fp32 flops"),
-        (1, 4, 1024, 1024, 8, "fp32", 2.01, "operations", "fp32 flops"),
+        # fp32 products at the faster of FFMA (66.9 TFLOP/s at 1.98 GHz) and
+        # 3xTF32 on the tensor cores (494.7 / 3 = 164.9 TFLOP/s)
+        (1, 8, 4096, 4096, 40, "fp32", 130.23, "operations", "fp32 flops"),
+        (1, 4, 1024, 1024, 8, "fp32", 1.00, "operations", "ex2"),
+        (1, 1, 4096, 4096, 512, "fp32", 208.37, "operations", "fp32 flops"),  # the KL VAE
     ],
 )
 def test_smoke_bound_of_k1(b, h, sq, sk, d, dtype, us, by, term):
     """The bound ``chip_smoke.py`` prints beside K1's time, at an SM clock of
     1.98 GHz: the largest of 4 Sq Sk d flops per head over the peak of their
-    type (989 TFLOP/s in bf16; 132 SMs x 128 FFMA lanes x 2 x the clock in
-    fp32), Sq Sk exponentials per head over 16 per clock per SM, and the
-    bytes of q, k, v and o over 3.35 TB/s."""
+    type (989 TFLOP/s in bf16; in fp32 the faster of 132 SMs x 128 FFMA lanes
+    x 2 x the clock and 3xTF32, 494.7 / 3 TFLOP/s), Sq Sk exponentials per
+    head over 16 per clock per SM, and the bytes of q, k, v and o over 3.35
+    TB/s."""
     ms, which, what = _smoke().k1_bound(b, h, sq, sk, d, 1.98e9, dtype)
     assert (which, what) == (by, term) and round(ms * 1e3, 2) == us
 
@@ -347,6 +351,28 @@ def test_wide_plan(d, slices, resident):
     assert FA.WIDE_SLOTS * 8192 + 1024 + (2 * FA.WIDE_SLOTS + 1) * 8 <= FA.SMEM_LIMIT
     with pytest.raises(ValueError, match="d <= 256"):
         FA.wide_slices(256)
+    assert FA.wide_slices(d, torch.bfloat16) == slices
+
+
+@pytest.mark.parametrize("d, slices, resident", [(257, 1, True), (264, 1, True), (512, 1, True),
+                                                 (516, 2, True), (544, 2, True), (640, 2, True),
+                                                 (644, 2, False), (1024, 2, False),
+                                                 (1600, 4, False)])
+def test_wide_fp32_plan(d, slices, resident):
+    """The fp32 wide kernel's plan: one block per 512 output columns of each
+    32-row query tile (one at the KL VAE's d = 512: the logits formed once);
+    Q's 32 rows resident at a stride of d rounded up to 32, plus 16, beside
+    a ring of at least 4 K chunks up to d = 640, streamed in the ring beside
+    K's above; its shared memory within the block's limit either way."""
+    assert FA.wide_slices(d, torch.float32) == slices
+    assert FA.wide_fp32_q_resident(d) is resident
+    stride = -(-d // 32) * 32 + 16
+    q_bytes = 4 * FA.WIDE_ROWS_FP32 * stride if resident else 0
+    slot = FA.WIDE_FP32_CHUNK_BYTES * (1 if resident else 2)  # a K chunk, and Q's if it streams
+    assert FA.WIDE_FP32_FIXED_SMEM + q_bytes + 4 * slot + 1024 <= FA.SMEM_LIMIT
+    assert stride % 32 == 16 and 144 % 32 == 16 and 516 % 32 == 4  # the conflict-free strides
+    with pytest.raises(ValueError, match="d <= 256"):
+        FA.wide_slices(256, torch.float32)
 
 
 @pytest.mark.parametrize("d,dp", [(20, 24), (5, 8), (6, 8), (250, 256)])

@@ -1,5 +1,5 @@
-// Flash attention forward for head dims above 256 on Hopper (sm_90a), in bf16
-// and fp32: softmax(q k^T * sm_scale) v.
+// Flash attention forward for head dims above 256 on Hopper (sm_90a) in bf16:
+// softmax(q k^T * sm_scale) v.
 //
 // Replaces the TPU kernel videosd_tpu/ops/pallas/flash_attention.py::mha_flash
 // (body `_kernel`) at the head dims its wrapper takes above 256 (it pads d to
@@ -7,24 +7,20 @@
 // the KL VAE's mid attention (videosd_tpu/models/vae.py, one head of 512
 // channels over the 64x64 latent of a 512x512 frame: [B, 4096, 512], in encode
 // and in decode).  flash_attention.cu (bf16) and flash_attention_fp32.cu take
-// d <= 256.  Same numerics as those: fp32 logits, fp32 running max, sum and
-// accumulator (online softmax), P V on the unnormalized probabilities (bf16 P
-// in the bf16 kernel, as the reference's p.astype(v.dtype)), ex2.approx in the
-// log2 domain, and a row with l == 0 left unscaled.
+// d <= 256, flash_attention_wide_fp32.cu the fp32 heads above 256.  Same
+// numerics as those: fp32 logits, fp32 running max, sum and accumulator
+// (online softmax), P V on bf16 P (as the reference's p.astype(v.dtype)),
+// ex2.approx in the log2 domain, and a row with l == 0 left unscaled.
 //
 // Layout: heads in place, as in flash_attention.cu.  q and o are [B, Sq, H*d],
 // k and v [B, Sk, H*d], the last axis contiguous; batch and row strides are
-// arguments.  Rows 16-byte aligned (d a multiple of 8 in bf16, of 4 in fp32;
-// the wrapper zero-pads any other d in a folded copy), Sq and Sk multiples of
-// 64, any d above 256.
+// arguments.  Rows 16-byte aligned (d a multiple of 8; the wrapper zero-pads
+// any other d in a folded copy), Sq and Sk multiples of 64, any d above 256.
 //
-// What bounds it on the H100: 4 Sq Sk d flops per head, on the tensor cores
-// in bf16 and on the FFMA pipes in fp32 (no TF32): at [1, 4096, 512] 34 GFLOP,
-// 35 us at 989 TFLOP/s bf16 and 0.51 ms in fp32, far above the 5 us of its
-// 17 MB.  Why the d <= 256 designs do not stretch: an O accumulator of 64 rows
-// x 512 fp32 columns is 256 registers a thread in one warpgroup (above the 255
-// a thread may hold), and a resident 64 x 512 Q tile with one K and one V tile
-// is 192 KB in bf16 (no room for a ring) and 384 KB in fp32.  So:
+// What bounds it on the H100: 4 Sq Sk d flops per head on the tensor cores:
+// at [1, 4096, 512] 34 GFLOP, 35 us at 989 TFLOP/s, far above the 5 us of its
+// 17 MB.  Why the d <= 256 design does not stretch: a resident 64 x 512 Q tile
+// with one K and one V tile is 192 KB (no room for a ring).  So:
 //
 // * A block owns 64 query rows and one slice of at most 256 output columns:
 //   grid (Sq / 64, ceil(d / 256), B * H).  Every slice forms the whole logit
@@ -33,9 +29,9 @@
 //   and doubles the blocks at d = 512 (one head at batch 1 gives 64 query
 //   tiles, half the SMs), at the price of recomputing S once per slice: at
 //   d = 512, 1.5x the logical products (2 x Q K^T + P V).
-// * bf16: one consumer warpgroup (wgmma: S from two K-major swizzled panels,
-//   P V with P from registers and V as the MN-major operand, one m64n64 per
-//   V panel) and one producer warp that keeps TMA loads of 64 x 64 panels
+// * One consumer warpgroup (wgmma: S from two K-major swizzled panels, P V
+//   with P from registers and V as the MN-major operand, one m64n64 per V
+//   panel) and one producer warp that keeps TMA loads of 64 x 64 panels
 //   (8 KB, the 128-byte swizzle) in flight through a ring of up to 27 slots
 //   handed over by full/empty mbarriers.  Q stays resident in shared memory
 //   (its panels loaded once) while it fits beside a ring of 8 slots (d up to
@@ -43,13 +39,7 @@
 //   product of one panel pair overlaps the wait for the next; the softmax and
 //   the three phases of a key tile (S, softmax, P V) run in sequence: the
 //   simple kernel, right first.
-// * fp32: 256 threads, each holding the logits of 4 rows x 4 keys and the
-//   output of the same 4 rows at 4 float4 columns (as flash_attention_fp32.cu
-//   at d = 256); Q and K stream in depth chunks of 64 floats through a
-//   double buffer filled by cp.async, the V slice of a key tile (64 keys x
-//   256 floats, 64 KB) loads while the logits are formed, and P goes through
-//   shared memory from the logit layout to the row layout of P V.
-// * The shared-memory attribute of each kernel is set once per device.
+// * The shared-memory attribute is set once per device.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -338,208 +328,6 @@ cudaError_t tile_map(const void* ptr, long long batch_stride, long long row_stri
   return tensor_map(key, out);
 }
 
-// ================================================================ fp32
-
-constexpr int kF32Threads = 256;
-constexpr int kChunk4 = 16;               // float4 of depth per chunk (64 floats)
-constexpr int kChunkStride4 = kChunk4 | 1;  // odd row stride: no bank conflict
-constexpr int kSlice4 = kSlice / 4;       // float4 of V and O per slice row
-constexpr int kPStride = kKeys + 4;       // floats per row of P
-// Q and K chunks (double buffer), the V slice, P
-constexpr size_t kF32Smem = (size_t)2 * 2 * kRows * kChunkStride4 * 16 +
-                            (size_t)kKeys * kSlice4 * 16 + (size_t)kRows * kPStride * 4;
-
-struct F32Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // strides in elements
-  int heads, sq, sk, d;
-  float scale_log2;
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Starts cp.async copies of 64 rows of w4 float4 from `src` (row stride `rs`
-// floats) into `dst` (row stride `stride4` float4).
-__device__ __forceinline__ void load_rows(float4* dst, int stride4, const float* src, long long rs,
-                                          int w4) {
-  for (int i = threadIdx.x; i < 64 * w4; i += kF32Threads) {
-    const int r = i / w4, c = i % w4;
-    cp_async16(dst + r * stride4 + c, src + (long long)r * rs + 4 * c);
-  }
-}
-
-__global__ void __launch_bounds__(kF32Threads, 1) flash_wide_fwd_fp32_kernel(const F32Params p) {
-  extern __shared__ float4 smem4[];
-  float4* qk_s = smem4;  // [2 buffers][Q, K][64][kChunkStride4]
-  float4* v_s = qk_s + 2 * 2 * kRows * kChunkStride4;  // [64][kSlice4]
-  float* p_s = reinterpret_cast<float*>(v_s + kKeys * kSlice4);  // [64][kPStride]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * kRows;
-  const int c0 = blockIdx.y * kSlice;
-  const int bh = blockIdx.z;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int d4 = p.d / 4;
-  const int nc = (d4 + kChunk4 - 1) / kChunk4;  // depth chunks
-  const int vw4 = min(kSlice4, d4 - c0 / 4);     // float4 columns of this slice below d
-  const float* qg = p.q + (long long)b * p.q_bs + (long long)m0 * p.q_rs + (long long)h * p.d;
-  const float* kg = p.k + (long long)b * p.k_bs + (long long)h * p.d;
-  const float* vg = p.v + (long long)b * p.v_bs + (long long)h * p.d + c0;
-  const int n_tiles = p.sk / kKeys;
-  const int n_items = n_tiles * nc;  // (key tile, depth chunk) pairs
-
-  // item n: chunk n % nc of Q and of key tile n / nc, into buffer n % 2
-  auto issue = [&](int item) {
-    const int t = item / nc, c = item % nc;
-    const int w4 = min(kChunk4, d4 - c * kChunk4);
-    float4* buf = qk_s + (item % 2) * 2 * kRows * kChunkStride4;
-    load_rows(buf, kChunkStride4, qg + c * 64, p.q_rs, w4);
-    load_rows(buf + kRows * kChunkStride4, kChunkStride4,
-              kg + (long long)t * kKeys * p.k_rs + c * 64, p.k_rs, w4);
-  };
-  issue(0);
-  cp_async_commit();
-
-  float4 acc[4][kSlice4 / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kSlice4 / 16; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m_run[4], l_run[4];  // running max in the log2 domain; this thread's partial sum
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m_run[i] = -INFINITY, l_run[i] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const int item = t * nc + c;
-      if (c == 0) {  // the V slice of this tile: v_s is free since the last P V
-        load_rows(v_s, kSlice4, vg + (long long)t * kKeys * p.v_rs, p.v_rs, vw4);
-        cp_async_commit();
-      }
-      if (item + 1 < n_items) issue(item + 1);
-      cp_async_commit();  // (empty after the last item: the group count stays in step)
-      // this item has landed; the next (and, at c == 0, the V slice) may not
-      if (c == 0)
-        cp_async_wait<2>();
-      else
-        cp_async_wait<1>();
-      __syncthreads();
-      const float4* q_c = qk_s + (item % 2) * 2 * kRows * kChunkStride4;
-      const float4* k_c = q_c + kRows * kChunkStride4;
-      const int w4 = min(kChunk4, d4 - c * kChunk4);
-      for (int j = 0; j < w4; ++j) {
-        float4 qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = q_c[(ty + 16 * i) * kChunkStride4 + j];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) kv[jj] = k_c[(tx + 16 * jj) * kChunkStride4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
-          }
-      }
-      __syncthreads();  // every thread is done with this buffer before it is refilled
-    }
-
-    // online softmax of rows ty + 16 i over this tile's 64 keys
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx * p.scale_log2);  // scale > 0
-      const float alpha = ex2(m_run[i] - m_new);               // 2^-inf = 0 on the first tile
-      m_run[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float e = ex2(fmaf(s[i][jj], p.scale_log2, -m_new));
-        sum += e;
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * jj] = e;
-      }
-      l_run[i] = fmaf(l_run[i], alpha, sum);
-#pragma unroll
-      for (int c = 0; c < kSlice4 / 16; ++c) {
-        acc[i][c].x *= alpha;
-        acc[i][c].y *= alpha;
-        acc[i][c].z *= alpha;
-        acc[i][c].w *= alpha;
-      }
-    }
-    cp_async_wait<1>();  // the V slice has landed (only the next item may be in flight)
-    __syncthreads();     // and P is written
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPStride + kk);
-#pragma unroll
-      for (int c = 0; c < kSlice4 / 16; ++c) {
-        const int col = tx + 16 * c;
-        if (col >= vw4) break;
-        const float4 v0 = v_s[(kk + 0) * kSlice4 + col], v1 = v_s[(kk + 1) * kSlice4 + col];
-        const float4 v2 = v_s[(kk + 2) * kSlice4 + col], v3 = v_s[(kk + 3) * kSlice4 + col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float4& a = acc[i][c];
-          a.x = fmaf(pv[i].x, v0.x, a.x), a.y = fmaf(pv[i].x, v0.y, a.y);
-          a.z = fmaf(pv[i].x, v0.z, a.z), a.w = fmaf(pv[i].x, v0.w, a.w);
-          a.x = fmaf(pv[i].y, v1.x, a.x), a.y = fmaf(pv[i].y, v1.y, a.y);
-          a.z = fmaf(pv[i].y, v1.z, a.z), a.w = fmaf(pv[i].y, v1.w, a.w);
-          a.x = fmaf(pv[i].z, v2.x, a.x), a.y = fmaf(pv[i].z, v2.y, a.y);
-          a.z = fmaf(pv[i].z, v2.z, a.z), a.w = fmaf(pv[i].z, v2.w, a.w);
-          a.x = fmaf(pv[i].w, v3.x, a.x), a.y = fmaf(pv[i].w, v3.y, a.y);
-          a.z = fmaf(pv[i].w, v3.z, a.z), a.w = fmaf(pv[i].w, v3.w, a.w);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done with V and P of this tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    float* og = p.o + (long long)b * p.o_bs + (long long)(m0 + ty + 16 * i) * p.o_rs +
-                (long long)h * p.d + c0;
-#pragma unroll
-    for (int c = 0; c < kSlice4 / 16; ++c) {
-      const int col = tx + 16 * c;
-      if (col >= vw4) break;
-      const float4 a = acc[i][c];
-      *reinterpret_cast<float4*>(og + 4 * col) =
-          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t configure(Kernel kernel, size_t smem, bool (&configured)[kMaxDevices], int device) {
   if (configured[device]) return cudaSuccess;
@@ -584,31 +372,6 @@ int videosd_flash_attention_wide_fwd(const void* q, const void* k, const void* v
   const dim3 grid(sq / kRows, (d + kSlice - 1) / kSlice, batch * heads);
   flash_wide_fwd_kernel<<<grid, kBf16Threads, kBf16Smem, static_cast<cudaStream_t>(stream)>>>(
       p, map_q, map_k, map_v);
-  return (int)cudaGetLastError();
-}
-
-// The same in fp32: d a multiple of 4 above 256.
-int videosd_flash_attention_wide_fp32_fwd(const void* q, const void* k, const void* v, void* o,
-                                          int batch, int heads, int sq, int sk, int d,
-                                          const long long* strides, float sm_scale, int device,
-                                          void* stream) {
-  if (!valid(batch, heads, sq, sk, d, sm_scale, device, 4)) return (int)cudaErrorInvalidValue;
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = configure(flash_wide_fwd_fp32_kernel, kF32Smem, configured, device);
-  if (err != cudaSuccess) return (int)err;
-  F32Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
-  p.q_bs = strides[0], p.q_rs = strides[1];
-  p.k_bs = strides[2], p.k_rs = strides[3];
-  p.v_bs = strides[4], p.v_rs = strides[5];
-  p.o_bs = strides[6], p.o_rs = strides[7];
-  p.heads = heads, p.sq = sq, p.sk = sk, p.d = d;
-  p.scale_log2 = sm_scale * 1.4426950408889634f;
-  const dim3 grid(sq / kRows, (d + kSlice - 1) / kSlice, batch * heads);
-  flash_wide_fwd_fp32_kernel<<<grid, kF32Threads, kF32Smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ between calls.  It times, with torch.profiler (the device time of every
 kernel and memset a call issues, median of three sessions of 20 calls):
 
 * K1, ``flash_attention`` in bf16 on ``[1, S, 8*d]`` tensors at the sd15
-  512x512 main path's three shapes;
+  512x512 main path's three shapes, and in fp32 on one head of d = 512 at
+  the KL VAE's [1, 4096, 512] and [4, 4096, 512] (the wide fp32 kernel);
 * K2, ``fused_preprocess`` of a uint8 frame at 512x512, 768x768, 480x640
   and 1080x1920, with its device operations per call.
 
@@ -28,6 +29,7 @@ import subprocess
 import sys
 
 K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
+K1_WIDE_FP32 = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
 K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920)]
 CALLS, SESSIONS = 20, 3
 
@@ -69,6 +71,11 @@ def main() -> None:
                    for _ in range(3))
         ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=h))
         print(json.dumps({"tree": tree, "kernel": "K1", "shape": [h, s, d],
+                          "device_ms": ms, "device_ops_per_call": ops}))
+    for b, s, d in K1_WIDE_FP32:
+        q, k, v = (torch.randn(b, s, d, generator=gen, device="cuda") for _ in range(3))
+        ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=1))
+        print(json.dumps({"tree": tree, "kernel": "K1 wide fp32", "shape": [b, s, d],
                           "device_ms": ms, "device_ops_per_call": ops}))
     for hw in K2_SHAPES:
         frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)

@@ -1,16 +1,21 @@
 """Flash attention (kernel K1) for the UNet and ControlNet self-attention.
 
 Replaces ``videosd_tpu/ops/pallas/flash_attention.py::mha_flash`` (the TPU
-kernel) and its head-split wrapper ``flash_attention``.  Three CUDA sources,
+kernel) and its head-split wrapper ``flash_attention``.  Four CUDA sources,
 built on first launch by :mod:`videosd_tpu_torch._build`:
 ``videosd_tpu_torch/csrc/flash_attention.cu`` for bf16 up to d = 256 (wgmma
 for both products, a ring of K/V stages filled by TMA or cp.async, heads
 read in place), ``videosd_tpu_torch/csrc/flash_attention_fp32.cu`` for fp32
-up to d = 256 (FFMA products from shared memory, no TF32), and
-``videosd_tpu_torch/csrc/flash_attention_wide.cu`` for every d above 256 in
-both dtypes (the KL VAE's d = 512: each block keeps one slice of at most
-256 output columns and forms the logits over the whole depth,
-:func:`wide_slices`).
+up to d = 256 (FFMA products from shared memory),
+``videosd_tpu_torch/csrc/flash_attention_wide.cu`` for bf16 above d = 256
+(the KL VAE's d = 512: 64 query rows and one slice of at most 256 output
+columns per block, each slice forming the logits over the whole depth), and
+``videosd_tpu_torch/csrc/flash_attention_wide_fp32.cu`` for fp32 above
+d = 256 (32 query rows and up to 512 output columns per block, so at
+d = 512 the logits are formed once; both products on the tensor cores in
+3xTF32, three TF32 ``mma.sync`` products of split operands, near fp32
+rounding).  :func:`wide_slices` gives the slices per query tile.  The
+kernels' own TF32 arithmetic does not read torch's TF32 flags.
 
 * :func:`flash_attention_reference` is the plain PyTorch version: the
   ``_attention_xla`` math of the JAX package (fp32 logits and softmax, the
@@ -61,6 +66,7 @@ __all__ = [
     "launches_wide_fp32",
     "plan_fits",
     "row_plans",
+    "wide_fp32_q_resident",
     "wide_q_resident",
     "wide_slices",
 ]
@@ -82,11 +88,19 @@ _FIXED_REGISTERS = 48 + 44
 # rows of 16 bytes: the element alignment of a head read in place
 _ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 
-# the wide kernel (d > 256): output columns per block, and the panels of 64
-# columns a block's shared memory holds; Q stays resident beside a ring of
-# at least 8 panels (flash_attention_wide.cu)
+# the bf16 wide kernel (d > 256): output columns per block, and the panels
+# of 64 columns a block's shared memory holds; Q stays resident beside a ring
+# of at least 8 panels (flash_attention_wide.cu)
 WIDE_SLICE = 256
 WIDE_SLOTS, WIDE_MIN_RING = 27, 8
+# the fp32 wide kernel: output columns and query rows per block; the bytes of
+# shared memory beside Q and the ring (a V tile of 32 x 516 floats, P of
+# 32 x 40) and of one ring slot's K chunk (32 x 144 floats: 128 of depth);
+# Q resident while a ring of 4 slots fits beside it within the block's
+# limit less 1 KB of static arrays (flash_attention_wide_fp32.cu::plan)
+WIDE_SLICE_FP32, WIDE_ROWS_FP32 = 512, 32
+WIDE_FP32_FIXED_SMEM, WIDE_FP32_CHUNK_BYTES, WIDE_FP32_MIN_SLOTS = (
+    4 * (32 * 516 + 32 * 40), 4 * 32 * 144, 4)
 
 # attentions sent to the bf16 kernel, to the fp32 one, and to the wide
 # kernel's two dtypes, since the count was last set to 0 (read by chip_smoke.py)
@@ -174,19 +188,30 @@ def block_rows(sq: int, bh: int, d: int) -> int:
     return next((rows for rows in plans if sq // rows * bh >= FULL_GRID), KEY_TILE)
 
 
-def wide_slices(d: int) -> int:
-    """Blocks per query tile of the wide kernel at head dim ``d`` > 256:
-    one per slice of at most :data:`WIDE_SLICE` output columns, each of
-    which forms the logits over the whole depth again."""
+def wide_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per query tile of the wide kernel of ``dtype`` at head dim
+    ``d`` > 256: one per slice of at most :data:`WIDE_SLICE` (bf16) or
+    :data:`WIDE_SLICE_FP32` (fp32) output columns, each of which forms the
+    logits over the whole depth again."""
     if d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} runs on the d <= {MAX_HEAD_DIM} kernels")
-    return -(-d // WIDE_SLICE)
+    return -(-d // (WIDE_SLICE_FP32 if dtype == torch.float32 else WIDE_SLICE))
 
 
 def wide_q_resident(d: int) -> bool:
     """Whether the bf16 wide kernel keeps Q's 64-column panels resident
     (beside a ring of :data:`WIDE_MIN_RING` panels) or streams them with K's."""
     return -(-d // 64) + WIDE_MIN_RING <= WIDE_SLOTS
+
+
+def wide_fp32_q_resident(d: int) -> bool:
+    """Whether the fp32 wide kernel keeps Q's 32 rows resident (at a row
+    stride of ``d`` rounded up to 32, plus 16) beside a ring of
+    :data:`WIDE_FP32_MIN_SLOTS` K chunks, or streams them in the ring beside
+    K's: resident up to d = 640."""
+    stride = -(-d // 32) * 32 + 16
+    return (WIDE_FP32_FIXED_SMEM + 4 * WIDE_ROWS_FP32 * stride
+            + WIDE_FP32_MIN_SLOTS * WIDE_FP32_CHUNK_BYTES <= SMEM_LIMIT - 1024)
 
 
 def flash_attention_bhsd(q, k, v, sm_scale: float):
@@ -272,7 +297,8 @@ def _unfold_cut(out, b: int, heads: int, d: int):
 def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
     """Launches the kernel of q's dtype and head dim; ``block_m`` overrides
     :func:`block_rows` with another of :func:`row_plans` (``chip_smoke.py``
-    times them all; the fp32 and the wide kernels run 64 rows per block)."""
+    times them all; the fp32 and the bf16 wide kernels run 64 rows per
+    block, the fp32 wide kernel 32)."""
     b, sq, sk, d = _check(q, k, v, heads)
     align = _ALIGN[q.dtype]
     if d % align:
@@ -282,7 +308,10 @@ def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
         return _unfold_cut(out, b, heads, d)
     fp32 = q.dtype == torch.float32
     wide = d > MAX_HEAD_DIM
-    plans = (KEY_TILE,) if fp32 or wide else row_plans(sq, d)
+    if fp32 and wide:
+        plans = (WIDE_ROWS_FP32,)
+    else:
+        plans = (KEY_TILE,) if fp32 or wide else row_plans(sq, d)
     if block_m is None:
         block_m = plans[0] if fp32 or wide else block_rows(sq, b * heads, d)
     elif block_m not in plans:

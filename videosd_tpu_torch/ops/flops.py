@@ -18,10 +18,12 @@ the same 3×3 convs.
 K1's two products at the head width its kernel computes (the bf16
 kernel's instance, :data:`~videosd_tpu_torch.ops.cuda.flash_attention.INSTANCE_WIDTHS`,
 rounded up to ``wgmma``'s bf16 K-step of 16; the fp32 kernel's head dim
-rounded up to its 16-byte rows of 4; above d = 256 the wide kernel's
+rounded up to its 16-byte rows of 4; above d = 256 the wide kernels'
 Q·Kᵀ once per slice of output columns, at the depth padded to 64 columns
-in bf16, and its P·V once), and every product the libraries run (cuBLAS,
-cuDNN) as it is, logical.
+in bf16 and to 16 in fp32, and their P·V once, at the columns padded to
+64 in bf16 and to 8 in fp32; the fp32 wide kernel's three TF32 products
+per fp32 product count as one), and every product the libraries run
+(cuBLAS, cuDNN) as it is, logical.
 
 Peaks: the dense bf16 tensor-core rate from NVIDIA's data sheet
 (:func:`device_peak_flops`).
@@ -79,12 +81,16 @@ def mfu(flops: float, seconds: float, peak: float | None) -> float | None:
 def attention_padded_width(d: int, dtype: torch.dtype) -> int:
     """The head width K1's two products run at for head dim ``d``, as the
     width ``w`` of ``4 Sq Sk w`` flops: the bf16 instance rounded up to 16,
-    or ``d`` rounded up to 4 in fp32.  Above d = 256 the wide kernel runs
-    Q·Kᵀ once per slice (:func:`wide_slices`) and P·V once, each at ``d``
-    padded to 64 (bf16 panels) or 4 (fp32 rows): ``w`` is their mean, 768
-    at d = 512."""
+    or ``d`` rounded up to 4 in fp32.  Above d = 256 the wide kernels run
+    Q·Kᵀ once per slice (:func:`wide_slices`) and P·V once: in bf16 both at
+    ``d`` padded to 64 (panels), in fp32 Q·Kᵀ at ``d`` padded to 16 (two
+    k-steps of 8) and P·V at ``d`` padded to 8 (an m16n8 tile's columns).
+    ``w`` is their mean: 768 at d = 512 in bf16 (two slices of 256
+    columns), 512 in fp32 (one slice of 512)."""
     if d > MAX_HEAD_DIM:
-        dp = -(-d // 4) * 4 if dtype == torch.float32 else -(-d // 64) * 64
+        if dtype == torch.float32:
+            return (-(-d // 16) * 16 * wide_slices(d, dtype) + -(-d // 8) * 8) // 2
+        dp = -(-d // 64) * 64
         return dp * (wide_slices(d) + 1) // 2
     if dtype == torch.float32:
         return -(-d // 4) * 4
