@@ -40,10 +40,12 @@
 //   whole output sits in one block, so the logits are formed once per key
 //   tile, and one head at batch 1 still gives 128 blocks.  Above 512 each
 //   slice forms them again.
-// * Warp w = 4 rg + wq owns rows 16 rg .. 16 rg + 15: in S = Q K^T over a key
-//   tile of 32 it forms the m16n8 tile of keys 8 wq .. 8 wq + 7 over the whole
-//   depth (six independent accumulators: three terms x two k-steps, so the
-//   mma chains overlap), and in O the 16 x 128 columns 128 wq .. (16 m16n8
+// * Warp w = 4 rg + wq owns rows 16 rg .. 16 rg + 15.  In S = Q K^T over a
+//   key tile of 32 it forms all 32 keys (four m16n8 tiles) over a quarter of
+//   the depth, depths 32 wq .. 32 wq + 31 of every chunk, so that each A
+//   fragment it splits serves four products; the four quarters' partials
+//   meet in shared memory, where each warp sums keys 8 wq .. 8 wq + 7 for
+//   the softmax.  In O it owns the 16 x 128 columns 128 wq .. (16 m16n8
 //   accumulators, 64 registers).  The four warps of a row group trade their
 //   row maxima through shared memory; each forms the same running max.
 // * The reduction order inside a k-step is free, so a thread's k slots t and
@@ -51,12 +53,16 @@
 //   row serves two k-steps.  Row strides: Q and K 16 mod 32 floats (the
 //   float4 loads of a quarter warp hit distinct banks), V 4 mod 32 (keys
 //   2t and 2t + 1 at column g), P 8 mod 32.
-// * Every copy is a bulk copy of one row per lane of warp 0, counted on an
-//   mbarrier.  Q stays resident in shared memory, loaded once, while a ring
-//   of 4 depth chunks fits beside it (d <= 640); a wider Q streams through
-//   the ring beside K.  K streams in depth chunks of 128 floats through a
-//   ring of up to 8 slots, slots - 1 chunks ahead; the one V tile (32 keys x
-//   the slice, 64 KB at d = 512) loads while the tile's logits are formed.
+// * K streams in depth chunks of 128 floats through a ring of up to 8 slots,
+//   slots - 1 chunks ahead; the one V tile (32 keys x the slice, 64 KB at
+//   d = 512) loads while the tile's logits are formed.  Every row is a bulk
+//   copy (the copy engine writes shared memory without the load pipe: with
+//   cp.async from every thread the products ran 45 % slower, waits aside),
+//   lanes 0-3 of each warp issuing 4 of a tile's 32 rows, counted on the
+//   slot's mbarrier (one warp issuing all 32 rows made it the critical path:
+//   ~80 cycles a request).  Q stays
+//   resident in shared memory, loaded once, while a ring of 4 chunks fits
+//   beside it (d <= 512); a wider Q streams through the ring beside K.
 // * P goes through shared memory from the accumulator layout (columns 2t and
 //   2t + 1) to the A-fragment layout of P V (keys 2t and 2t + 1 for slots t
 //   and t + 4).
@@ -79,13 +85,16 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 128;                 // floats of depth per streamed chunk
 constexpr int kChunkStride = kChunk + 16;   // 16 mod 32
 constexpr int kVStride = kSlice + 4;        // 4 mod 32
-constexpr int kPStride = kKeys + 8;         // 8 mod 32
+constexpr int kPStride = kKeys + 8;         // 8 mod 32: S partials and P
 constexpr int kMaxSlots = 8;                // ring slots of depth chunks
 constexpr int kMinSlots = 4;                // kept beside a resident Q
+constexpr int kGroup = 4;                   // column tiles of P V in flight
 constexpr int kMaxDevices = 16;
-// dynamic shared memory: the V tile and P, then Q (resident at 32 rows of
-// q_stride, or streamed in the ring beside K), then the ring
-constexpr int kFixedSmem = 4 * (kKeys * kVStride + kRows * kPStride);
+// dynamic shared memory: the V tile, the S partials of the four depth
+// quarters (P aliases their first 32 rows), then Q (resident at 32 rows of
+// q_stride, or streamed in the ring beside K), then the ring of depth chunks
+constexpr int kPartFloats = 4 * kRows * kPStride;
+constexpr int kFixedSmem = 4 * (kKeys * kVStride + kPartFloats);
 constexpr int kChunkBytes = 4 * kKeys * kChunkStride;  // one K (or Q) chunk
 constexpr int kMaxSmem = 232448 - 1024;  // the block's limit, less room for the static arrays
 
@@ -119,6 +128,15 @@ struct Params {
   int slots;     // ring slots
   float scale_log2;
 };
+
+// Bulk copies of 32 rows of w floats from `src` (row stride `rs` floats) into
+// `dst` (row stride `stride` floats), counted on the mbarrier `bar`: lanes 0-3
+// of each warp copy a row each, so that no warp issues them all.
+__device__ __forceinline__ void copy_rows(float* dst, int stride, const float* src, long long rs,
+                                          int w, uint32_t bar) {
+  const int r = threadIdx.x / 32 * 4 + threadIdx.x % 32;
+  if (threadIdx.x % 32 < 4) bulk_load(smem_u32(dst + r * stride), src + r * rs, 4 * w, bar);
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -162,7 +180,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // fragment row and k slot / column pair
   const int rg = warp / 4;  // rows 16 rg .. 16 rg + 15 of the block
-  const int wq = warp % 4;  // keys 8 wq .. of a tile in S; columns 128 wq .. of the slice in O
+  // in Q K^T depths 32 wq .. 32 wq + 31 of each chunk; in the softmax keys
+  // 8 wq .. 8 wq + 7 of the tile; in O columns 128 wq .. of the slice
+  const int wq = warp % 4;
   const int m0 = blockIdx.x * kRows;
   const int c0 = blockIdx.y * kSlice;
   const int bh = blockIdx.z;
@@ -172,11 +192,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
   const int nc = (p.d + kChunk - 1) / kChunk;  // depth chunks
   const int vw = min(kSlice, p.d - c0);        // columns of this slice below d
   const int n_tiles = p.sk / kKeys;
+
   const int n_items = n_tiles * nc;  // (key tile, depth chunk) pairs
 
   float* v_s = reinterpret_cast<float*>(smem4);  // [kKeys][kVStride]
-  float* p_s = v_s + kKeys * kVStride;           // [kRows][kPStride]
-  float* q_s = p_s + kRows * kPStride;           // resident Q: [kRows][q_stride]
+  float* part = v_s + kKeys * kVStride;  // S partials [depth quarter][kRows][kPStride]
+  float* p_s = part;                     // P [kRows][kPStride], once the partials are summed
+  float* q_s = part + kPartFloats;       // resident Q: [kRows][q_stride]
   // the ring: slot n holds item n's K chunk [kKeys][kChunkStride], then, when
   // Q streams, its Q chunk [kRows][kChunkStride]
   float* ring = q_s + (q_res ? kRows * p.q_stride : 0);
@@ -195,39 +217,32 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
   }
   __syncthreads();
 
-  // Warp 0 issues every copy, one row per lane (kKeys == kRows == 32), as
-  // bulk copies counted on an mbarrier.
   // Item n: depth chunk n % nc of key tile n / nc (and of Q when it streams)
   // into ring slot n % slots, completing phase n / slots of its barrier.
+  // Thread 0 announces the bytes; the copies may land before it does.
   auto issue = [&](int item) {
     const int tile = item / nc, c = item % nc;
     const int w = min(kChunk, p.d - c * kChunk);
-    const uint32_t bar = full + 8 * (item % slots);
     float* dst = ring + (item % slots) * slot_floats;
-    if (lane == 0) mbar_arrive_expect_tx(bar, (q_res ? 1 : 2) * 32 * w * 4);
-    __syncwarp();
-    bulk_load(smem_u32(dst + lane * kChunkStride),
-              kg + (long long)(tile * kKeys + lane) * p.k_rs + c * kChunk, w * 4, bar);
+    const uint32_t bar = full + 8 * (item % slots);
+    if (tid == 0) mbar_arrive_expect_tx(bar, (q_res ? 1 : 2) * 32 * w * 4);
+    copy_rows(dst, kChunkStride, kg + (long long)tile * kKeys * p.k_rs + c * kChunk, p.k_rs, w,
+              bar);
     if (!q_res)
-      bulk_load(smem_u32(dst + (kKeys + lane) * kChunkStride),
-                qg + (long long)lane * p.q_rs + c * kChunk, w * 4, bar);
+      copy_rows(dst + kKeys * kChunkStride, kChunkStride, qg + c * kChunk, p.q_rs, w, bar);
   };
   // the V tile of key tile `tile`, into the one V buffer
   auto load_v = [&](int tile) {
-    if (lane == 0) mbar_arrive_expect_tx(v_bar, kKeys * vw * 4);
-    __syncwarp();
-    bulk_load(smem_u32(v_s + lane * kVStride), vg + (long long)(tile * kKeys + lane) * p.v_rs,
-              vw * 4, v_bar);
+    if (tid == 0) mbar_arrive_expect_tx(v_bar, kKeys * vw * 4);
+    copy_rows(v_s, kVStride, vg + (long long)tile * kKeys * p.v_rs, p.v_rs, vw, v_bar);
   };
 
-  if (warp == 0) {
-    if (q_res) {
-      if (lane == 0) mbar_arrive_expect_tx(q_bar, kRows * p.d * 4);
-      __syncwarp();
-      bulk_load(smem_u32(q_s + lane * p.q_stride), qg + (long long)lane * p.q_rs, p.d * 4, q_bar);
-    }
-    for (int n = 0; n < min(slots - 1, n_items); ++n) issue(n);
+  if (q_res && warp == 0) {  // Q once: a bulk copy per row
+    if (lane == 0) mbar_arrive_expect_tx(q_bar, kRows * p.d * 4);
+    __syncwarp();
+    bulk_load(smem_u32(q_s + lane * p.q_stride), qg + (long long)lane * p.q_rs, p.d * 4, q_bar);
   }
+  for (int n = 0; n < min(slots - 1, n_items); ++n) issue(n);
   if (q_res) mbar_wait(q_bar, 0);
 
   float acc[16][4];  // O: rows g, g + 8 of the row group at columns 128 wq + 8 j + 2t, + 1
@@ -239,60 +254,86 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
   float l_run[2] = {0.f, 0.f};              // this thread's share of their sums
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};  // rows g (0, 1) and g + 8 (2, 3) at keys 8 wq + 2t, + 1
+    // this warp's share of S = Q K^T: rows 16 rg + g, + 8 at keys 8 n + 2t, + 1
+    // (n = 0 .. 3), over depths 32 wq .. 32 wq + 31 of every chunk
+    float sp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sp[n][i] = 0.f;
     for (int c = 0; c < nc; ++c) {
       const int item = tile * nc + c;
       mbar_wait(full + 8 * (item % slots), (item / slots) & 1);
       // every thread is done with the previous item's slot (refilled next)
       // and, at c == 0, with the last tile's V and P
       __syncthreads();
-      if (warp == 0) {
-        if (item + slots - 1 < n_items) issue(item + slots - 1);
-        if (c == 0) load_v(tile);
-      }
-      const int w = min(kChunk, p.d - c * kChunk);  // floats of depth in this chunk
+      if (item + slots - 1 < n_items) issue(item + slots - 1);
+      if (c == 0) load_v(tile);
       const float* slot = ring + (item % slots) * slot_floats;
+      const int w = min(kChunk, p.d - c * kChunk);  // floats of depth in this chunk
       const int qs = q_res ? p.q_stride : kChunkStride;
       const float* qa = (q_res ? q_s + c * kChunk : slot + kKeys * kChunkStride) +
-                        (16 * rg + g) * qs + 4 * t;
-      const float* kb = slot + (8 * wq + g) * kChunkStride + 4 * t;
-      // [term: big*big, big*small, small*big][k-step][C fragment]
-      float s3[3][2][4];
+                        (16 * rg + g) * qs + 32 * wq + 4 * t;
+      const float* kb = slot + g * kChunkStride + 32 * wq + 4 * t;
+      float bb[4][4], sm[4][4];  // [key tile][C fragment]: big*big, and the small terms
 #pragma unroll
-      for (int u = 0; u < 3; ++u)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
+        for (int i = 0; i < 4; ++i) bb[n][i] = sm[n][i] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) s3[u][e][i] = 0.f;
-#pragma unroll
-      for (int gi = 0; gi < kChunk / 16; ++gi) {
-        if (16 * gi >= w) break;
-        const bool in = 16 * gi + 4 * t < w;  // d is a multiple of 4: all in or all out
+      for (int gi = 0; gi < 2; ++gi) {
+        const int col = 32 * wq + 16 * gi;
+        if (col >= w) break;
+        const bool in = col + 4 * t < w;  // d is a multiple of 4: all in or all out
         const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
         const float4 a_lo = in ? *reinterpret_cast<const float4*>(qa + 16 * gi) : z;
         const float4 a_hi = in ? *reinterpret_cast<const float4*>(qa + 8 * qs + 16 * gi) : z;
-        const float4 bk = in ? *reinterpret_cast<const float4*>(kb + 16 * gi) : z;
         // k-step 0: slots t and t + 4 hold depths 4t and 4t + 1; k-step 1: 4t + 2, 4t + 3
         const float a0[4] = {a_lo.x, a_hi.x, a_lo.y, a_hi.y};
         const float a1[4] = {a_lo.z, a_hi.z, a_lo.w, a_hi.w};
-        const float b0[2] = {bk.x, bk.y};
-        const float b1[2] = {bk.z, bk.w};
-        uint32_t ab[4], as[4], bb[2], bs[2];
-        split_frag(a0, ab, as);
-        split_frag(b0, bb, bs);
-        mma_tf32(s3[2][0], as, bb);
-        mma_tf32(s3[1][0], ab, bs);
-        mma_tf32(s3[0][0], ab, bb);
-        split_frag(a1, ab, as);
-        split_frag(b1, bb, bs);
-        mma_tf32(s3[2][1], as, bb);
-        mma_tf32(s3[1][1], ab, bs);
-        mma_tf32(s3[0][1], ab, bb);
+        uint32_t ab0[4], as0[4], ab1[4], as1[4];
+        split_frag(a0, ab0, as0);
+        split_frag(a1, ab1, as1);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float4 bk =
+              in ? *reinterpret_cast<const float4*>(kb + 8 * n * kChunkStride + 16 * gi) : z;
+          const float b0[2] = {bk.x, bk.y};
+          const float b1[2] = {bk.z, bk.w};
+          uint32_t kb0[2], ks0[2], kb1[2], ks1[2];
+          split_frag(b0, kb0, ks0);
+          split_frag(b1, kb1, ks1);
+          mma_tf32(sm[n], as0, kb0);
+          mma_tf32(sm[n], ab0, ks0);
+          mma_tf32(bb[n], ab0, kb0);
+          mma_tf32(sm[n], as1, kb1);
+          mma_tf32(sm[n], ab1, ks1);
+          mma_tf32(bb[n], ab1, kb1);
+        }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)  // small terms first
-        s[i] += ((s3[2][0][i] + s3[2][1][i]) + (s3[1][0][i] + s3[1][1][i])) +
-                (s3[0][0][i] + s3[0][1][i]);
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sp[n][i] += sm[n][i] + bb[n][i];  // small terms first
+    }
+    // the four depth quarters' partials, summed in shared memory into this
+    // warp's keys of the softmax: 8 wq + 2t, + 1
+    {
+      float* pw = part + (wq * kRows + 16 * rg + g) * kPStride + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        *reinterpret_cast<float2*>(pw + 8 * n) = make_float2(sp[n][0], sp[n][1]);
+        *reinterpret_cast<float2*>(pw + 8 * kPStride + 8 * n) = make_float2(sp[n][2], sp[n][3]);
+      }
+    }
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f};  // rows g (0, 1) and g + 8 (2, 3) at keys 8 wq + 2t, + 1
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      const float* pr = part + (q4 * kRows + 16 * rg + g) * kPStride + 8 * wq + 2 * t;
+      const float2 lo = *reinterpret_cast<const float2*>(pr);
+      const float2 hi = *reinterpret_cast<const float2*>(pr + 8 * kPStride);
+      s[0] += lo.x, s[1] += lo.y, s[2] += hi.x, s[3] += hi.y;
     }
 
     // online softmax of rows g and g + 8 over the tile's 32 keys: the tile's
@@ -322,9 +363,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
     for (int i = 0; i < 4; ++i) s[i] = ex2(fmaf(s[i], p.scale_log2, -m_run[i / 2]));
     l_run[0] = fmaf(l_run[0], alpha[0], s[0] + s[1]);
     l_run[1] = fmaf(l_run[1], alpha[1], s[2] + s[3]);
-    float* pw = p_s + (16 * rg + g) * kPStride + 8 * wq + 2 * t;
-    *reinterpret_cast<float2*>(pw) = make_float2(s[0], s[1]);
-    *reinterpret_cast<float2*>(pw + 8 * kPStride) = make_float2(s[2], s[3]);
+    {  // (every warp has read the partials: it passed the barrier above)
+      float* pw = p_s + (16 * rg + g) * kPStride + 8 * wq + 2 * t;
+      *reinterpret_cast<float2*>(pw) = make_float2(s[0], s[1]);
+      *reinterpret_cast<float2*>(pw + 8 * kPStride) = make_float2(s[2], s[3]);
+    }
+
     mbar_wait(v_bar, tile & 1);  // this tile's V has landed
     __syncthreads();             // and P is written
 
@@ -339,23 +383,34 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
       const float a[4] = {p_lo.x, p_hi.x, p_lo.y, p_hi.y};
       split_frag(a, pb[ks], ps[ks]);
     }
+    // kGroup column tiles at a time, the key steps inside: kGroup independent
+    // mma chains in flight
     const float* vb = v_s + 2 * t * kVStride + 128 * wq + g;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (128 * wq + 8 * j < vw) {
-        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j0 = 0; j0 < 16; j0 += kGroup) {
+      if (128 * wq + 8 * j0 < vw) {
+        float pv[kGroup][4];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pv[j][i] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < kKeys / 8; ++ks) {
-          const float* vp = vb + 8 * ks * kVStride + 8 * j;
-          const float bv[2] = {vp[0], vp[kVStride]};
-          uint32_t bb[2], bs[2];
-          split_frag(bv, bb, bs);
-          mma_tf32(pv, ps[ks], bb);
-          mma_tf32(pv, pb[ks], bs);
-          mma_tf32(pv, pb[ks], bb);
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const float* vp = vb + 8 * ks * kVStride + 8 * (j0 + j);
+            const float bv[2] = {vp[0], vp[kVStride]};
+            uint32_t bb[2], bs[2];
+            split_frag(bv, bb, bs);
+            mma_tf32(pv[j], ps[ks], bb);
+            mma_tf32(pv[j], pb[ks], bs);
+            mma_tf32(pv[j], pb[ks], bb);
+          }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(acc[j][i], alpha[i / 2], pv[i]);
+        for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j0 + j][i] = fmaf(acc[j0 + j][i], alpha[i / 2], pv[j][i]);
       }
     }
   }
