@@ -295,7 +295,7 @@ def test_k1_fp32_on_card(gen, no_tf32, shape):
 # slices of 256 columns (264, 320, 512), three (640) and more (1024, 1600), in
 # fp32 one slice of 512 up to 512 and two at 516, 640 and 1024; keys !=
 # queries, the KL VAE's [1, 4096, 512] at 512x512, a d whose Q streams (1600
-# in bf16: past the ring's resident limit; 516 and up in fp32: past 512), and
+# in bf16: past the ring's resident limit; 640 and up in fp32: past 576), and
 # d off the 16-byte rows in bf16 (260 and 516: padded copies)
 _K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
             (2, 2, 256, 512, 640), (1, 1, 256, 192, 1600), (1, 2, 128, 192, 260),

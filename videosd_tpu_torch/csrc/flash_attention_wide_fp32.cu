@@ -80,22 +80,25 @@ using namespace sm90;
 constexpr int kRows = 32;     // query rows per block
 constexpr int kKeys = 32;     // keys per tile
 constexpr int kSlice = 512;   // output columns per block
-constexpr int kWarps = 8;     // two row groups x four key / column groups
-constexpr int kThreads = 32 * kWarps;
+constexpr int kWarps = 8;     // consumers: two row groups x four key / column groups
+constexpr int kThreads = 32 * (kWarps + 1);  // and a producer warp that issues the copies
 constexpr int kChunk = 128;                 // floats of depth per streamed chunk
-constexpr int kChunkStride = kChunk + 16;   // 16 mod 32
-constexpr int kVStride = kSlice + 4;        // 4 mod 32
+constexpr int kBoxK = 16;                   // floats per row of a K (or Q) box: the 64-byte swizzle
+constexpr int kBoxV = 32;                   // floats per row of a V box: the 128-byte swizzle
+constexpr int kChunkFloats = kKeys * kChunk;  // a K (or Q) chunk: 8 boxes of 32 rows
+constexpr int kVFloats = kKeys * kSlice;      // the V tile: 16 boxes of 32 rows
 constexpr int kPStride = kKeys + 8;         // 8 mod 32: S partials and P
 constexpr int kMaxSlots = 8;                // ring slots of depth chunks
 constexpr int kMinSlots = 4;                // kept beside a resident Q
 constexpr int kGroup = 4;                   // column tiles of P V in flight
 constexpr int kMaxDevices = 16;
-// dynamic shared memory: the V tile, the S partials of the four depth
-// quarters (P aliases their first 32 rows), then Q (resident at 32 rows of
-// q_stride, or streamed in the ring beside K), then the ring of depth chunks
+// dynamic shared memory, from a 1024-byte boundary (the swizzles' atoms): the
+// V tile, the ring of depth chunks (K's, then Q's when Q streams), the S
+// partials of the four depth quarters, P, and Q when it is resident (32 rows
+// of q_stride)
 constexpr int kPartFloats = 4 * kRows * kPStride;
-constexpr int kFixedSmem = 4 * (kKeys * kVStride + kPartFloats);
-constexpr int kChunkBytes = 4 * kKeys * kChunkStride;  // one K (or Q) chunk
+constexpr int kFixedSmem = 1024 + 4 * (kVFloats + kPartFloats + kRows * kPStride);
+constexpr int kChunkBytes = 4 * kChunkFloats;
 constexpr int kMaxSmem = 232448 - 1024;  // the block's limit, less room for the static arrays
 
 struct Plan {
@@ -128,15 +131,6 @@ struct Params {
   int slots;     // ring slots
   float scale_log2;
 };
-
-// Bulk copies of 32 rows of w floats from `src` (row stride `rs` floats) into
-// `dst` (row stride `stride` floats), counted on the mbarrier `bar`: lanes 0-3
-// of each warp copy a row each, so that no warp issues them all.
-__device__ __forceinline__ void copy_rows(float* dst, int stride, const float* src, long long rs,
-                                          int w, uint32_t bar) {
-  const int r = threadIdx.x / 32 * 4 + threadIdx.x % 32;
-  if (threadIdx.x % 32 < 4) bulk_load(smem_u32(dst + r * stride), src + r * rs, 4 * w, bar);
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -172,9 +166,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  __shared__ __align__(8) uint64_t bars[kMaxSlots + 2];  // the ring's, V's, Q's
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_fwd_fp32_kernel(const Params p, const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v) {
+  extern __shared__ unsigned char smem_raw[];
+  // the ring's full and empty barriers, V's full and empty, Q's
+  __shared__ __align__(8) uint64_t bars[2 * kMaxSlots + 3];
   __shared__ float red[2][4][16];  // [row group][key warp][row]: tile maxima, then row sums
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -195,54 +193,72 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
 
   const int n_items = n_tiles * nc;  // (key tile, depth chunk) pairs
 
-  float* v_s = reinterpret_cast<float*>(smem4);  // [kKeys][kVStride]
-  float* part = v_s + kKeys * kVStride;  // S partials [depth quarter][kRows][kPStride]
-  float* p_s = part;                     // P [kRows][kPStride], once the partials are summed
-  float* q_s = part + kPartFloats;       // resident Q: [kRows][q_stride]
-  // the ring: slot n holds item n's K chunk [kKeys][kChunkStride], then, when
-  // Q streams, its Q chunk [kRows][kChunkStride]
-  float* ring = q_s + (q_res ? kRows * p.q_stride : 0);
-  const int slot_floats = (q_res ? 1 : 2) * kKeys * kChunkStride;
+  // the V tile: 16 boxes of [kKeys][kBoxV] in the 128-byte swizzle; the ring:
+  // slot n holds item n's K chunk, 8 boxes of [kKeys][kBoxK] in the 64-byte
+  // swizzle, then, when Q streams, its Q chunk likewise
+  float* v_s = reinterpret_cast<float*>(smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                                                    smem_u32(smem_raw)));
+  float* ring = v_s + kVFloats;
+  const int slot_floats = (q_res ? 1 : 2) * kChunkFloats;
+  float* part = ring + slots * slot_floats;  // S partials [depth quarter][kRows][kPStride]
+  float* p_s = part + kPartFloats;           // P [kRows][kPStride]
+  float* q_s = p_s + kRows * kPStride;       // resident Q: [kRows][q_stride]
   const float* qg = p.q + (long long)b * p.q_bs + (long long)m0 * p.q_rs + (long long)h * p.d;
-  const float* kg = p.k + (long long)b * p.k_bs + (long long)h * p.d;
-  const float* vg = p.v + (long long)b * p.v_bs + (long long)h * p.d + c0;
-  const uint32_t full = smem_u32(&bars[0]);
-  const uint32_t v_bar = smem_u32(&bars[kMaxSlots]), q_bar = v_bar + 8;
+  const uint32_t full = smem_u32(&bars[0]), empty = full + 8 * kMaxSlots;
+  const uint32_t v_full = empty + 8 * kMaxSlots, v_empty = v_full + 8, q_bar = v_empty + 8;
 
   if (tid == 0) {
-    for (int i = 0; i < slots; ++i) mbar_init(full + 8 * i, 1);
-    mbar_init(v_bar, 1);
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kWarps);  // one arrival per consumer warp
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, kWarps);
     mbar_init(q_bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  // Item n: depth chunk n % nc of key tile n / nc (and of Q when it streams)
-  // into ring slot n % slots, completing phase n / slots of its barrier.
-  // Thread 0 announces the bytes; the copies may land before it does.
-  auto issue = [&](int item) {
-    const int tile = item / nc, c = item % nc;
-    const int w = min(kChunk, p.d - c * kChunk);
-    float* dst = ring + (item % slots) * slot_floats;
-    const uint32_t bar = full + 8 * (item % slots);
-    if (tid == 0) mbar_arrive_expect_tx(bar, (q_res ? 1 : 2) * 32 * w * 4);
-    copy_rows(dst, kChunkStride, kg + (long long)tile * kKeys * p.k_rs + c * kChunk, p.k_rs, w,
-              bar);
-    if (!q_res)
-      copy_rows(dst + kKeys * kChunkStride, kChunkStride, qg + c * kChunk, p.q_rs, w, bar);
-  };
-  // the V tile of key tile `tile`, into the one V buffer
-  auto load_v = [&](int tile) {
-    if (tid == 0) mbar_arrive_expect_tx(v_bar, kKeys * vw * 4);
-    copy_rows(v_s, kVStride, vg + (long long)tile * kKeys * p.v_rs, p.v_rs, vw, v_bar);
-  };
-
-  if (q_res && warp == 0) {  // Q once: a bulk copy per row
-    if (lane == 0) mbar_arrive_expect_tx(q_bar, kRows * p.d * 4);
-    __syncwarp();
-    bulk_load(smem_u32(q_s + lane * p.q_stride), qg + (long long)lane * p.q_rs, p.d * 4, q_bar);
+  if (warp == kWarps) {
+    // The producer: every copy is TMA, issued from this warp (issued from the
+    // consumers, each request held its warp ~55 cycles in the copy engine's
+    // queue, 30 % of the time).  Boxes of 32 rows; columns past d arrive as
+    // zeros.  Item n, depth chunk n % nc of key tile n / nc (and of Q when it
+    // streams), goes into ring slot n % slots and completes phase n / slots
+    // of its full barrier, once the consumers have emptied the slot; a key
+    // tile's V follows its last chunk, once the consumers are done with the
+    // last tile's.
+    if (q_res) {  // Q once: a bulk copy per row
+      if (lane == 0) mbar_arrive_expect_tx(q_bar, kRows * p.d * 4);
+      __syncwarp();
+      bulk_load(smem_u32(q_s + lane * p.q_stride), qg + (long long)lane * p.q_rs, p.d * 4, q_bar);
+    }
+    if (lane == 0) {
+      for (int item = 0; item < n_items; ++item) {
+        const int tile = item / nc, c = item % nc, slot = item % slots;
+        if (item >= slots) mbar_wait(empty + 8 * slot, (item / slots - 1) & 1);
+        const int boxes = (min(kChunk, p.d - c * kChunk) + kBoxK - 1) / kBoxK;
+        const uint32_t dst = smem_u32(ring + slot * slot_floats), bar = full + 8 * slot;
+        mbar_arrive_expect_tx(bar, (q_res ? 1 : 2) * boxes * kKeys * kBoxK * 4);
+        for (int i = 0; i < boxes; ++i) {
+          const uint32_t box = dst + 4 * i * kKeys * kBoxK;
+          tma_load_4d(box, &map_k, bar, c * kChunk + i * kBoxK, h, tile * kKeys, b);
+          if (!q_res) tma_load_4d(box + 4 * kChunkFloats, &map_q, bar, c * kChunk + i * kBoxK, h, m0, b);
+        }
+        if (c == nc - 1) {  // the tile's V
+          const int v_boxes = (vw + kBoxV - 1) / kBoxV;
+          if (tile > 0) mbar_wait(v_empty, (tile - 1) & 1);
+          mbar_arrive_expect_tx(v_full, v_boxes * kKeys * kBoxV * 4);
+          for (int i = 0; i < v_boxes; ++i)
+            tma_load_4d(smem_u32(v_s + i * kKeys * kBoxV), &map_v, v_full, c0 + i * kBoxV, h,
+                        tile * kKeys, b);
+        }
+      }
+    }
+    return;
   }
-  for (int n = 0; n < min(slots - 1, n_items); ++n) issue(n);
+  // the consumers' own barrier (the producer is not in it)
+  auto consumers_sync = [] { named_barrier_sync(1, 32 * kWarps); };
   if (q_res) mbar_wait(q_bar, 0);
 
   float acc[16][4];  // O: rows g, g + 8 of the row group at columns 128 wq + 8 j + 2t, + 1
@@ -264,17 +280,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
     for (int c = 0; c < nc; ++c) {
       const int item = tile * nc + c;
       mbar_wait(full + 8 * (item % slots), (item / slots) & 1);
-      // every thread is done with the previous item's slot (refilled next)
-      // and, at c == 0, with the last tile's V and P
-      __syncthreads();
-      if (item + slots - 1 < n_items) issue(item + slots - 1);
-      if (c == 0) load_v(tile);
       const float* slot = ring + (item % slots) * slot_floats;
       const int w = min(kChunk, p.d - c * kChunk);  // floats of depth in this chunk
-      const int qs = q_res ? p.q_stride : kChunkStride;
-      const float* qa = (q_res ? q_s + c * kChunk : slot + kKeys * kChunkStride) +
-                        (16 * rg + g) * qs + 32 * wq + 4 * t;
-      const float* kb = slot + g * kChunkStride + 32 * wq + 4 * t;
+      // boxes 2 wq + gi hold depths 32 wq + 16 gi ..; a thread's 16 bytes of
+      // row r sit at 16-byte position t ^ (r / 2 % 4), the 64-byte swizzle
+      // (rows 8 n + g and 16 rg + g (+ 8) all give (g / 2) % 4)
+      const int box_row = g * kBoxK + ((t ^ ((g >> 1) & 3)) << 2);
+      const float* kb = slot + 2 * wq * kKeys * kBoxK + box_row;
+      const int qs = q_res ? p.q_stride : kBoxK;  // row step; a box step is kRows * kBoxK
+      const float* qa = q_res ? q_s + c * kChunk + (16 * rg + g) * qs + 32 * wq + 4 * t
+                              : slot + kChunkFloats + 2 * wq * kRows * kBoxK + 16 * rg * kBoxK +
+                                    box_row;
+      const int q_box = q_res ? 16 : kRows * kBoxK;  // from depth group gi to gi + 1
       float bb[4][4], sm[4][4];  // [key tile][C fragment]: big*big, and the small terms
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -286,8 +303,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
         if (col >= w) break;
         const bool in = col + 4 * t < w;  // d is a multiple of 4: all in or all out
         const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 a_lo = in ? *reinterpret_cast<const float4*>(qa + 16 * gi) : z;
-        const float4 a_hi = in ? *reinterpret_cast<const float4*>(qa + 8 * qs + 16 * gi) : z;
+        const float4 a_lo = in ? *reinterpret_cast<const float4*>(qa + q_box * gi) : z;
+        const float4 a_hi = in ? *reinterpret_cast<const float4*>(qa + 8 * qs + q_box * gi) : z;
         // k-step 0: slots t and t + 4 hold depths 4t and 4t + 1; k-step 1: 4t + 2, 4t + 3
         const float a0[4] = {a_lo.x, a_hi.x, a_lo.y, a_hi.y};
         const float a1[4] = {a_lo.z, a_hi.z, a_lo.w, a_hi.w};
@@ -296,8 +313,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
         split_frag(a1, ab1, as1);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
-          const float4 bk =
-              in ? *reinterpret_cast<const float4*>(kb + 8 * n * kChunkStride + 16 * gi) : z;
+          const float4 bk = *reinterpret_cast<const float4*>(kb + (gi * kKeys + 8 * n) * kBoxK);
           const float b0[2] = {bk.x, bk.y};
           const float b1[2] = {bk.z, bk.w};
           uint32_t kb0[2], ks0[2], kb1[2], ks1[2];
@@ -311,6 +327,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
           mma_tf32(bb[n], ab1, kb1);
         }
       }
+      __syncwarp();  // every lane is done with the slot
+      if (lane == 0) mbar_arrive(empty + 8 * (item % slots));
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -326,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
         *reinterpret_cast<float2*>(pw + 8 * kPStride + 8 * n) = make_float2(sp[n][2], sp[n][3]);
       }
     }
-    __syncthreads();
+    consumers_sync();
     float s[4] = {0.f, 0.f, 0.f, 0.f};  // rows g (0, 1) and g + 8 (2, 3) at keys 8 wq + 2t, + 1
 #pragma unroll
     for (int q4 = 0; q4 < 4; ++q4) {
@@ -348,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
       red[rg][wq][g] = mx[0];
       red[rg][wq][g + 8] = mx[1];
     }
-    __syncthreads();
+    consumers_sync();
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -363,14 +381,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
     for (int i = 0; i < 4; ++i) s[i] = ex2(fmaf(s[i], p.scale_log2, -m_run[i / 2]));
     l_run[0] = fmaf(l_run[0], alpha[0], s[0] + s[1]);
     l_run[1] = fmaf(l_run[1], alpha[1], s[2] + s[3]);
-    {  // (every warp has read the partials: it passed the barrier above)
+    {
       float* pw = p_s + (16 * rg + g) * kPStride + 8 * wq + 2 * t;
       *reinterpret_cast<float2*>(pw) = make_float2(s[0], s[1]);
       *reinterpret_cast<float2*>(pw + 8 * kPStride) = make_float2(s[2], s[3]);
     }
 
-    mbar_wait(v_bar, tile & 1);  // this tile's V has landed
-    __syncthreads();             // and P is written
+    mbar_wait(v_full, tile & 1);  // this tile's V has landed
+    consumers_sync();             // and P is written
 
     // O[:, slice] = alpha O + P V[:, slice]: k slots t and t + 4 of k-step ks
     // hold keys 8 ks + 2t and 8 ks + 2t + 1
@@ -384,8 +402,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
       split_frag(a, pb[ks], ps[ks]);
     }
     // kGroup column tiles at a time, the key steps inside: kGroup independent
-    // mma chains in flight
-    const float* vb = v_s + 2 * t * kVStride + 128 * wq + g;
+    // mma chains in flight.  Column 128 wq + 8 j + g is float 8 (j % 4) + g of
+    // box 4 wq + j / 4: 16-byte chunk c = 2 (j % 4) + g / 4, which row r keeps
+    // at position c ^ (r % 8), the 128-byte swizzle; rows 2t (b0) and 2t + 1
+    // (b1) of a k-step
+    const float* vb = v_s + 4 * wq * kKeys * kBoxV + 2 * t * kBoxV + (g & 3);
+    int vx[4][2];  // [j % 4][b0, b1]: the swizzled chunk's float offset
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      vx[jj][0] = (2 * (jj ^ t) + (g >> 2)) << 2;
+      vx[jj][1] = kBoxV + ((2 * (jj ^ t) + ((g >> 2) ^ 1)) << 2);
+    }
 #pragma unroll
     for (int j0 = 0; j0 < 16; j0 += kGroup) {
       if (128 * wq + 8 * j0 < vw) {
@@ -398,8 +425,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
         for (int ks = 0; ks < kKeys / 8; ++ks) {
 #pragma unroll
           for (int j = 0; j < kGroup; ++j) {
-            const float* vp = vb + 8 * ks * kVStride + 8 * (j0 + j);
-            const float bv[2] = {vp[0], vp[kVStride]};
+            const float* vp = vb + (j0 + j) / 4 * kKeys * kBoxV + 8 * ks * kBoxV;
+            const float bv[2] = {vp[vx[(j0 + j) % 4][0]], vp[vx[(j0 + j) % 4][1]]};
             uint32_t bb[2], bs[2];
             split_frag(bv, bb, bs);
             mma_tf32(pv[j], ps[ks], bb);
@@ -413,6 +440,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
           for (int i = 0; i < 4; ++i) acc[j0 + j][i] = fmaf(acc[j0 + j][i], alpha[i / 2], pv[j][i]);
       }
     }
+    __syncwarp();  // every lane is done with V
+    if (lane == 0) mbar_arrive(v_empty);
   }
 
   // the row sums: over the four lanes of a row, then over the row group's four warps
@@ -426,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wide_fwd_fp32_kernel(const 
     red[rg][wq][g] = l_run[0];
     red[rg][wq][g + 8] = l_run[1];
   }
-  __syncthreads();
+  consumers_sync();
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -470,6 +499,30 @@ int videosd_flash_attention_wide_fp32_fwd(const void* q, const void* k, const vo
     configured[device] = true;
   }
   const Plan pl = plan(d);
+  // [batch, rows, heads, d] read in boxes of 32 rows x box floats of one head
+  auto tensor_map = [&](const void* ptr, long long bs, long long rs, int rows, int box,
+                        CUtensorMapSwizzle swizzle, CUtensorMap* out) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows,
+                                (cuuint64_t)batch};
+    const cuuint64_t gstrides[3] = {4ull * d, 4ull * rs, 4ull * (batch == 1 ? rows * rs : bs)};
+    const cuuint32_t boxes[4] = {(cuuint32_t)box, 1, 32, 1}, ones[4] = {1, 1, 1, 1};
+    return encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, gstrides,
+                  boxes, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
+  };
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = tensor_map(q, strides[0], strides[1], sq, kBoxK, CU_TENSOR_MAP_SWIZZLE_64B,
+                               &map_q);
+  if (err == cudaSuccess)
+    err = tensor_map(k, strides[2], strides[3], sk, kBoxK, CU_TENSOR_MAP_SWIZZLE_64B, &map_k);
+  if (err == cudaSuccess)
+    err = tensor_map(v, strides[4], strides[5], sk, kBoxV, CU_TENSOR_MAP_SWIZZLE_128B, &map_v);
+  if (err != cudaSuccess) return (int)err;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -483,7 +536,8 @@ int videosd_flash_attention_wide_fp32_fwd(const void* q, const void* k, const vo
   p.q_stride = pl.q_stride, p.slots = pl.slots;
   p.scale_log2 = sm_scale * 1.4426950408889634f;
   const dim3 grid(sq / kRows, (d + kSlice - 1) / kSlice, batch * heads);
-  flash_wide_fwd_fp32_kernel<<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(p);
+  flash_wide_fwd_fp32_kernel<<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
+      p, map_q, map_k, map_v);
   return (int)cudaGetLastError();
 }
 

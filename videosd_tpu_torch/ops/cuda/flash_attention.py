@@ -94,14 +94,14 @@ _ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 WIDE_SLICE = 256
 WIDE_SLOTS, WIDE_MIN_RING = 27, 8
 # the fp32 wide kernel: output columns and query rows per block; the bytes of
-# shared memory beside Q and the ring (a V tile of 32 x 516 floats, the S
-# partials of 4 x 32 x 40, which P aliases) and of one ring slot (a K chunk of
-# 32 x 144 floats: 128 of depth); Q resident while a ring of 4 slots fits
-# beside it within the block's limit less 1 KB of static arrays
+# shared memory beside Q and the ring (1 KB of alignment slack, a V tile of
+# 32 x 512 floats, the S partials of 4 x 32 x 40, which P aliases) and of one
+# ring slot (a K chunk of 32 x 128 floats); Q resident while a ring of 4 slots
+# fits beside it within the block's limit less 1 KB of static arrays
 # (flash_attention_wide_fp32.cu::plan)
 WIDE_SLICE_FP32, WIDE_ROWS_FP32 = 512, 32
 WIDE_FP32_FIXED_SMEM, WIDE_FP32_CHUNK_BYTES, WIDE_FP32_MIN_SLOTS = (
-    4 * (32 * 516 + 4 * 32 * 40), 4 * 32 * 144, 4)
+    1024 + 4 * (32 * 512 + 4 * 32 * 40), 4 * 32 * 128, 4)
 
 # attentions sent to the bf16 kernel, to the fp32 one, and to the wide
 # kernel's two dtypes, since the count was last set to 0 (read by chip_smoke.py)
@@ -209,7 +209,7 @@ def wide_fp32_q_resident(d: int) -> bool:
     """Whether the fp32 wide kernel keeps Q's 32 rows resident in shared
     memory (at a row stride of ``d`` rounded up to 32, plus 16) beside a ring
     of :data:`WIDE_FP32_MIN_SLOTS` K chunks, or streams them through the ring
-    beside K's: resident up to d = 512."""
+    beside K's: resident up to d = 576."""
     stride = -(-d // 32) * 32 + 16
     return (WIDE_FP32_FIXED_SMEM + 4 * WIDE_ROWS_FP32 * stride
             + WIDE_FP32_MIN_SLOTS * WIDE_FP32_CHUNK_BYTES <= SMEM_LIMIT - 1024)
