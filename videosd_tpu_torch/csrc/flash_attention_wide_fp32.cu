@@ -23,46 +23,51 @@
 // result stays near fp32 rounding, where one TF32 product (10-bit mantissa)
 // would be ~1e-3 off.  Each product is mma.sync.m16n8k8.tf32 with fragments
 // loaded from shared memory by each thread (wgmma would take V K-major only,
-// after a transpose in shared memory).  The tensor cores round each mma's
-// sum toward zero, so no accumulator runs long: the logits are summed in
-// fp32 per depth chunk, and P V per key tile before an fp32 fma into O (one
-// accumulator over 4096 keys was 2x over the mean bar).
+// after a transpose in shared memory).  The tensor cores' fp32 sums are
+// truncated, not rounded, so no accumulator runs long: the logits are summed
+// in fp32 per depth chunk, and P V per key tile before an fp32 fma into O
+// (one accumulator over 4096 keys missed the mean bar).
 //
 // What bounds it on the H100: 4 Sq Sk d flops per head; at [1, 4096, 512]
 // 34.4 GFLOP, which as 3 TF32 products run at 494.7 / 3 TFLOP/s: 0.208 ms,
-// far above the 17 MB of q, k, v and o (5 us).  Besides the tensor cores, the
-// kernel issues the splits and fragment loads (~5 instructions per mma) and
-// reads every K and V tile from L2 once per 32 query rows (2.1 GB at
-// [1, 4096, 512]).  So:
+// far above the 17 MB of q, k, v and o (5 us).  mma.sync reaches 316 of
+// those 495 TFLOP/s on an H100 (hw_probe.py), and beside it the kernel
+// issues the splits and fragment loads (~5 instructions per mma); every
+// block reads all of K and V from L2 (2.1 GB at [1, 4096, 512]).
+// So:
 //
 // * A block owns 32 query rows and a slice of up to 512 output columns:
-//   grid (Sq / 32, ceil(d / 512), B * H), 8 warps.  At the VAE's d = 512 the
-//   whole output sits in one block, so the logits are formed once per key
-//   tile, and one head at batch 1 still gives 128 blocks.  Above 512 each
-//   slice forms them again.
-// * Warp w = 4 rg + wq owns rows 16 rg .. 16 rg + 15.  In S = Q K^T over a
-//   key tile of 32 it forms all 32 keys (four m16n8 tiles) over a quarter of
-//   the depth, depths 32 wq .. 32 wq + 31 of every chunk, so that each A
-//   fragment it splits serves four products; the four quarters' partials
-//   meet in shared memory, where each warp sums keys 8 wq .. 8 wq + 7 for
-//   the softmax.  In O it owns the 16 x 128 columns 128 wq .. (16 m16n8
-//   accumulators, 64 registers).  The four warps of a row group trade their
-//   row maxima through shared memory; each forms the same running max.
+//   grid (Sq / 32, ceil(d / 512), B * H).  At the VAE's d = 512 the whole
+//   output sits in one block, so the logits are formed once per key tile,
+//   and one head at batch 1 still gives 128 blocks.  Above 512 each slice
+//   forms them again.
+// * Eight consumer warps do the arithmetic.  Warp w = 4 rg + wq owns rows
+//   16 rg .. 16 rg + 15.  In S = Q K^T over a key tile of 32 it forms all 32
+//   keys (four m16n8 tiles) over a quarter of the depth, depths 32 wq .. 32
+//   wq + 31 of every chunk, so that each A fragment it splits serves four
+//   products; the four quarters' partials meet in shared memory, where each
+//   warp sums keys 8 wq .. 8 wq + 7 for the softmax.  In O it owns the 16 x
+//   128 columns 128 wq .. (16 m16n8 accumulators, 64 registers), four
+//   column tiles' mma chains in flight at a time.  The four warps of a row
+//   group trade their row maxima through shared memory; each forms the same
+//   running max.  They meet at a named barrier, without the producer.
 // * The reduction order inside a k-step is free, so a thread's k slots t and
 //   t + 4 take depths 4t and 4t + 1 (then 4t + 2 and 4t + 3): one float4 per
-//   row serves two k-steps.  Row strides: Q and K 16 mod 32 floats (the
-//   float4 loads of a quarter warp hit distinct banks), V 4 mod 32 (keys
-//   2t and 2t + 1 at column g), P 8 mod 32.
-// * K streams in depth chunks of 128 floats through a ring of up to 8 slots,
-//   slots - 1 chunks ahead; the one V tile (32 keys x the slice, 64 KB at
-//   d = 512) loads while the tile's logits are formed.  Every row is a bulk
-//   copy (the copy engine writes shared memory without the load pipe: with
-//   cp.async from every thread the products ran 45 % slower, waits aside),
-//   lanes 0-3 of each warp issuing 4 of a tile's 32 rows, counted on the
-//   slot's mbarrier (one warp issuing all 32 rows made it the critical path:
-//   ~80 cycles a request).  Q stays
-//   resident in shared memory, loaded once, while a ring of 4 chunks fits
-//   beside it (d <= 512); a wider Q streams through the ring beside K.
+//   row serves two k-steps.
+// * A ninth warp, the producer, issues every copy as TMA (one thread:
+//   issued from the consumers, the requests held them at the copy engine's
+//   queue; and the copy engine writes shared memory without the load pipe,
+//   where cp.async from every thread slowed the products though they
+//   rarely waited for data).  K streams in depth chunks of 128 floats, as 8 boxes of 32 rows x
+//   16 floats in the 64-byte swizzle, through a ring of up to 8 slots
+//   handed over by full and empty mbarriers; a key tile's V (32 keys x the
+//   slice, 64 KB at d = 512), 16 boxes of 32 x 32 floats in the 128-byte
+//   swizzle, follows its last chunk once the consumers are done with the
+//   last tile's.  Columns past d arrive as zeros.  In these swizzles every
+//   fragment load of a quarter warp (K) or warp (V) hits distinct banks.
+//   Q stays resident in shared memory (32 rows at a stride of 16 mod 32
+//   floats, a bulk copy per row), loaded once, while a ring of 4 chunks
+//   fits beside it (d <= 576); a wider Q streams through the ring beside K.
 // * P goes through shared memory from the accumulator layout (columns 2t and
 //   2t + 1) to the A-fragment layout of P V (keys 2t and 2t + 1 for slots t
 //   and t + 4).
@@ -143,7 +148,7 @@ __device__ __forceinline__ float ex2(float x) {
 // big = x plus half a TF32 ulp, which the mma then reads as x rounded to
 // nearest with ties away (cvt.rna), and small = x - big, exact, which the
 // mma reads truncated.  Integer and fp32 ops only: two cvt.rna.tf32 per
-// value made the kernel 11 % slower at [1, 4096, 512] on an H100.
+// value made the kernel slower.
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = __float_as_uint(x) + 0x1000u;
   small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
@@ -190,7 +195,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nc = (p.d + kChunk - 1) / kChunk;  // depth chunks
   const int vw = min(kSlice, p.d - c0);        // columns of this slice below d
   const int n_tiles = p.sk / kKeys;
-
   const int n_items = n_tiles * nc;  // (key tile, depth chunk) pairs
 
   // the V tile: 16 boxes of [kKeys][kBoxV] in the 128-byte swizzle; the ring:
@@ -221,8 +225,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (warp == kWarps) {
     // The producer: every copy is TMA, issued from this warp (issued from the
-    // consumers, each request held its warp ~55 cycles in the copy engine's
-    // queue, 30 % of the time).  Boxes of 32 rows; columns past d arrive as
+    // consumers, the requests held them at the copy engine's queue).  Boxes
+    // of 32 rows; columns past d arrive as
     // zeros.  Item n, depth chunk n % nc of key tile n / nc (and of Q when it
     // streams), goes into ring slot n % slots and completes phase n / slots
     // of its full barrier, once the consumers have emptied the slot; a key
@@ -242,8 +246,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive_expect_tx(bar, (q_res ? 1 : 2) * boxes * kKeys * kBoxK * 4);
         for (int i = 0; i < boxes; ++i) {
           const uint32_t box = dst + 4 * i * kKeys * kBoxK;
-          tma_load_4d(box, &map_k, bar, c * kChunk + i * kBoxK, h, tile * kKeys, b);
-          if (!q_res) tma_load_4d(box + 4 * kChunkFloats, &map_q, bar, c * kChunk + i * kBoxK, h, m0, b);
+          const int col = c * kChunk + i * kBoxK;
+          tma_load_4d(box, &map_k, bar, col, h, tile * kKeys, b);
+          if (!q_res) tma_load_4d(box + 4 * kChunkFloats, &map_q, bar, col, h, m0, b);
         }
         if (c == nc - 1) {  // the tile's V
           const int v_boxes = (vw + kBoxV - 1) / kBoxV;
@@ -437,7 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < kGroup; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j0 + j][i] = fmaf(acc[j0 + j][i], alpha[i / 2], pv[j][i]);
+          for (int i = 0; i < 4; ++i)
+            acc[j0 + j][i] = fmaf(acc[j0 + j][i], alpha[i / 2], pv[j][i]);
       }
     }
     __syncwarp();  // every lane is done with V
@@ -468,7 +474,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     if (128 * wq + 8 * j + 2 * t < vw) {  // d is a multiple of 4: a column pair is in or out
-      *reinterpret_cast<float2*>(og + 8 * j) = make_float2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+      *reinterpret_cast<float2*>(og + 8 * j) =
+          make_float2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
       *reinterpret_cast<float2*>(og + 8 * p.o_rs + 8 * j) =
           make_float2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
     }

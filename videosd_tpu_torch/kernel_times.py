@@ -12,6 +12,10 @@ kernel and memset a call issues, median of three sessions of 20 calls):
 * K1, ``flash_attention`` in bf16 on ``[1, S, 8*d]`` tensors at the sd15
   512x512 main path's three shapes, and in fp32 on one head of d = 512 at
   the KL VAE's [1, 4096, 512] and [4, 4096, 512] (the wide fp32 kernel);
+* the sd15 KL VAE (``models/vae.py``, published widths, weights from torch's
+  default init under seed 0) in fp32, TF32 off: one encode of a 512x512
+  frame and one decode of its 64x64 latent, all its kernels (two of them
+  the wide fp32 kernel);
 * K2, ``fused_preprocess`` of a uint8 frame at 512x512, 768x768, 480x640
   and 1080x1920, with its device operations per call.
 
@@ -59,6 +63,7 @@ def main() -> None:
     sys.path.insert(0, root)
     import torch
 
+    from videosd_tpu_torch.models.vae import VAE_PRESETS, AutoencoderKL, vae_decode, vae_encode
     from videosd_tpu_torch.ops.cuda import flash_attention as fa
     from videosd_tpu_torch.ops.cuda import preprocess_kernel as k2
 
@@ -77,6 +82,16 @@ def main() -> None:
         ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=1))
         print(json.dumps({"tree": tree, "kernel": "K1 wide fp32", "shape": [b, s, d],
                           "device_ms": ms, "device_ops_per_call": ops}))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    vae = AutoencoderKL(VAE_PRESETS["sd15"]).cuda().float().eval()
+    x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
+    with torch.inference_mode():
+        ms, ops = _device(torch, lambda: (vae_encode(vae, x), vae_decode(vae, z)))
+    print(json.dumps({"tree": tree, "kernel": "KL VAE fp32 encode + decode",
+                      "shape": [1, 512, 512, 3], "device_ms": ms, "device_ops_per_call": ops}))
+    del vae
     for hw in K2_SHAPES:
         frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
         ms, ops = _device(torch, lambda: k2.fused_preprocess(frame))
