@@ -13,7 +13,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    16, d below its instance's width, d off the 16-byte rows, the widest),
    with the heads read in place beside heads of large values, and the
    in-place ``[B, S, H*D]`` entry against the folded one; then its fp32
-   kernel against the plain version in fp32; then K1 above d = 256 (the
+   kernel (3xTF32, ``csrc/flash_attention_fp32.cu``) at the fp32 sd15
+   frame's three shapes and every kind of head dim, against the plain
+   version computed in fp64; then K1 above d = 256 (the
    wide kernel, ``csrc/flash_attention_wide.cu``) at d = 264, 320, 512
    (the KL VAE's [1, 4096, 512] and [4, 4096, 512]) and 640 in bf16 and
    fp32 (the fp32 heads on ``csrc/flash_attention_wide_fp32.cu``, whose
@@ -57,6 +59,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of its VAE at 512x512 through the wide fp32 kernel against the plain
    attention; one ``tiled_decode`` of a 128x128 latent grid (nine 64-latent
    tiles, one wide launch each);
+6a''. the fp32 parity frame: a random sd15 bundle in fp32 with ControlNet
+   and the KL VAE (the configuration of ``videosd_tpu/tools/parity.py``),
+   the 512x512 4-step frame through ``build_frame_program``: two replayed
+   calls equal to the eager ``frame_program`` bit for bit, exactly 86 fp32
+   K1 launches per frame at capture (84 on K1's fp32 kernel, 2 on the wide
+   fp32 kernel), replayed ms/frame and peak memory;
 6b. production: the phase-5 bundle through the five FrameSpec variants
    that ``bench.py`` measures (ControlNet and DeepCache intervals,
    temporal DeepCache produce/reuse), each with its exact K1 launch count
@@ -94,7 +102,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     of the replayed frame, and device time by class of operation (K1,
     GEMMs, convolutions, layout transposes, copies and casts, elementwise,
     reductions, norms, softmax); then the same over two replayed KL
-    frames.
+    frames, and over two replayed fp32 parity frames (K1's fp32 device ms
+    per frame).
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
@@ -172,15 +181,15 @@ K1_EXTRA = [(1, 8, 4096, 8192, 40), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 8
 K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
                 (1, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
                 (1, 2, 256, 256, 256)]
-# K1's fp32 kernel: the main path's longest shape, the tiny family's shapes at
-# 256^2, and the same kinds of head dim as above
-K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16),
-           (1, 4, 256, 512, 20), (1, 8, 1024, 2048, 72), (1, 2, 256, 256, 256)]
+# K1's fp32 kernel: the fp32 sd15 frame's three shapes, the tiny family's
+# shapes at 256^2, and the same kinds of head dim as above
+K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
+           (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16), (1, 4, 256, 512, 20),
+           (1, 8, 1024, 2048, 72), (1, 2, 256, 256, 256)]
 # the shapes timed beside their bounds: the main path's three, and the tiny
 # family's two at 256^2 (d = 8 and 16), in each dtype
-K1_TIMED = {"bf16": [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
-                     (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)],
-            "fp32": [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)]}
+K1_TIMED = {kind: [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
+                   (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)] for kind in ("bf16", "fp32")}
 # K1 above d = 256 (the wide kernels), as (B, H, Sq, Sk, d), in bf16 and fp32
 # with loud neighbours where H = 2: in bf16 two column slices (264, 320, 512)
 # and three (640), in fp32 one (up to 512) and two (640, Q streamed), keys !=
@@ -214,12 +223,12 @@ NUM_SMS, FFMA_LANES_PER_SM, EXP_PER_CLOCK_PER_SM = 132, 128, 16
 # kernel that ran its products in TF32 (10-bit mantissa) is ~1e-3 relative
 # off, 60x over the mean bar
 FP32_MAX_REL, FP32_MEAN_REL = 2.0 ** -13, 2.0 ** -16
-# ... except K1's wide fp32 kernel, held to the same bars from the plain
-# version computed in fp64 and rounded to fp32: its 3xTF32 products round
+# ... except K1's two fp32 kernels, held to the same bars from the plain
+# version computed in fp64 and rounded to fp32: their 3xTF32 products round
 # unlike cuBLAS's fp32 ones, and on loud heads (logits 64x larger, a peaked
 # softmax) the fp32 plain version is itself up to a bar off the exact result
 # (phase 3 prints both: at [2,2,256,512,640] on an H100 the fp32 plain
-# version was 1.08 bars from fp64, the kernel 0.08)
+# version was 1.08 bars from fp64, the wide kernel 0.08)
 # bf16 bar of K1 against its plain version, relative to the outputs (with
 # randn inputs |o| shrinks as the keys grow: ~0.02 at 4096 keys): both round
 # the output to bf16 (half an ulp, 2^-9 relative, each) and they round P at
@@ -237,6 +246,11 @@ K1_PER_FRAME = 84
 # the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
 # decode on the wide kernel
 K1_KL_PER_FRAME = {"flash_attention": K1_PER_FRAME, "flash_attention_wide": 2}
+# the same frame from an fp32 bundle (the configuration of
+# videosd_tpu/tools/parity.py): the 84 on K1's fp32 kernel, the VAE's 2 on
+# the wide fp32 kernel
+K1_FP32_PER_FRAME = {"flash_attention_fp32": K1_PER_FRAME, "flash_attention_wide_fp32": 2}
+FP32_FRAMES = 5
 # tiny fp32 checkpoint, CUDA against CPU: cuDNN and the CPU sum in other
 # orders (fp32, TF32 off); latents are O(1), so 1e-3 absolute is ~1e4 ulps
 # of drift over two denoise steps, and images may move by one level
@@ -514,8 +528,8 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
     ref = unfold(fa.flash_attention_reference(qf, kf, vf, scale))
     name = f"[{b},{h},{sq},{sk},{d}]"
     same = torch.equal(unfold(folded), out)
-    if dtype == torch.float32 and d > fa.MAX_HEAD_DIM:
-        # the 3xTF32 kernel against the plain version computed exactly (fp64,
+    if dtype == torch.float32:
+        # the 3xTF32 kernels against the plain version computed exactly (fp64,
         # then rounded): on loud heads the fp32 plain version's own logits
         # are off by up to a bar (the note at FP32_MAX_REL); its distance is printed
         exact = unfold(_attention_fp64(qf, kf, vf, scale))
@@ -525,13 +539,11 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
                 f"{mean_bar:.3e}: 2^-16 of mean|o|) from the plain version in fp64; from the "
                 f"fp32 plain version max|d| {off[1]:.3e}, mean|d| {off[2]:.3e}, which is "
                 f"max|d| {fp32_within_bar(ref, exact)[1]:.3e} from fp64")
-        plan = ("fp32, the wide kernel, 3xTF32, Q "
-                f"{'resident' if fa.wide_fp32_q_resident(d) else 'streamed'}")
-    elif dtype == torch.float32:
-        ok, mx, mean, max_bar, mean_bar = fp32_within_bar(out, ref)
-        bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: 2^-13 of max|o|) mean|d| {mean:.3e} (bar "
-                f"{mean_bar:.3e}: 2^-16 of mean|o|)")
-        plan = "fp32, 64 rows/block"
+        plan = (("fp32, the wide kernel, 3xTF32, Q "
+                 f"{'resident' if fa.wide_fp32_q_resident(d) else 'streamed'}")
+                if d > fa.MAX_HEAD_DIM else
+                (f"fp32, 3xTF32, {fa.fp32_block_rows(d)} rows/block on the "
+                 f"{fa.fp32_instance_width(d)}-wide instance, {fa.fp32_stages(d)} stages"))
     else:
         ok, mx, mean, max_bar, mean_bar = k1_within_bar(out, ref)
         bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: {K1_MAX_ULPS} ulps of the largest output) "
@@ -648,7 +660,7 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
             tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
             if (b, h, sq, sk, d) in K1_TIMED[kind]:
                 per_shape.append(row)
-            if kind == "fp32" or (sq == sk and b == 1 and (h, sq, d) in K1_SHAPES):
+            if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:
                 main_rows.append(row)
             if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
                 # every number of rows per block the kernel can run this shape with,
@@ -1570,6 +1582,56 @@ def phase_kl(card: str) -> dict:
             "replay_ms": replay_ms}
 
 
+def phase_fp32_frame(card: str) -> dict:
+    """The fp32 parity frame: a random sd15 bundle in fp32 with ControlNet
+    and the KL VAE (the configuration of videosd_tpu/tools/parity.py), the
+    512x512 4-step frame through build_frame_program: two replayed calls
+    equal to the eager frame_program bit for bit, K1_FP32_PER_FRAME
+    launches per frame at capture (counted from 0 just before), the
+    replayed ms/frame (before any profiler session) and the peak memory."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd15", dtype=torch.float32, device="cuda", with_kl_vae=True)
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4,
+                                                    vae="kl"))
+    rng = np.random.default_rng(11)
+    frames = [torch.from_numpy(rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda()
+              for _ in range(2)]
+    args = ([0.6], [5.0], [2.0])
+    torch.cuda.synchronize()
+    print(f"sd15 fp32 bundle with ControlNet and the KL VAE + prompt: "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    counted = {}
+    got = _replay_vs_eager("sd15 512x512 4-step CN+KL fp32", program,
+                           [((frames[i], embeds, *args, [23 + i]), {}) for i in range(2)],
+                           K1_FP32_PER_FRAME, counted)
+    _check_frame("fp32 KL frame", got[-1])
+    if got[-1][1].dtype != torch.float32:
+        fail(f"the fp32 frame's latents are {got[-1][1].dtype}")
+    want = {k: 2 * n for k, n in K1_FP32_PER_FRAME.items()}  # warm-up and capture
+    if {k: n for k, n in counted.items() if n} != want:
+        fail(f"the fp32 frame launched {counted} in its warm-up and capture, expected {want}")
+    ms = []
+    for i in range(FP32_FRAMES):
+        t0 = time.perf_counter()
+        program(frames[i % 2], embeds, *args, [30 + i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    replay_ms = statistics.median(ms)
+    (bucket,) = program.buckets.values()
+    print(f"sd15 512x512 4-step CN+KL fp32 batch 1 on {card}, CUDA graph replays: median "
+          f"{replay_ms:.2f} ms/frame over {FP32_FRAMES} frames (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}); warm-up + capture {bucket.capture_s:.2f} s; peak allocated "
+          f"{peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} GiB the earlier phases hold)")
+    return {"program": program, "embeds": embeds, "frame": frames[0], "args": (*args, [23]),
+            "launches": counted["flash_attention_fp32"], "replay_ms": replay_ms}
+
+
 # the bench's window sizes for one short pass through its code
 BENCH_SHORT = {"windows": 1, "frames": 3, "latency_frames": 3, "batch4_frames": 2,
                "temporal_frames": 4}
@@ -1723,6 +1785,14 @@ def phase_kl_profile(card: str, kl: dict) -> None:
                     {"flash_fwd_kernel": K1_PER_FRAME, "flash_wide_fwd_kernel": 2})
 
 
+def phase_fp32_profile(card: str, fp32: dict) -> None:
+    """The same over two replayed fp32 parity frames: K1's fp32 kernel 84
+    times, the wide fp32 kernel twice, and their device ms per frame."""
+    program, embeds, frame, args = fp32["program"], fp32["embeds"], fp32["frame"], fp32["args"]
+    _profile_frames(card, "fp32 CN+KL", lambda: program(frame, embeds, *args), fp32["replay_ms"],
+                    {"flash_fwd_fp32_kernel": K1_PER_FRAME, "flash_wide_fwd_fp32_kernel": 2})
+
+
 def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -> None:
     """Profiles two calls of ``call``; ``want``: kernels per frame by a
     substring of their names."""
@@ -1769,7 +1839,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     k1_err, k1_fp32_err, k1_wide_err, k1_wide_fp32_err = phase_k1()
-    k1_fp32_launches = phase_tiny() + phase_tiny_kl()
+    print(f"K1 fp32 launches in the tiny paths (warm-ups and captures): "
+          f"{phase_tiny() + phase_tiny_kl()}")
     k1_launches, main = phase_main(card)
     k3_launches, pallas_program = phase_taesd_pallas(card, main)
     programs, replay_ms = phase_graph(card, main, pallas_program)
@@ -1777,6 +1848,7 @@ def main() -> None:
     phase_engine_call(card, main)
     del programs, pallas_program
     kl = phase_kl(card)
+    fp32_frame = phase_fp32_frame(card)
     phase_bench(main[0])
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k2_res = phase_k2(card, clock)
@@ -1786,6 +1858,7 @@ def main() -> None:
     k3_fp32_launches = phase_taesd_routes(card, main[0])
     phase_profile(card, main, replay_ms)
     phase_kl_profile(card, kl)
+    phase_fp32_profile(card, fp32_frame)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1793,7 +1866,7 @@ def main() -> None:
          "launches": k1_launches, "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
-         "launches": k1_fp32_launches, "max_abs_err": k1_fp32_err, **k1_fp32_times},
+         "launches": fp32_frame["launches"], "max_abs_err": k1_fp32_err, **k1_fp32_times},
         {"name": "flash_attention_wide", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
          "launches": kl["launches"], "max_abs_err": k1_wide_err, **k1_wide_times},

@@ -413,3 +413,42 @@ def test_every_head_dim_has_an_instance_and_a_plan():
     for d in (0, FA.MAX_HEAD_DIM + 1):
         with pytest.raises(ValueError, match="head dim"):
             FA.instance_width(d)
+
+
+@pytest.mark.parametrize("d, width, rows, stages", [
+    (8, 8, 64, 8), (16, 16, 64, 8),  # the tiny family's heads: a deep ring, two blocks an SM
+    (20, 40, 64, 3), (40, 40, 64, 3),  # sd15 down0/up3: two blocks an SM
+    (64, 64, 64, 6), (72, 80, 64, 4), (80, 80, 64, 4), (128, 128, 64, 5),
+    (160, 160, 16, 5), (200, 256, 16, 3), (256, 256, 16, 3),
+])
+def test_fp32_plan(d, width, rows, stages):
+    """The fp32 kernel's plan (``flash_attention_fp32.cu::Shape``): the
+    instance, query rows per block (64 up to the 128-wide instance, 16
+    above) and the K/V stages beside the resident Q, at least 3 within the
+    shared memory of the blocks an SM holds (two up to 40 wide).  At sd15's
+    [8, 256, 160] the grid is 128 blocks; ``_launch`` takes no other plan."""
+    assert FA.fp32_instance_width(d) == width
+    assert FA.fp32_block_rows(d) == rows
+    assert FA.fp32_stages(d) == stages
+    keys = 32 if width >= 128 else 64
+    stage = 4 * keys * (16 * -(-width // 16) + 32 * -(-width // 32))
+    smem = 1024 + stages * stage + 4 * 16 * -(-width // 16) * rows
+    blocks = 2 if width <= 40 else 1
+    assert FA.FP32_MIN_STAGES <= stages <= FA.FP32_MAX_STAGES
+    assert blocks * (smem + 3072 + 1024) <= FA.SMEM_PER_SM and smem + 3072 <= FA.SMEM_LIMIT
+    if d == 160:
+        assert 256 // rows * 8 == 128
+    with pytest.raises(ValueError, match="head dim"):
+        FA.fp32_instance_width(257)
+
+
+def test_every_head_dim_has_an_fp32_instance():
+    """Every d from 1 to 256 (padded to a multiple of 4 where the wrapper
+    pads it) runs on an fp32 instance at least as wide, with a ring of at
+    least 3 stages."""
+    for d in range(1, FA.MAX_HEAD_DIM + 1):
+        dp = -(-d // 4) * 4
+        w = FA.fp32_instance_width(dp)
+        assert w in FA.FP32_WIDTHS and w >= dp
+        assert FA.fp32_stages(dp) >= FA.FP32_MIN_STAGES
+        assert FA.fp32_block_rows(dp) in (16, 64)

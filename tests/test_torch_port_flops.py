@@ -154,7 +154,7 @@ def test_sd15_kl_frame_pads_the_wide_attention():
 
 def test_fp32_kl_frame_forms_the_wide_logits_once():
     """sd15 512x512 with the KL VAE in fp32: the fp32 kernels run every
-    product at its logical width (d = 40 in 16-byte rows of 4, and the VAE's
+    product at its logical width (d = 40 in k-steps of 8, and the VAE's
     d = 512 in one slice of 512 columns: Q·Kᵀ once), so padded = logical."""
     meta = P.ModelBundle.random("sd15", dtype=torch.float32, device="meta", with_kl_vae=True)
     kl = PF.frame_flops(meta, P.FrameSpec(height=512, width=512, steps=4, vae="kl"))
@@ -164,7 +164,7 @@ def test_fp32_kl_frame_forms_the_wide_logits_once():
 @pytest.mark.parametrize("d, dtype, width", [
     (40, torch.bfloat16, 48), (80, torch.bfloat16, 80), (160, torch.bfloat16, 160),
     (8, torch.bfloat16, 16), (24, torch.bfloat16, 48), (72, torch.bfloat16, 80),
-    (256, torch.bfloat16, 256), (8, torch.float32, 8), (20, torch.float32, 20),
+    (256, torch.bfloat16, 256), (8, torch.float32, 8), (20, torch.float32, 24),
     (6, torch.float32, 8), (512, torch.bfloat16, 768), (512, torch.float32, 512),
     (264, torch.bfloat16, 480), (264, torch.float32, 268), (640, torch.bfloat16, 1280),
     (516, torch.float32, 788), (640, torch.float32, 960),

@@ -15,8 +15,8 @@ bf16 ulp of the largest output and mean |d| <= 1e-5 (both round fp32 sums of
 exact bf16 products once, in different summation orders).  The fp32 kernels
 of K1 and K3 within 2^-13 of the largest output and 2^-16 of the mean
 |output| of their fp32 plain versions, TF32 off (fp32 sums in other orders,
-~1e-6 relative; TF32 products would be ~1e-3 off); K1's wide fp32 kernel (3xTF32)
-within the same bars of its plain version computed in fp64.
+~1e-6 relative; TF32 products would be ~1e-3 off); K1's two fp32 kernels
+(3xTF32) within the same bars of their plain version computed in fp64.
 """
 
 import pytest
@@ -273,20 +273,34 @@ def test_k1_every_head_dim_on_card(gen, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 8, 4096, 4096, 40), (1, 4, 1024, 1024, 8),
+@pytest.mark.parametrize("shape", [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80),
+                                   (1, 8, 256, 256, 160), (1, 4, 1024, 1024, 8),
                                    (1, 4, 256, 512, 16), (2, 4, 256, 256, 20),
                                    (1, 8, 1024, 2048, 72), (1, 2, 256, 256, 256)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_k1_fp32_on_card(gen, no_tf32, shape):
-    """K1's fp32 kernel, heads in place beside loud neighbours, one launch
-    per attention, equal bit for bit to the folded entry."""
+    """K1's fp32 kernel (3xTF32) at the sd15 frame's three shapes and every
+    kind of head dim, heads in place beside loud neighbours, one launch per
+    attention, within the fp32 bars of the plain version computed in fp64
+    (on loud heads the fp32 plain version is itself up to a bar off),
+    equal bit for bit to the folded entry; its rows per block the only
+    plan taken."""
     b, h, sq, sk, d = shape
     q, k, v = _loud_heads(gen, b, h, sq, sk, d, torch.float32)
     before = FA.launches_fp32, FA.launches
     out = FA.flash_attention(q, k, v, num_heads=h)
     torch.cuda.synchronize()
     assert (FA.launches_fp32, FA.launches) == (before[0] + 1, before[1])
-    _assert_fp32_close(out, _folded_reference(q, k, v, h))
+    _assert_fp32_close(out, _folded_reference(q, k, v, h, exact=True))
+
+    def fold(x):
+        return x.reshape(b, x.shape[1], h, d).transpose(1, 2).reshape(b * h, x.shape[1], d)
+
+    folded = FA.flash_attention_bhsd(fold(q).contiguous(), fold(k).contiguous(),
+                                     fold(v).contiguous(), d ** -0.5)
+    assert torch.equal(folded.reshape(b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d), out)
+    rows = FA.fp32_block_rows(d)
+    assert torch.equal(FA._launch(q, k, v, h, d ** -0.5, block_m=rows), out)
     with pytest.raises(ValueError, match="rows per block"):
         FA._launch(q, k, v, h, d ** -0.5, block_m=128)
 

@@ -1,7 +1,7 @@
-"""The numerics of K1's fp32 wide kernel (``csrc/flash_attention_wide_fp32.cu``),
-emulated on the CPU.
+"""The numerics of K1's fp32 kernels (``csrc/flash_attention_fp32.cu``, d <=
+256, and ``csrc/flash_attention_wide_fp32.cu``), emulated on the CPU.
 
-The kernel runs both products of attention on the tensor cores in 3xTF32:
+Both kernels run both products of attention on the tensor cores in 3xTF32:
 each fp32 operand x splits into big = tf32(x), rounded to nearest with ties
 away from zero at a 10-bit mantissa (as ``cvt.rna.tf32.f32``), and small =
 x - big (exact), which the mma reads truncated to TF32; each product is
@@ -12,9 +12,18 @@ head dim, and is held to ``chip_smoke.py``'s fp32 bars (2^-13 of max |out|,
 2^-16 of mean |out|) against the port's plain version and JAX's
 ``_attention_xla``.  One TF32 product per product must miss the same bars:
 the bars tell the two apart before any card runs the kernel.
+
+The d <= 256 kernel is also emulated in its own accumulation order
+(:func:`kernel_attention`): each mma adds one k-step's exact products to its
+accumulator and truncates the sum to fp32, as the tensor cores do; a key
+tile's logits are summed per depth chunk of 32 and the chunks added in fp32;
+P V is summed per key tile into a partial that one fp32 fma adds to O; up to
+the 128-wide instance each half of a key tile feeds its own softmax state,
+and the two merge at the end.
 """
 
 import importlib.util
+import math
 import os
 
 import jax.numpy as jnp
@@ -119,5 +128,106 @@ def test_3xtf32_attention_holds_the_fp32_bar(loud):
     one = attention(tq, tk, tv, matmul_1xtf32)
     assert torch.isfinite(three).all() and three.shape == plain.shape
     for ref in (plain, jax_out):
+        assert _within(three, ref, *bars)
+        assert not _within(one, ref, *bars)
+
+
+def _rz(x):
+    """fp64 ``x`` to fp32, rounded toward zero: how the tensor cores round
+    the fp32 sum an mma adds into its accumulator."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_chain(acc, a, b, products):
+    """``acc`` += a @ b over one k-step of 8 as the kernel issues it: three
+    mma (small*big, big*small, big*big) or, with ``products`` 1, big*big
+    alone; each mma's sum truncated to fp32."""
+    ab, bb = tf32(a), tf32(b)
+    terms = [(ab, bb)] if products == 1 else [
+        (truncated(a - ab), bb), (ab, truncated(b - bb)), (ab, bb)]
+    for x, y in terms:
+        acc = _rz(acc.double() + x.double() @ y.double())
+    return acc
+
+
+def _fma(a, b, c):
+    """fp32 a * b + c with one rounding (fmaf)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def kernel_attention(q, k, v, products=3):
+    """softmax(q k^T d^-1/2) v on ``[H, S, d]`` fp32 tensors in the d <= 256
+    kernel's order: key tiles of 64 (32 from the 128-wide instance), whose
+    two halves go to two softmax states up to the 128-wide instance (one
+    state over whole tiles above); depth padded to 8 with zeros; a state's
+    logits summed per depth chunk of 32 and the chunks added in fp32, the
+    online softmax in the log2 domain, and P V summed over the state's keys
+    of a tile before O = fma(O, alpha, P V); the two states rescaled to the
+    larger max and added at the end."""
+    d = q.shape[-1]
+    w = FA.fp32_instance_width(d)
+    halves = 1 if w > 128 else 2
+    step = (32 if w >= 128 else 64) // halves  # keys a state takes from each tile
+    dp = -(-d // 8) * 8
+    q, k = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k))
+    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    h, sq = q.shape[:2]
+    states = [[torch.full((h, sq, 1), -math.inf), torch.zeros(h, sq, 1), torch.zeros(h, sq, d)]
+              for _ in range(halves)]
+    for i, j in enumerate(range(0, k.shape[1], step)):
+        state = states[i % halves]
+        m, l, o = state
+        kt, vt = k[:, j:j + step], v[:, j:j + step]
+        s = torch.zeros(h, sq, step)
+        for c in range(0, dp, 32):
+            part = torch.zeros(h, sq, step)
+            for ks in range(c, min(c + 32, dp), 8):
+                part = _mma_chain(part, q[..., ks:ks + 8], kt[..., ks:ks + 8].transpose(1, 2),
+                                  products)
+            s = s + part
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(_fma(s, scale_log2, -m_new))
+        pv = torch.zeros(h, sq, d)
+        for ks in range(0, step, 8):
+            pv = _mma_chain(pv, p[..., ks:ks + 8], vt[:, ks:ks + 8], products)
+        state[:] = m_new, _fma(l, alpha, p.sum(-1, keepdim=True)), _fma(o, alpha, pv)
+    m, l, o = states[0]
+    if halves == 2:
+        m2, l2, o2 = states[1]
+        top = torch.maximum(m, m2)
+        mine, theirs = torch.exp2(m - top), torch.exp2(m2 - top)
+        l, o = _fma(l2, theirs, l * mine), _fma(o2, theirs, o * mine)
+    return o * torch.where(l == 0, 1.0, 1.0 / l)
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 80, 160, 256])
+def test_kernel_order_holds_the_fp32_bar(d):
+    """Two heads of [64 queries, 256 keys] at each head dim the sd15 and
+    tiny families send the d <= 256 fp32 kernel (and the widest), the second
+    head loud (q and k 8x, v / 8: a peaked softmax), emulated in the
+    kernel's accumulation order: 3xTF32 within chip_smoke.py's fp32 bars of
+    the plain version computed in fp64 and of JAX's ``_attention_xla``, one
+    TF32 product per product not."""
+    smoke = _smoke()
+    bars = smoke.FP32_MAX_REL, smoke.FP32_MEAN_REL
+    rng = np.random.default_rng(d)
+    h, sq, sk = 2, 64, 256
+    q, k, v = (rng.standard_normal((1, n, h, d)).astype(np.float32) for n in (sq, sk, sk))
+    q[:, :, 1] *= 8.0
+    k[:, :, 1] *= 8.0
+    v[:, :, 1] /= 8.0
+    heads = [torch.from_numpy(np.ascontiguousarray(x[0].transpose(1, 0, 2))) for x in (q, k, v)]
+    exact = torch.softmax(heads[0].double() @ heads[1].double().transpose(1, 2) * d ** -0.5,
+                          dim=-1) @ heads[2].double()
+    jax_out = np.array(_attention_xla(*(jnp.asarray(x.reshape(1, x.shape[1], h * d))
+                                        for x in (q, k, v)), h))
+    jax_heads = torch.from_numpy(jax_out.reshape(sq, h, d).transpose(1, 0, 2).copy())
+    three = kernel_attention(*heads)
+    one = kernel_attention(*heads, products=1)
+    assert torch.isfinite(three).all() and three.shape == (h, sq, d)
+    for ref in (exact.float(), jax_heads):
         assert _within(three, ref, *bars)
         assert not _within(one, ref, *bars)

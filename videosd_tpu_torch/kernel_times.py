@@ -1,4 +1,5 @@
-"""Device time per call of kernels K1 and K2 in one checkout of the port.
+"""Device time per call of kernels K1 and K2, and the fp32 parity frame's
+replayed time, in one checkout of the port.
 
     python3 videosd_tpu_torch/kernel_times.py [--root DIR]
 
@@ -9,9 +10,15 @@ old) in one call on one card, since cards and their power limits differ
 between calls.  It times, with torch.profiler (the device time of every
 kernel and memset a call issues, median of three sessions of 20 calls):
 
-* K1, ``flash_attention`` in bf16 on ``[1, S, 8*d]`` tensors at the sd15
-  512x512 main path's three shapes, and in fp32 on one head of d = 512 at
-  the KL VAE's [1, 4096, 512] and [4, 4096, 512] (the wide fp32 kernel);
+* first, before any profiler session (one slows the host's later
+  launches): the fp32 sd15 512x512 4-step ControlNet + KL frame (the
+  configuration of ``videosd_tpu/tools/parity.py``, random weights from
+  seed 0, TF32 off), replayed from its CUDA graph: the median ms of
+  FRAMES blocking frames (host clock);
+* K1, ``flash_attention`` on ``[1, S, 8*d]`` tensors at the sd15 512x512
+  main path's three shapes in bf16 and in fp32 (the d <= 256 fp32 kernel),
+  and in fp32 on one head of d = 512 at the KL VAE's [1, 4096, 512] and
+  [4, 4096, 512] (the wide fp32 kernel);
 * the sd15 KL VAE (``models/vae.py``, published widths, weights from torch's
   default init under seed 0) in fp32, TF32 off: one encode of a 512x512
   frame and one decode of its 64x64 latent, all its kernels (two of them
@@ -36,6 +43,7 @@ K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
 K1_WIDE_FP32 = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
 K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920)]
 CALLS, SESSIONS = 20, 3
+FRAMES = 10
 
 
 def _device(torch, fn) -> tuple[float, float]:
@@ -55,6 +63,36 @@ def _device(torch, fn) -> tuple[float, float]:
     return statistics.median(ms), statistics.median(ops)
 
 
+def _fp32_frame_ms(torch) -> float:
+    """Median ms of FRAMES blocking replays of the fp32 sd15 CN + KL frame."""
+    import time
+
+    import numpy as np
+
+    from videosd_tpu_torch.pipelines.lcm_img2img import (
+        FrameSpec,
+        ModelBundle,
+        build_frame_program,
+        build_prompt_encoder,
+    )
+
+    bundle = ModelBundle.random("sd15", dtype=torch.float32, device="cuda", with_kl_vae=True)
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4,
+                                                    vae="kl"))
+    frame = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 512, 512, 3),
+                                                               dtype=np.uint8)).cuda()
+    program(frame, embeds, [0.6], [5.0], [2.0], [23])  # warm-up and capture
+    ms = []
+    for i in range(FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program(frame, embeds, [0.6], [5.0], [2.0], [24 + i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
 def main() -> None:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -70,19 +108,23 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     tree = os.path.relpath(root, here)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({"tree": tree, "kernel": "fp32 sd15 CN+KL frame, replayed",
+                      "shape": [1, 512, 512, 3], "ms_per_frame": _fp32_frame_ms(torch)}))
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for h, s, d in K1_SHAPES:
-        q, k, v = (torch.randn(1, s, h * d, generator=gen, device="cuda").bfloat16()
-                   for _ in range(3))
-        ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=h))
-        print(json.dumps({"tree": tree, "kernel": "K1", "shape": [h, s, d],
-                          "device_ms": ms, "device_ops_per_call": ops}))
+    for dtype, name in ((torch.bfloat16, "K1"), (torch.float32, "K1 fp32")):
+        for h, s, d in K1_SHAPES:
+            q, k, v = (torch.randn(1, s, h * d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=h))
+            print(json.dumps({"tree": tree, "kernel": name, "shape": [h, s, d],
+                              "device_ms": ms, "device_ops_per_call": ops}))
     for b, s, d in K1_WIDE_FP32:
         q, k, v = (torch.randn(b, s, d, generator=gen, device="cuda") for _ in range(3))
         ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=1))
         print(json.dumps({"tree": tree, "kernel": "K1 wide fp32", "shape": [b, s, d],
                           "device_ms": ms, "device_ops_per_call": ops}))
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
     vae = AutoencoderKL(VAE_PRESETS["sd15"]).cuda().float().eval()
     x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1

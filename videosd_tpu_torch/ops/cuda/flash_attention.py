@@ -6,7 +6,8 @@ built on first launch by :mod:`videosd_tpu_torch._build`:
 ``videosd_tpu_torch/csrc/flash_attention.cu`` for bf16 up to d = 256 (wgmma
 for both products, a ring of K/V stages filled by TMA or cp.async, heads
 read in place), ``videosd_tpu_torch/csrc/flash_attention_fp32.cu`` for fp32
-up to d = 256 (FFMA products from shared memory),
+up to d = 256 (both products in 3xTF32 on ``mma.sync``, K and V through a
+TMA ring; :func:`fp32_block_rows` and :func:`fp32_stages` mirror its plan),
 ``videosd_tpu_torch/csrc/flash_attention_wide.cu`` for bf16 above d = 256
 (the KL VAE's d = 512: 64 query rows and one slice of at most 256 output
 columns per block, each slice forming the logits over the whole depth), and
@@ -59,6 +60,9 @@ __all__ = [
     "flash_attention",
     "flash_attention_bhsd",
     "flash_attention_reference",
+    "fp32_block_rows",
+    "fp32_instance_width",
+    "fp32_stages",
     "instance_width",
     "launches",
     "launches_fp32",
@@ -102,6 +106,16 @@ WIDE_SLOTS, WIDE_MIN_RING = 27, 8
 WIDE_SLICE_FP32, WIDE_ROWS_FP32 = 512, 32
 WIDE_FP32_FIXED_SMEM, WIDE_FP32_CHUNK_BYTES, WIDE_FP32_MIN_SLOTS = (
     1024 + 4 * (32 * 512 + 4 * 32 * 40), 4 * 32 * 128, 4)
+
+# the fp32 kernel (d <= 256, flash_attention_fp32.cu::Shape): its instances;
+# up to 128 wide a block of 64 query rows, one warp per 16 rows over every
+# column, above it 16 rows with the 4 warps splitting keys and columns; key
+# tiles of 64 (32 from 128 wide); a ring of K and V stages sized for 2
+# blocks an SM up to 40 wide, else 1, beside 1 KB of alignment, 3 KB of
+# static arrays and the resident Q
+FP32_WIDTHS = (8, 16, 40, 64, 80, 128, 160, 256)
+FP32_MIN_STAGES, FP32_MAX_STAGES = 3, 8
+SMEM_PER_SM = 233472  # bytes of an SM's shared memory, 1 KB of it reserved per block
 
 # attentions sent to the bf16 kernel, to the fp32 one, and to the wide
 # kernel's two dtypes, since the count was last set to 0 (read by chip_smoke.py)
@@ -187,6 +201,34 @@ def block_rows(sq: int, bh: int, d: int) -> int:
     if bh <= 0:
         raise ValueError(f"need at least one head, got {bh}")
     return next((rows for rows in plans if sq // rows * bh >= FULL_GRID), KEY_TILE)
+
+
+def fp32_instance_width(d: int) -> int:
+    """The fp32 kernel's instance for head dim ``d``: the narrowest of
+    :data:`FP32_WIDTHS` that holds it (depth and columns pad to 8 inside)."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not in 1..{MAX_HEAD_DIM}")
+    return next(w for w in FP32_WIDTHS if w >= d)
+
+
+def fp32_block_rows(d: int) -> int:
+    """Query rows per block of the fp32 kernel at head dim ``d``: 64 (a
+    warp's 16 rows over every column) up to the 128-wide instance, 16 above
+    (four warps split one row group's keys and columns: at sd15's
+    [8, 256, 160] 128 blocks, where 64 rows would give 32)."""
+    return 64 if fp32_instance_width(d) <= 128 else 16
+
+
+def fp32_stages(d: int) -> int:
+    """K/V stages in the fp32 kernel's ring at head dim ``d``: what fits
+    beside the resident Q in the shared memory of one block (two per SM up
+    to the 40-wide instance), at most :data:`FP32_MAX_STAGES`."""
+    w = fp32_instance_width(d)
+    keys, rows = (32 if w >= 128 else 64), fp32_block_rows(d)
+    boxes_k, boxes_v = -(-w // 16), -(-w // 32)
+    stage = 4 * keys * (16 * boxes_k + 32 * boxes_v)
+    limit = SMEM_PER_SM // 2 - 1024 if w <= 40 else SMEM_LIMIT
+    return min(FP32_MAX_STAGES, (limit - 1024 - 3072 - 4 * 16 * boxes_k * rows) // stage)
 
 
 def wide_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -298,8 +340,8 @@ def _unfold_cut(out, b: int, heads: int, d: int):
 def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
     """Launches the kernel of q's dtype and head dim; ``block_m`` overrides
     :func:`block_rows` with another of :func:`row_plans` (``chip_smoke.py``
-    times them all; the fp32 and the bf16 wide kernels run 64 rows per
-    block, the fp32 wide kernel 32)."""
+    times them all; the fp32 kernel runs :func:`fp32_block_rows`, the bf16
+    wide kernel 64 rows per block, the fp32 wide kernel 32)."""
     b, sq, sk, d = _check(q, k, v, heads)
     align = _ALIGN[q.dtype]
     if d % align:
@@ -309,17 +351,17 @@ def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
         return _unfold_cut(out, b, heads, d)
     fp32 = q.dtype == torch.float32
     wide = d > MAX_HEAD_DIM
-    if fp32 and wide:
-        plans = (WIDE_ROWS_FP32,)
+    if fp32:
+        plans = (WIDE_ROWS_FP32,) if wide else (fp32_block_rows(d),)
     else:
-        plans = (KEY_TILE,) if fp32 or wide else row_plans(sq, d)
+        plans = (KEY_TILE,) if wide else row_plans(sq, d)
     if block_m is None:
         block_m = plans[0] if fp32 or wide else block_rows(sq, b * heads, d)
     elif block_m not in plans:
         raise ValueError(f"{block_m} rows per block not in {plans} for {sq} queries of head "
                          f"dim {d} in {q.dtype}")
-    if wide and b * heads > 65535:
-        raise ValueError(f"{b * heads} heads exceed the wide kernel's grid (65535)")
+    if (wide or fp32) and b * heads > 65535:
+        raise ValueError(f"{b * heads} heads exceed the kernel's grid (65535)")
     return _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide)
 
 

@@ -18,11 +18,12 @@ the same 3×3 convs.
 K1's two products at the head width its kernel computes (the bf16
 kernel's instance, :data:`~videosd_tpu_torch.ops.cuda.flash_attention.INSTANCE_WIDTHS`,
 rounded up to ``wgmma``'s bf16 K-step of 16; the fp32 kernel's head dim
-rounded up to its 16-byte rows of 4; above d = 256 the wide kernels'
+rounded up to ``mma.sync``'s k-step and n-tile of 8; above d = 256 the wide
+kernels'
 Q·Kᵀ once per slice of output columns, at the depth padded to 64 columns
 in bf16 and to 16 in fp32, and their P·V once, at the columns padded to
-64 in bf16 and to 8 in fp32; the fp32 wide kernel's three TF32 products
-per fp32 product count as one), and every product the libraries run
+64 in bf16 and to 8 in fp32; the fp32 kernels' three TF32 products per
+fp32 product count as one), and every product the libraries run
 (cuBLAS, cuDNN) as it is, logical.
 
 Peaks: the dense bf16 tensor-core rate from NVIDIA's data sheet
@@ -81,7 +82,8 @@ def mfu(flops: float, seconds: float, peak: float | None) -> float | None:
 def attention_padded_width(d: int, dtype: torch.dtype) -> int:
     """The head width K1's two products run at for head dim ``d``, as the
     width ``w`` of ``4 Sq Sk w`` flops: the bf16 instance rounded up to 16,
-    or ``d`` rounded up to 4 in fp32.  Above d = 256 the wide kernels run
+    or ``d`` rounded up to 8 in fp32 (the ``mma.sync`` k-step of Q·Kᵀ's
+    depth and the n-tile of P·V's columns).  Above d = 256 the wide kernels run
     Q·Kᵀ once per slice (:func:`wide_slices`) and P·V once: in bf16 both at
     ``d`` padded to 64 (panels), in fp32 Q·Kᵀ at ``d`` padded to 16 (two
     k-steps of 8) and P·V at ``d`` padded to 8 (an m16n8 tile's columns).
@@ -93,7 +95,7 @@ def attention_padded_width(d: int, dtype: torch.dtype) -> int:
         dp = -(-d // 64) * 64
         return dp * (wide_slices(d) + 1) // 2
     if dtype == torch.float32:
-        return -(-d // 4) * 4
+        return -(-d // 8) * 8
     return depth(instance_width(d))
 
 
