@@ -28,8 +28,12 @@
 // What bounds it on the H100: 4 Sq Sk d flops per head, as 3 TF32 products
 // at 494.7 / 3 TFLOP/s (at [8, 4096, 40] 21.5 GFLOP: 0.130 ms); mma.sync
 // reaches 316 of the 495 (hw_probe.py).  Beside each mma the kernel issues
-// its share of splits and fragment loads from shared memory (~3 instructions
-// per mma here), and the online softmax between the products.  So:
+// its share of splits and fragment loads from shared memory (~5
+// instructions per mma at d = 40), and those take as long as the mma:
+// copies of this file with parts dropped (kernel_variants.py) ran
+// [8, 4096, 40] in 0.46 ms, 0.35 without P V's mma, 0.23 without P V at
+// all; the softmax and the copies are the small rest.  The kernel is
+// latency-bound: it wants many warps a scheduler.  So:
 //
 // * Warps: consumers do the arithmetic and a producer warp issues every
 //   copy as TMA, through a ring of stages (K and V of one key tile each)
@@ -44,10 +48,11 @@
 //     (rows g and g + 8 over the 4 lanes of a quad) with no barrier per
 //     tile, and P goes from the logits' accumulator layout straight into P
 //     V's A fragments: slots t and t + 4 of a k-step hold keys 2t and 2t +
-//     1, as the accumulator does.  Two warps a scheduler where one block
-//     fills an SM (with one, four consumers a block, [8, 1024, 80] took
-//     0.127 ms on an H100 at 700 W).  Key tiles of 64 (of 32 at W = 128, for a ring of 3
-//     stages).
+//     1, as the accumulator does.  Up to W = 40 two blocks an SM (96
+//     registers, a few spilled): four warps a scheduler; one block took 1.4x
+//     as long at [8, 4096, 40].  Above, one block: two warps a scheduler
+//     (with four consumers a block, one, [8, 1024, 80] took 1.6x as long).
+//     Key tiles of 64 (of 32 at W = 128, for a ring of 3 stages).
 //   - W = 160, 256: a block owns 16 query rows, and 4 consumer warps split both
 //     products: in Q K^T each forms 8 keys of a 32-key tile over the whole
 //     depth; the row maxima meet in shared memory (a barrier), then P (a
@@ -58,7 +63,9 @@
 // * Depth runs in groups of 16 floats: k-step 0 of a group takes depths 4t
 //   and 4t + 1 into slots t and t + 4, k-step 1 depths 4t + 2 and 4t + 3, so
 //   one float4 per row serves two k-steps; a last group of 8 or fewer takes
-//   one k-step from a float2.  Depth pads to 8, O's columns to 8.
+//   one k-step from a float2.  Depth pads to 8, O's columns to 8.  (wgmma
+//   for Q K^T, fed by a pass that split each K tile in shared memory once
+//   per block, was right but no faster on an H100, and is not kept.)
 // * Shared memory: Q and K in boxes of [rows][16 floats], no swizzle (a
 //   quarter warp's float4 loads cover one 128-byte line); V in boxes of
 //   [keys][32 floats] in the 128-byte swizzle (P V's B fragments of a warp on
