@@ -89,9 +89,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    path's shapes and at ragged ones, all four epilogues, with each shape's
    tile width; at the main path's shapes one kernel per call, its device
    time beside its bound, the plain version's and a cuDNN bf16 conv's, and
-   every tile width held to the bar and timed; then its fp32 kernel at the
-   main path's shapes and every epilogue, likewise (cuDNN in fp32, TF32
-   off);
+   every tile width held to the bar and timed; then its fp32 kernel
+   (3xTF32) at the same shapes, every epilogue and every tile height,
+   held to the fp32 bars of its plain version computed in fp64 (the fp32
+   plain version's own distance printed beside), timed likewise (cuDNN in
+   fp32, TF32 off);
 9. the ``fused_preprocess`` entry on the main path's frame (K2's path);
 10. TAESD encode + decode at 512x512 through K3 against an fp32 copy and
     the packed library route, the fp32 copy through K3's fp32 kernel
@@ -223,12 +225,13 @@ NUM_SMS, FFMA_LANES_PER_SM, EXP_PER_CLOCK_PER_SM = 132, 128, 16
 # kernel that ran its products in TF32 (10-bit mantissa) is ~1e-3 relative
 # off, 60x over the mean bar
 FP32_MAX_REL, FP32_MEAN_REL = 2.0 ** -13, 2.0 ** -16
-# ... except K1's two fp32 kernels, held to the same bars from the plain
-# version computed in fp64 and rounded to fp32: their 3xTF32 products round
-# unlike cuBLAS's fp32 ones, and on loud heads (logits 64x larger, a peaked
-# softmax) the fp32 plain version is itself up to a bar off the exact result
-# (phase 3 prints both: at [2,2,256,512,640] on an H100 the fp32 plain
-# version was 1.08 bars from fp64, the wide kernel 0.08)
+# ... except the 3xTF32 kernels (K1's two fp32 kernels and K3's fp32
+# kernel), held to the same bars from the plain version computed in fp64
+# and rounded to fp32: their 3xTF32 products round unlike cuBLAS's and
+# cuDNN's fp32 ones, and on loud heads (logits 64x larger, a peaked
+# softmax) the fp32 plain version is itself up to a bar off the exact
+# result (phase 3 prints both: at [2,2,256,512,640] on an H100 the fp32
+# plain version was 1.08 bars from fp64, the wide kernel 0.08)
 # bf16 bar of K1 against its plain version, relative to the outputs (with
 # randn inputs |o| shrinks as the keys grow: ~0.02 at 4096 keys): both round
 # the output to bf16 (half an ulp, 2^-9 relative, each) and they round P at
@@ -1023,11 +1026,20 @@ def phase_k3(card: str, clock: float) -> dict:
             "library_ms": per_frame["cuDNN bf16"][1], "per_shape": per_shape}
 
 
+def _k3_fp64(w, bias, xp, relu, skip):
+    """K3's plain version computed in fp64 and rounded to fp32."""
+    return k3.packed_conv3x3_reference(
+        w.double(), None if bias is None else bias.double(), xp.double(), relu=relu,
+        skip=None if skip is None else skip.double()).float()
+
+
 def phase_k3_fp32(card: str, clock: float) -> dict:
-    """K3's fp32 kernel against its plain version at the main path's shapes
-    and the ragged ones, every epilogue; at the main path's shapes one kernel
-    per call, its device time beside its fp32 bound, the plain version's and
-    a cuDNN fp32 conv's (TF32 off) with the eager epilogue."""
+    """K3's fp32 kernel (3xTF32) against its plain version computed in fp64
+    at the main path's shapes and the ragged ones, every epilogue and every
+    tile height, printing the fp32 plain version's own distance beside; at
+    the main path's shapes one kernel per call, its device time beside its
+    fp32 bound, the plain version's and a cuDNN fp32 conv's (TF32 off) with
+    the eager epilogue."""
     gen = torch.Generator(device="cuda").manual_seed(8765)
     w = (torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0
     bias = torch.randn(64, generator=gen, device="cuda") * 0.1
@@ -1041,18 +1053,27 @@ def phase_k3_fp32(card: str, clock: float) -> dict:
         rows = k3.fp32_tile_rows(shape[0], shape[1], 2 * shape[2])
         errs = []
         for epi, (relu, has_skip, has_bias) in K3_EPILOGUES.items():
-            args = (w, bias if has_bias else None, xp)
-            kw = {"relu": relu, "skip": sk if has_skip else None}
-            out = k3.packed_conv3x3(*args, **kw)
+            b, skip = bias if has_bias else None, sk if has_skip else None
+            exact = _k3_fp64(w, b, xp, relu, skip)
+            plain = fp32_within_bar(k3.packed_conv3x3_reference(w, b, xp, relu=relu, skip=skip),
+                                    exact)
+            out = k3.packed_conv3x3(w, b, xp, relu=relu, skip=skip)
             torch.cuda.synchronize()
-            ok, mx, mean, max_bar, mean_bar = fp32_within_bar(
-                out, k3.packed_conv3x3_reference(*args, **kw))
-            errs.append(f"{epi} {mx:.3e} / {mean:.1e} (bars {max_bar:.1e} / {mean_bar:.1e})")
+            ok, mx, mean, max_bar, mean_bar = fp32_within_bar(out, exact)
+            errs.append(f"{epi} {mx:.3e} / {mean:.1e} (bars {max_bar:.1e} / {mean_bar:.1e}; "
+                        f"plain fp32 {plain[1]:.3e} / {plain[2]:.1e})")
             if not ok or out.dtype != torch.float32:
-                fail(f"K3's fp32 kernel disagrees with its plain version at {list(shape)} {epi}: "
-                     f"max|d| {mx:.3e} (bar {max_bar:.3e}), mean|d| {mean:.3e} (bar {mean_bar:.3e})")
+                fail(f"K3's fp32 kernel disagrees with its plain version in fp64 at {list(shape)} "
+                     f"{epi}: max|d| {mx:.3e} (bar {max_bar:.3e}), mean|d| {mean:.3e} (bar "
+                     f"{mean_bar:.3e})")
             worst = max(worst, mx)
-        print(f"K3 {list(shape)} fp32, tiles of {rows} rows: max|d| / mean|d| {'; '.join(errs)}")
+            for r in k3.FP32_TILE_ROWS:  # every tile height, held to the same bars
+                if r != rows and not fp32_within_bar(
+                        k3._launch(w, b, xp, relu, skip, tile_rows=r), exact)[0]:
+                    fail(f"K3 fp32 at {list(shape)} {epi} with tiles of {r} rows disagrees with "
+                         f"its plain version in fp64")
+        print(f"K3 {list(shape)} fp32 3xTF32 against plain in fp64, tiles of {rows} rows (every "
+              f"height within the bars): max|d| / mean|d| {'; '.join(errs)}")
         if shape not in K3_SHAPES:
             continue
         times = {}
@@ -1084,14 +1105,11 @@ def phase_k3_fp32(card: str, clock: float) -> dict:
             for j in range(2):
                 per_frame[name][j] += K3_SHAPES[shape] / 3 * (
                     2 * times["relu"][i][j] + times["skip+relu"][i][j])
-        # every tile height the kernel can run, held to the bar and timed (relu)
-        ref = k3.packed_conv3x3_reference(w, bias, xp, relu=True)
+        # every tile height the kernel can run, timed (relu; held to the bars above)
         heights = {}
         for r in k3.FP32_TILE_ROWS:
             def run(r=r):
                 return k3._launch(w, bias, xp, True, None, tile_rows=r)
-            if not fp32_within_bar(run(), ref)[0]:
-                fail(f"K3 fp32 at {list(shape)} with tiles of {r} rows disagrees with plain")
             heights[r] = times["relu"][0][1] if r == rows else device_ms(run)
         print(f"   tile rows -> device ms (relu; {rows} picked): "
               + ", ".join(f"{r}: {t:.4f}" for r, t in heights.items()))

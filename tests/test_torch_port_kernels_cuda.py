@@ -14,9 +14,9 @@ for bit; K3 within one
 bf16 ulp of the largest output and mean |d| <= 1e-5 (both round fp32 sums of
 exact bf16 products once, in different summation orders).  The fp32 kernels
 of K1 and K3 within 2^-13 of the largest output and 2^-16 of the mean
-|output| of their fp32 plain versions, TF32 off (fp32 sums in other orders,
-~1e-6 relative; TF32 products would be ~1e-3 off); K1's two fp32 kernels
-(3xTF32) within the same bars of their plain version computed in fp64.
+|output| of their plain versions computed in fp64 (all three run their
+products in 3xTF32, which rounds unlike cuBLAS's and cuDNN's fp32; TF32
+products would be ~1e-3 off).
 """
 
 import pytest
@@ -219,6 +219,13 @@ def _assert_fp32_close(out, ref):
     assert err.mean().item() <= 2.0 ** -16 * ref.abs().mean().item()
 
 
+def _k3_fp64(w, bias, xp, relu, skip):
+    """K3's plain version computed in fp64 and rounded to fp32."""
+    return K3.packed_conv3x3_reference(
+        w.double(), None if bias is None else bias.double(), xp.double(), relu=relu,
+        skip=None if skip is None else skip.double()).float()
+
+
 def _loud_heads(gen, b, h, sq, sk, d, dtype):
     """q, k, v as slices of one fused buffer, the odd heads' q and k 8x
     larger and v 8x smaller: a head that took a neighbour's columns into its
@@ -380,7 +387,8 @@ def test_k2_graph_replay_on_card(gen):
 @pytest.mark.parametrize("epilogue", _K3_EPILOGUES)
 @pytest.mark.parametrize("shape", _K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_k3_fp32_every_shape_and_epilogue_on_card(gen, no_tf32, shape, epilogue):
-    """K3's fp32 kernel: one launch per call, a fresh fp32 output."""
+    """K3's fp32 kernel: one launch per call, a fresh fp32 output, within
+    the fp32 bars of the plain version computed in fp64."""
     w, bias, xp, skip = (t.float() for t in _k3_inputs(gen, shape))
     xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
     relu, has_skip, has_bias = _K3_EPILOGUES[epilogue]
@@ -391,7 +399,7 @@ def test_k3_fp32_every_shape_and_epilogue_on_card(gen, no_tf32, shape, epilogue)
     torch.cuda.synchronize()
     assert (K3.launches_fp32, K3.launches) == (before[0] + 1, before[1])
     assert out.shape == xp.shape and out.data_ptr() not in (xp.data_ptr(), skip.data_ptr())
-    _assert_fp32_close(out, K3.packed_conv3x3_reference(*args, **kw))
+    _assert_fp32_close(out, _k3_fp64(*args, relu, kw["skip"]))
 
 
 @pytest.mark.cuda
@@ -415,12 +423,12 @@ def test_k2_both_sides_of_the_held_size_on_card(gen, hw, recomputed):
 @pytest.mark.parametrize("shape", _K3_SHAPES[:4], ids=lambda s: "x".join(map(str, s)))
 def test_k3_fp32_every_tile_height_on_card(gen, no_tf32, shape):
     """Every tile height the fp32 kernel can run gives the plain version's
-    result; a height outside :data:`FP32_TILE_ROWS`, or a bf16 tile width
-    on fp32, is refused."""
+    result computed in fp64; a height outside :data:`FP32_TILE_ROWS`, or a
+    bf16 tile width on fp32, is refused."""
     w, bias = (t.float() for t in _k3_inputs(gen, shape)[:2])
     xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
     for sk in (None, skip):
-        ref = K3.packed_conv3x3_reference(w, bias, xp, relu=True, skip=sk)
+        ref = _k3_fp64(w, bias, xp, True, sk)
         for rows in K3.FP32_TILE_ROWS:
             _assert_fp32_close(K3._launch(w, bias, xp, True, sk, tile_rows=rows), ref)
     with pytest.raises(ValueError, match="tile rows"):

@@ -5,8 +5,9 @@ and ``chip_smoke.py``); what surrounds it is plain Python and is held here:
 the swizzled tap layout the wrapper makes once per weight, the tile plans
 (every output pixel covered once, the shared memory within the card's
 232,448 bytes per block), the wrapper's refusals and its routing rule; and
-for the fp32 kernel its tap layout, its tiles and its shared memory, and the
-tap cache that keeps the two layouts apart.
+for the fp32 kernel its tap layout (pre-split into TF32 big and small
+planes), its work items and their channel halves, its shared memory, and
+the tap cache that keeps the two layouts apart.
 Imports neither JAX nor the JAX package.
 """
 
@@ -144,15 +145,40 @@ def test_wrapper_takes_fp32_like_the_tpu_kernel(bias):
     K3._check(torch.zeros(64, 64, 3, 3), bias, xp, torch.zeros(1, 8, 4, 128))
 
 
+def _fp32_taps_index():
+    """(half, tap, chunk, n8 tile, lane, e) grids and the weight's (co, ci)
+    at each: lane 4 g + t holds co = 32 half + 8 n + g, ci = 16 c + 4 t + e."""
+    h, tap, c, n, lane, e = np.meshgrid(np.arange(2), np.arange(9), np.arange(4), np.arange(4),
+                                        np.arange(32), np.arange(4), indexing="ij")
+    return (h, tap, c, n, lane, e), 32 * h + 8 * n + lane // 4, 16 * c + 4 * (lane % 4) + e
+
+
 def test_fp32_taps_are_ci_rows_of_co():
-    """taps[3 dy + dx, ci, co] = weight[co, ci, dy, dx], fp32, contiguous."""
-    w = _weight(2).float()
+    """The fp32 kernel's taps, pre-split for 3xTF32 in its fragment order:
+    taps[half, 3 dy + dx, c, n, plane, 4 g + t, e] splits weight[32 half + 8 n
+    + g, 16 c + 4 t + e, dy, dx] into a TF32 big part (plane 0: 10 mantissa
+    bits, the weight rounded to nearest) and the exact rest (plane 1)."""
+    w = _weight(2).float() * torch.linspace(0.01, 100.0, 64)[None, :, None, None]
     taps = K3.taps_for(w, torch.float32)
-    assert taps.shape == (9, 64, 64) and taps.dtype == torch.float32 and taps.is_contiguous()
-    tap, ci, co = np.meshgrid(np.arange(9), np.arange(64), np.arange(64), indexing="ij")
-    np.testing.assert_array_equal(taps.numpy()[tap, ci, co], w.numpy()[co, ci, tap // 3, tap % 3])
+    assert taps.shape == (2, 9, 4, 4, 2, 32, 4) and taps.dtype == torch.float32
+    assert taps.is_contiguous() and taps.numel() * 4 == 2 * 147456
+    (h, tap, c, n, lane, e), co, ci = _fp32_taps_index()
+    want = w.numpy()[co, ci, tap // 3, tap % 3]
+    big, small = taps.numpy()[h, tap, c, n, 0, lane, e], taps.numpy()[h, tap, c, n, 1, lane, e]
+    assert (big.view(np.int32) & 0x1FFF == 0).all()  # a TF32 value
+    assert (np.abs(want - big) <= 2.0 ** -11 * np.abs(want)).all()  # rounded to nearest
+    np.testing.assert_array_equal(small, want - big)  # the rest, exact
+    assert (np.abs(small) > 2.0 ** -13 * np.abs(want)).any()
 
 
+def test_fp32_tap_planes_invert_back_to_the_weight():
+    """big + small is the fp32 tap bit for bit, and undoing the fragment
+    order on it gives the weight back."""
+    w = _weight(4).float()
+    taps = K3._taps_fp32(w)
+    whole = taps[:, :, :, :, 0] + taps[:, :, :, :, 1]  # [half, tap, c, n, lane, e]
+    back = whole.reshape(2, 9, 4, 4, 8, 4, 4).permute(1, 0, 3, 4, 2, 5, 6).reshape(3, 3, 64, 64)
+    assert torch.equal(back.permute(2, 3, 0, 1), w)
 def test_tap_cache_is_keyed_by_dtype():
     """Each kernel's layout is made once per weight and kept under its own
     dtype: the bf16 (swizzled) and fp32 layouts of one weight never stand in
@@ -170,35 +196,59 @@ def test_tap_cache_is_keyed_by_dtype():
 
 @pytest.mark.parametrize("rows", K3.FP32_TILE_ROWS)
 def test_fp32_tiles_cover_every_pixel_once(rows):
+    """Every output pixel and channel half in exactly one work item, the two
+    halves of a tile next to each other."""
     for b, h, w in SIZES:
-        hits = np.zeros((b, h, w), np.int32)
-        for img, y0, x0 in K3.fp32_tile_origins(b, h, w, rows):
-            assert 0 <= img < b and 0 <= y0 < h and 0 <= x0 < w
-            hits[img, y0:y0 + rows, x0:x0 + K3.FP32_TILE_W] += 1
+        hits = np.zeros((b, h, w, 2), np.int32)
+        items = K3.fp32_tile_origins(b, h, w, rows)
+        for img, y0, x0, co0 in items:
+            assert 0 <= img < b and 0 <= y0 < h and 0 <= x0 < w and co0 in (0, K3.FP32_HALF)
+            hits[img, y0:y0 + rows, x0:x0 + K3.FP32_TILE_W, co0 // K3.FP32_HALF] += 1
         assert (hits == 1).all(), (rows, b, h, w)
+        assert all(items[i][:3] == items[i + 1][:3] and items[i][3] == 0
+                   for i in range(0, len(items), 2))
+
+
+@pytest.mark.parametrize("rows", K3.FP32_TILE_ROWS)
+def test_fp32_blocks_keep_one_half(rows):
+    """The persistent grid is even (the SM count, even, or fewer items), so
+    the items block i takes (i, i + grid, ...) all have one channel half:
+    its taps are loaded once."""
+    for b, h, w in SIZES:
+        items = K3.fp32_tile_origins(b, h, w, rows)
+        grid = min(len(items), K3.NUM_SMS & ~1)
+        assert grid % 2 == 0
+        for block in range(grid):
+            assert len({co0 for *_, co0 in items[block::grid]}) == 1
 
 
 @pytest.mark.parametrize("rows", K3.FP32_TILE_ROWS)
 def test_fp32_kernel_fits_the_shared_memory(rows):
-    """The fp32 taps (147,456 bytes) and two halo stages of (rows + 2) x 66
-    pixels of 16 channels (at 20 floats a pixel) in one block's shared
-    memory."""
-    assert K3.fp32_smem_bytes(rows) == 4 * (9 * 64 * 64 + 2 * (rows + 2) * 66 * 20)
-    assert K3.fp32_smem_bytes(4) == 210816
-    assert K3.fp32_smem_bytes(rows) <= K3.SMEM_LIMIT
+    """One half's taps in big and small planes (147,456 bytes) and a ring of
+    halo stages of 16 channels x 66 pixels x (rows + 2) rows, as many as fit
+    (2 to 4), with 1 KB of alignment slack and the static mbarriers."""
+    stages = K3.fp32_stages(rows)
+    stage = (rows + 2) * 66 * 16 * 4
+    assert 2 <= stages <= 4 and stage % 128 == 0  # TMA writes 128-byte-aligned boxes
+    assert K3.fp32_smem_bytes(rows) == 1024 + 9 * 64 * 32 * 2 * 4 + stages * stage
+    assert K3.fp32_smem_bytes(4) == 224512
+    assert K3.fp32_smem_bytes(rows) + 8 * 9 <= K3.SMEM_LIMIT
+    # one more stage would not fit, unless the ring is at its cap
+    assert stages == 4 or K3.fp32_smem_bytes(rows) + stage > K3.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("size, rows", [
-    ((1, 512, 512), 4), ((1, 256, 256), 4), ((1, 128, 128), 2), ((1, 64, 64), 1),
-    ((2, 64, 96), 2), ((1, 13, 14), 1), ((1, 264, 64), 2), ((4, 264, 64), 4),
+    ((1, 512, 512), 4), ((1, 256, 256), 4), ((1, 128, 128), 4), ((1, 64, 64), 2),
+    ((2, 64, 96), 4), ((1, 13, 14), 2), ((1, 264, 64), 4), ((4, 264, 64), 4),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_fp32_tile_rows_keep_every_sm_busy(size, rows):
-    """The fp32 tile height with the fewest tile rows on the busiest of the
-    132 SMs, the tallest on a tie."""
+    """The fp32 tile height whose busiest SM finishes first: rounds of work
+    items on 132 SMs times the warps a scheduler (2 x rows warps on 4
+    schedulers, at least one each), the tallest on a tie."""
     assert K3.fp32_tile_rows(*size) == rows
 
     def busiest(r):
-        return -(-len(K3.fp32_tile_origins(*size, r)) // K3.NUM_SMS) * r
+        return -(-len(K3.fp32_tile_origins(*size, r)) // K3.NUM_SMS) * max(2 * r, 4)
 
     assert all(busiest(rows) < busiest(r) or (busiest(rows) == busiest(r) and rows > r)
                for r in K3.FP32_TILE_ROWS if r != rows)

@@ -1,7 +1,8 @@
-"""The numerics of K1's fp32 kernels (``csrc/flash_attention_fp32.cu``, d <=
-256, and ``csrc/flash_attention_wide_fp32.cu``), emulated on the CPU.
+"""The numerics of the 3xTF32 fp32 kernels, emulated on the CPU: K1's
+(``csrc/flash_attention_fp32.cu``, d <= 256, and
+``csrc/flash_attention_wide_fp32.cu``) and K3's (``csrc/taesd_conv_fp32.cu``).
 
-Both kernels run both products of attention on the tensor cores in 3xTF32:
+The K1 kernels run both products of attention on the tensor cores in 3xTF32:
 each fp32 operand x splits into big = tf32(x), rounded to nearest with ties
 away from zero at a 10-bit mantissa (as ``cvt.rna.tf32.f32``), and small =
 x - big (exact), which the mma reads truncated to TF32; each product is
@@ -20,12 +21,18 @@ tile's logits are summed per depth chunk of 32 and the chunks added in fp32;
 P V is summed per key tile into a partial that one fp32 fma adds to O; up to
 the 128-wide instance each half of a key tile feeds its own softmax state,
 and the two merge at the end.
+
+K3's kernel is emulated the same way (:func:`kernel_conv3x3`): the 3x3
+conv as an implicit GEMM over k-steps of 8 input channels of one tap, its
+products summed per input-channel chunk of 16 and tap row (three taps, 48
+products) into a partial that an fp32 add takes into the sum.
 """
 
 import importlib.util
 import math
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +40,7 @@ import torch
 
 from videosd_tpu.models.layers import _attention_xla
 from videosd_tpu_torch.ops.cuda import flash_attention as FA
+from videosd_tpu_torch.ops.cuda import taesd_conv as K3
 
 # one torch thread per process (see test_torch_port_flash_attention.py)
 torch.set_num_threads(1)
@@ -231,3 +239,66 @@ def test_kernel_order_holds_the_fp32_bar(d):
     for ref in (exact.float(), jax_heads):
         assert _within(three, ref, *bars)
         assert not _within(one, ref, *bars)
+
+
+def kernel_conv3x3(x, w, products=3):
+    """The sums of a 3x3 SAME conv of NHWC ``[B, H, W, 64]`` fp32 ``x`` with
+    ``[64 co, 64 ci, 3, 3]`` taps in K3's fp32 kernel order: per chunk of 16
+    input channels and tap row dy, a partial over the row's three taps (dx)
+    and two k-steps each (channels 4t + {0, 1}, then 4t + {2, 3}), every mma
+    truncating its sum to fp32, then added to the sum in fp32."""
+    b, h, wd, c = x.shape
+    pad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(b * h * wd, c)
+    for c0 in range(0, c, 16):
+        for dy in range(3):
+            part = torch.zeros(b * h * wd, c)
+            for dx in range(3):
+                xs = pad[:, dy:dy + h, dx:dx + wd].reshape(-1, c)
+                for kk in range(2):
+                    ci = [c0 + 4 * t + 2 * kk + e for t in range(4) for e in range(2)]
+                    part = _mma_chain(part, xs[:, ci], w[:, ci, dy, dx].T, products)
+            acc = acc + part
+    return acc.reshape(b, h, wd, c)
+
+
+@pytest.mark.parametrize("loud", [False, True], ids=["randn", "loud"])
+def test_kernel_conv_order_holds_the_fp32_bar(loud):
+    """A packed [1, 16, 8, 128] frame (NHWC [1, 16, 16, 64]), every third
+    pixel column 64x louder in the loud case, the JAX init rule's taps, a
+    0.1 randn bias and a randn skip: K3's fp32 kernel order in 3xTF32,
+    with each epilogue ((sum + bias) + skip, ReLU, in fp32), within
+    chip_smoke.py's fp32 bars of the plain version computed in fp64 and of
+    JAX's conv at ``Precision.HIGHEST``; one TF32 product per product not."""
+    smoke = _smoke()
+    bars = smoke.FP32_MAX_REL, smoke.FP32_MEAN_REL
+    rng = np.random.default_rng(12 + loud)
+    x = rng.standard_normal((1, 16, 16, 64)).astype(np.float32)
+    if loud:
+        x[:, :, ::3] *= 64.0
+    w = ((rng.random((64, 64, 3, 3)) * 2 - 1) / 24.0).astype(np.float32)
+    bias = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    skip = rng.standard_normal((1, 16, 16, 64)).astype(np.float32)
+    tx, tw, tb, ts = (torch.from_numpy(a) for a in (x, w, bias, skip))
+    sums = {p: kernel_conv3x3(tx, tw, products=p) for p in (3, 1)}
+    jax_sums = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w.transpose(2, 3, 1, 0)), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=jax.lax.Precision.HIGHEST))
+    for epi, (relu, has_skip, has_bias) in smoke.K3_EPILOGUES.items():
+        b, sk = tb if has_bias else None, ts if has_skip else None
+        exact = K3.packed_conv3x3_reference(
+            tw.double(), None if b is None else b.double(), tx.double().reshape(1, 16, 8, 128),
+            relu=relu, skip=None if sk is None else sk.double().reshape(1, 16, 8, 128))
+        jax_out = jax_sums + (bias if has_bias else 0.0)
+        jax_out = jax_out + (skip if has_skip else 0.0)
+        jax_out = np.maximum(jax_out, 0.0) if relu else jax_out
+        refs = (exact.float().reshape(1, 16, 16, 64), torch.from_numpy(jax_out))
+        outs = {}
+        for p, y in sums.items():  # the kernel's epilogue, in fp32
+            y = y + (tb if has_bias else 0.0)
+            y = y + (ts if has_skip else 0.0)
+            outs[p] = torch.relu(y) if relu else y
+        assert torch.isfinite(outs[3]).all() and outs[3].shape == (1, 16, 16, 64)
+        for ref in refs:
+            assert _within(outs[3], ref, *bars), epi
+            assert not _within(outs[1], ref, *bars), epi

@@ -1,5 +1,5 @@
-"""Device time per call of kernels K1 and K2, and the fp32 parity frame's
-replayed time, in one checkout of the port.
+"""Device time per call of kernels K1, K2 and K3's fp32 kernel, and the fp32
+parity frame's replayed time, in one checkout of the port.
 
     python3 videosd_tpu_torch/kernel_times.py [--root DIR]
 
@@ -24,7 +24,14 @@ kernel and memset a call issues, median of three sessions of 20 calls):
   frame and one decode of its 64x64 latent, all its kernels (two of them
   the wide fp32 kernel);
 * K2, ``fused_preprocess`` of a uint8 frame at 512x512, 768x768, 480x640
-  and 1080x1920, with its device operations per call.
+  and 1080x1920, with its device operations per call;
+* K3's fp32 kernel, ``packed_conv3x3`` on fp32 ``[1, H, W/2, 128]`` at the
+  four sizes of TAESD's residual blocks in a 512x512 encode + decode, with
+  ReLU and with the skip (the JAX init rule's weights, bias 0.1 randn);
+  then a TAESD (``models/taesd.py``, default widths, weights from torch's
+  default init under seed 0) in fp32, TF32 off: one encode of a 512x512
+  frame and one decode of its 64x64 latent, on the ``pallas_convs`` route
+  (60 launches of K3's fp32 kernel) and on the default route (cuDNN).
 
 Prints one JSON line per kernel and shape, then the card's name and power
 limit.  Needs a CUDA card.
@@ -42,6 +49,7 @@ import sys
 K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
 K1_WIDE_FP32 = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
 K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920)]
+K3_SHAPES = [(1, 512, 256, 128), (1, 256, 128, 128), (1, 128, 64, 128), (1, 64, 32, 128)]
 CALLS, SESSIONS = 20, 3
 FRAMES = 10
 
@@ -93,6 +101,41 @@ def _fp32_frame_ms(torch) -> float:
     return statistics.median(ms)
 
 
+def _k3(torch, tree: str) -> None:
+    """K3's fp32 kernel at K3_SHAPES, then the fp32 TAESD on both routes."""
+    import dataclasses
+
+    from videosd_tpu_torch.models.taesd import (
+        AutoencoderTiny,
+        TAESDConfig,
+        taesd_decode,
+        taesd_encode,
+    )
+    from videosd_tpu_torch.ops.cuda import taesd_conv as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = (torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0
+    bias = torch.randn(64, generator=gen, device="cuda") * 0.1
+    for shape in K3_SHAPES:
+        xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+        for epi, sk in (("relu", None), ("skip+relu", skip)):
+            ms, ops = _device(torch, lambda: k3.packed_conv3x3(w, bias, xp, relu=True, skip=sk))
+            print(json.dumps({"tree": tree, "kernel": "K3 fp32", "shape": list(shape),
+                              "epilogue": epi, "device_ms": ms, "device_ops_per_call": ops}))
+    torch.manual_seed(0)
+    cfg = TAESDConfig()
+    ae = AutoencoderTiny(cfg).cuda().float().eval()
+    x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
+    for route, c in (("pallas_convs", dataclasses.replace(cfg, pallas_convs=True)),
+                     ("default", cfg)):
+        with torch.inference_mode():
+            ms, ops = _device(torch, lambda: (taesd_encode(ae, x, c), taesd_decode(ae, z, c)))
+        print(json.dumps({"tree": tree, "kernel": f"TAESD fp32 encode + decode, {route}",
+                          "shape": [1, 512, 512, 3], "device_ms": ms,
+                          "device_ops_per_call": ops}))
+
+
 def main() -> None:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -139,6 +182,7 @@ def main() -> None:
         ms, ops = _device(torch, lambda: k2.fused_preprocess(frame))
         print(json.dumps({"tree": tree, "kernel": "K2", "shape": [*hw, 3],
                           "device_ms": ms, "device_ops_per_call": ops}))
+    _k3(torch, tree)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

@@ -6,8 +6,9 @@ launch by :mod:`videosd_tpu_torch._build`: ``videosd_tpu_torch/csrc/
 taesd_conv.cu`` for bf16 (wgmma with the output channels on M and the pixels
 on N, the nine taps resident in shared memory, a ring of TMA halo stages, a
 persistent grid) and ``videosd_tpu_torch/csrc/taesd_conv_fp32.cu`` for fp32
-(FFMA over resident fp32 taps and a cp.async halo, tiles of
-:data:`FP32_TILE_ROWS` rows x 64 pixels, no TF32).
+(an implicit GEMM in 3xTF32 on ``mma.sync``: each block one half of the
+output channels, whose taps sit pre-split in shared memory, a TMA halo ring,
+tiles of :data:`FP32_TILE_ROWS` rows x 64 pixels).
 
 Activations keep the TPU kernel's pixel-pair-packed signature
 ``[B, H, W/2, 2C]``, which is the same memory as NHWC ``[B, H, W, C]``; the
@@ -28,7 +29,8 @@ taps only filled the TPU's 128 lanes).
   pixels, from the shape, among :data:`TILE_WIDTHS`; :func:`smem_bytes` and
   :func:`tile_origins` mirror the kernel's shared memory and tile order;
   :func:`fp32_tile_rows` picks the fp32 kernel's tile height, and
-  :func:`fp32_smem_bytes` and :func:`fp32_tile_origins` mirror it.
+  :func:`fp32_stages`, :func:`fp32_smem_bytes` and
+  :func:`fp32_tile_origins` mirror its ring, shared memory and work items.
 * The taps are laid out once per weight and kernel dtype (:func:`taps_for`)
   and kept on the weight.
 """
@@ -42,6 +44,7 @@ __all__ = [
     "FP32_TILE_ROWS",
     "TILE_WIDTHS",
     "fp32_smem_bytes",
+    "fp32_stages",
     "fp32_tile_origins",
     "fp32_tile_rows",
     "launches",
@@ -65,12 +68,16 @@ _PIXEL_BYTES = 2 * CHANNELS
 _TAPS_BYTES = 9 * CHANNELS * _PIXEL_BYTES
 _CONSUMERS = 2  # consumer warpgroups per block, each with its own output tile
 _MAX_STAGES = 4
-# The fp32 kernel's tiles: rows of 64 output pixels, most rows first
-# (taesd_conv_fp32.cu: TR, kTW); a halo stage holds 16 input channels of a
-# pixel at 20 floats
+# The fp32 kernel's tiles (taesd_conv_fp32.cu: TR, kTW, kCoB, kCK): rows of
+# 64 output pixels, most rows first, each tile in two work items of 32 output
+# channels; a halo stage is one TMA box of 16 input channels x 66 pixels x
+# (rows + 2) rows; the taps of one half, big and small planes, stay resident
 FP32_TILE_ROWS = (4, 2, 1)
 FP32_TILE_W = 64
-_FP32_PIXEL_FLOATS = 20
+FP32_HALF = 32
+_FP32_STAGE_CHANNELS = 16
+_FP32_MAX_STAGES = 4
+_FP32_TAP_BYTES = 9 * CHANNELS * FP32_HALF * 2 * 4
 
 # launches of the bf16 and of the fp32 kernel since the count was last set
 # to 0 (read by chip_smoke.py)
@@ -98,12 +105,14 @@ def _packed(y):
 def packed_conv3x3_reference(weight, bias, xp, *, relu: bool, skip=None):
     """3x3 SAME conv of packed ``xp`` with a ``[C, C, 3, 3]`` ``weight``,
     then +``bias``, then ReLU, or +``skip`` then ReLU (``relu=False`` drops
-    the ReLU), all in fp32; returns packed ``xp.dtype``."""
-    y = F.conv2d(_nchw(xp).float(), weight.float(), padding=1)
+    the ReLU), all in fp32 (in fp64 for an fp64 ``xp``: the exact sums the
+    fp32 kernel is held to); returns packed ``xp.dtype``."""
+    acc = torch.float64 if xp.dtype == torch.float64 else torch.float32
+    y = F.conv2d(_nchw(xp).to(acc), weight.to(acc), padding=1)
     if bias is not None:
-        y = y + bias.float()[:, None, None]
+        y = y + bias.to(acc)[:, None, None]
     if skip is not None:
-        y = y + _nchw(skip).float()
+        y = y + _nchw(skip).to(acc)
     if relu:
         y = F.relu(y)
     return _packed(y.to(xp.dtype))
@@ -161,39 +170,55 @@ def tile_width(b: int, h: int, w: int) -> int:
     return next((wt for wt in TILE_WIDTHS if b * h * -(-w // wt) >= NUM_SMS), TILE_WIDTHS[-1])
 
 
+def _fp32_stage_bytes(rows: int) -> int:
+    return (rows + 2) * (FP32_TILE_W + 2) * _FP32_STAGE_CHANNELS * 4
+
+
+def fp32_stages(rows: int) -> int:
+    """Halo stages in the fp32 kernel's ring for tiles of ``rows`` rows: as
+    many as fit beside one half's taps, at most 4 (``Plan::kStages``)."""
+    return min(_FP32_MAX_STAGES,
+               (SMEM_LIMIT - 1024 - _FP32_TAP_BYTES) // _fp32_stage_bytes(rows))
+
+
 def fp32_smem_bytes(rows: int) -> int:
     """Dynamic shared memory of one block of the fp32 kernel with tiles of
-    ``rows`` rows (``taesd_conv_fp32.cu::Plan::kSmem``): the fp32 taps and
-    two halo stages of (rows + 2) x 66 pixels of 16 channels."""
-    halo = (rows + 2) * (FP32_TILE_W + 2) * _FP32_PIXEL_FLOATS
-    return 4 * (9 * CHANNELS * CHANNELS + 2 * halo)
+    ``rows`` rows (``taesd_conv_fp32.cu::Plan::kSmem``): 1024 bytes to align
+    it, one half's taps in big and small planes (147,456 bytes) and the halo
+    ring."""
+    return 1024 + _FP32_TAP_BYTES + fp32_stages(rows) * _fp32_stage_bytes(rows)
 
 
 def fp32_tile_origins(b: int, h: int, w: int, rows: int) -> list:
-    """(image, y0, x0) of every tile of the fp32 kernel in its order, x
-    fastest; a tile covers ``rows`` x 64 pixels from there."""
+    """(image, y0, x0, co0) of every work item of the fp32 kernel in its
+    order: the two channel halves of a tile next to each other, then x, y
+    and the image; an item covers ``rows`` x 64 pixels from (y0, x0) and
+    output channels co0 .. co0 + 31."""
     tx, ty = -(-w // FP32_TILE_W), -(-h // rows)
-    return [(t // (tx * ty), t // tx % ty * rows, t % tx * FP32_TILE_W)
-            for t in range(b * ty * tx)]
+    return [(t // (tx * ty), t // tx % ty * rows, t % tx * FP32_TILE_W, half * FP32_HALF)
+            for t in range(b * ty * tx) for half in range(2)]
 
 
 def fp32_tile_rows(b: int, h: int, w: int) -> int:
     """The fp32 kernel's tile height for ``b`` images of ``h`` x ``w``: the
-    one of :data:`FP32_TILE_ROWS` with the fewest tile rows per SM in the
-    busiest SM (rounds of tiles x rows), the tallest on a tie.
+    one of :data:`FP32_TILE_ROWS` whose busiest SM finishes first, the
+    tallest on a tie.
 
-    A tile row is 2.4 MFMA on one SM, so rows on idle SMs are lost, and a
-    taller tile reads its taps and halo for more rows.  On an H100 at 700 W
-    (``chip_smoke.py`` times every height at the 512^2 frame's TAESD sizes):
-    4 rows at 512^2 and 256^2, 2 at 128^2 (128 tiles on 132 SMs, where 1 row
-    takes two rounds), 1 at 64^2 (4 rows: 16 SMs busy, twice cuDNN's time).
+    A block runs 2 x rows warps of equal work (32 pixels x 32 channels) on
+    the SM's four schedulers, so a round of work items takes as long as
+    max(2 x rows, 4) / 4 warps a scheduler, and the busiest SM runs
+    ceil(items / 132) rounds.  On an H100 at 700 W (``chip_smoke.py`` times
+    every height at the 512^2 frame's TAESD sizes) 4 rows were fastest at
+    512^2, 256^2 and 128^2 (there 128 items on 132 SMs); at 64^2 2 and 1
+    rows were within 6 % of each other and 4 rows took 1.7x as long.
     """
     if min(b, h, w) < 1:
         raise ValueError(f"empty shape {(b, h, w)}")
     tiles_x = -(-w // FP32_TILE_W)
 
     def cost(rows):
-        return -(-(b * -(-h // rows) * tiles_x) // NUM_SMS) * rows
+        items = 2 * b * -(-h // rows) * tiles_x
+        return -(-items // NUM_SMS) * max(2 * rows, 4)
 
     return min(FP32_TILE_ROWS, key=lambda r: (cost(r), -r))
 
@@ -230,12 +255,23 @@ def _taps(weight):
     return t.gather(2, _swizzle_index(co, ci, t.device).expand_as(t)).reshape(9, co, ci)
 
 
+def _tf32_big(x):
+    """fp32 ``x`` rounded to TF32 (10-bit mantissa), to nearest with ties
+    away from zero, as the kernel's A split and ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def _taps_fp32(weight):
-    """``[Co, Ci, 3, 3]`` -> ``[9, Ci, Co]`` fp32, tap = 3 * dy + dx: one
-    row of the 64 output channels per input channel, as the fp32 kernel
-    reads them."""
-    co, ci = weight.shape[:2]
-    return weight.permute(2, 3, 1, 0).reshape(9, ci, co).float().contiguous()
+    """``[Co, Ci, 3, 3]`` -> ``[2, 9, 4, 4, 2, 32, 4]`` fp32, the fp32
+    kernel's B operand split for 3xTF32: [half, tap = 3 dy + dx, chunk c,
+    n8 tile n, plane, lane 4 g + t, e] holds the TF32 big part (plane 0) and
+    the rest, small = w - big (plane 1, exact), of weight[32 half + 8 n + g,
+    16 c + 4 t + e, dy, dx]: lane l's four input channels of a k-step pair
+    in one float4 per plane."""
+    w = weight.float().permute(2, 3, 0, 1).reshape(9, 2, 4, 8, 4, 4, 4)  # tap, h, n, g, c, t, e
+    w = w.permute(1, 0, 4, 2, 3, 5, 6).contiguous()  # h, tap, c, n, g, t, e
+    big = _tf32_big(w)
+    return torch.stack([big, w - big], dim=4).reshape(2, 9, 4, 4, 2, 32, 4).contiguous()
 
 
 def taps_for(weight, dtype):
