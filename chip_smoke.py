@@ -1026,13 +1026,6 @@ def phase_k3(card: str, clock: float) -> dict:
             "library_ms": per_frame["cuDNN bf16"][1], "per_shape": per_shape}
 
 
-def _k3_fp64(w, bias, xp, relu, skip):
-    """K3's plain version computed in fp64 and rounded to fp32."""
-    return k3.packed_conv3x3_reference(
-        w.double(), None if bias is None else bias.double(), xp.double(), relu=relu,
-        skip=None if skip is None else skip.double()).float()
-
-
 def phase_k3_fp32(card: str, clock: float) -> dict:
     """K3's fp32 kernel (3xTF32) against its plain version computed in fp64
     at the main path's shapes and the ragged ones, every epilogue and every
@@ -1054,7 +1047,7 @@ def phase_k3_fp32(card: str, clock: float) -> dict:
         errs = []
         for epi, (relu, has_skip, has_bias) in K3_EPILOGUES.items():
             b, skip = bias if has_bias else None, sk if has_skip else None
-            exact = _k3_fp64(w, b, xp, relu, skip)
+            exact = k3.packed_conv3x3_reference(w, b, xp.double(), relu=relu, skip=skip).float()
             plain = fp32_within_bar(k3.packed_conv3x3_reference(w, b, xp, relu=relu, skip=skip),
                                     exact)
             out = k3.packed_conv3x3(w, b, xp, relu=relu, skip=skip)

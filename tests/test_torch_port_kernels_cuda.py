@@ -219,13 +219,6 @@ def _assert_fp32_close(out, ref):
     assert err.mean().item() <= 2.0 ** -16 * ref.abs().mean().item()
 
 
-def _k3_fp64(w, bias, xp, relu, skip):
-    """K3's plain version computed in fp64 and rounded to fp32."""
-    return K3.packed_conv3x3_reference(
-        w.double(), None if bias is None else bias.double(), xp.double(), relu=relu,
-        skip=None if skip is None else skip.double()).float()
-
-
 def _loud_heads(gen, b, h, sq, sk, d, dtype):
     """q, k, v as slices of one fused buffer, the odd heads' q and k 8x
     larger and v 8x smaller: a head that took a neighbour's columns into its
@@ -399,7 +392,7 @@ def test_k3_fp32_every_shape_and_epilogue_on_card(gen, no_tf32, shape, epilogue)
     torch.cuda.synchronize()
     assert (K3.launches_fp32, K3.launches) == (before[0] + 1, before[1])
     assert out.shape == xp.shape and out.data_ptr() not in (xp.data_ptr(), skip.data_ptr())
-    _assert_fp32_close(out, _k3_fp64(*args, relu, kw["skip"]))
+    _assert_fp32_close(out, K3.packed_conv3x3_reference(w, args[1], xp.double(), **kw).float())
 
 
 @pytest.mark.cuda
@@ -428,10 +421,11 @@ def test_k3_fp32_every_tile_height_on_card(gen, no_tf32, shape):
     w, bias = (t.float() for t in _k3_inputs(gen, shape)[:2])
     xp, skip = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
     for sk in (None, skip):
-        ref = _k3_fp64(w, bias, xp, True, sk)
+        ref = K3.packed_conv3x3_reference(w, bias, xp.double(), relu=True, skip=sk).float()
         for rows in K3.FP32_TILE_ROWS:
             _assert_fp32_close(K3._launch(w, bias, xp, True, sk, tile_rows=rows), ref)
-    with pytest.raises(ValueError, match="tile rows"):
-        K3._launch(w, bias, xp, True, None, tile_rows=3)
+    for rows in (1, 3):
+        with pytest.raises(ValueError, match="tile rows"):
+            K3._launch(w, bias, xp, True, None, tile_rows=rows)
     with pytest.raises(ValueError, match="bf16"):
         K3._launch(w, bias, xp, True, None, tile_w=128)

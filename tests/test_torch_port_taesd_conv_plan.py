@@ -179,6 +179,8 @@ def test_fp32_tap_planes_invert_back_to_the_weight():
     whole = taps[:, :, :, :, 0] + taps[:, :, :, :, 1]  # [half, tap, c, n, lane, e]
     back = whole.reshape(2, 9, 4, 4, 8, 4, 4).permute(1, 0, 3, 4, 2, 5, 6).reshape(3, 3, 64, 64)
     assert torch.equal(back.permute(2, 3, 0, 1), w)
+
+
 def test_tap_cache_is_keyed_by_dtype():
     """Each kernel's layout is made once per weight and kept under its own
     dtype: the bf16 (swizzled) and fp32 layouts of one weight never stand in
@@ -252,6 +254,17 @@ def test_fp32_tile_rows_keep_every_sm_busy(size, rows):
 
     assert all(busiest(rows) < busiest(r) or (busiest(rows) == busiest(r) and rows > r)
                for r in K3.FP32_TILE_ROWS if r != rows)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_fp32_tile_heights_without_an_instance_are_refused(rows):
+    """The kernel is instantiated for :data:`FP32_TILE_ROWS` alone (4 and 2:
+    1 row never wins the picker's cost), so any other height is refused
+    before a launch, on every device."""
+    assert rows not in K3.FP32_TILE_ROWS
+    args = _args(weight=torch.zeros(64, 64, 3, 3), xp=torch.zeros(1, 8, 4, 128))
+    with pytest.raises(ValueError, match=f"tile rows {rows} not in"):
+        K3._launch(args["weight"], args["bias"], args["xp"], True, None, tile_rows=rows)
 
 
 def test_a_cpu_tensor_never_reaches_the_launcher():

@@ -287,8 +287,8 @@ def test_kernel_conv_order_holds_the_fp32_bar(loud):
     for epi, (relu, has_skip, has_bias) in smoke.K3_EPILOGUES.items():
         b, sk = tb if has_bias else None, ts if has_skip else None
         exact = K3.packed_conv3x3_reference(
-            tw.double(), None if b is None else b.double(), tx.double().reshape(1, 16, 8, 128),
-            relu=relu, skip=None if sk is None else sk.double().reshape(1, 16, 8, 128))
+            tw, b, tx.double().reshape(1, 16, 8, 128), relu=relu,
+            skip=None if sk is None else sk.reshape(1, 16, 8, 128))
         jax_out = jax_sums + (bias if has_bias else 0.0)
         jax_out = jax_out + (skip if has_skip else 0.0)
         jax_out = np.maximum(jax_out, 0.0) if relu else jax_out

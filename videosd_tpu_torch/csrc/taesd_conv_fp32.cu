@@ -63,9 +63,9 @@
 //   registers spilled and its convs ran 10 % slower).
 // * A persistent grid of an even number of blocks, at most one per SM; work
 //   items are (tile, half) with the half fastest, so a block keeps one half
-//   (blockIdx.x % 2) and loads its taps once.  TR = 4, 2 or 1 is the caller's
-//   choice from the shape (ops/cuda/taesd_conv.py::fp32_tile_rows): 8, 4 or
-//   2 consumer warps, so that 128^2 and 64^2 still spread over the SMs.
+//   (blockIdx.x % 2) and loads its taps once.  TR = 4 or 2 is the caller's
+//   choice from the shape (ops/cuda/taesd_conv.py::fp32_tile_rows): 8 or 4
+//   consumer warps, so that 64^2 still spreads over the SMs.
 // * The epilogue adds the bias, the skip and the ReLU in fp32 in the plain
 //   version's order, (sum + bias) + skip, then ReLU, straight from the
 //   accumulators: a float2 of two channels per pixel and n8 tile.  The
@@ -390,7 +390,7 @@ extern "C" {
 // TF32 big (plane 0) and small (plane 1) parts of weight[32 h + 8 n + g][16 c
 // + 4 t + e][dy][dx] (ops/cuda/taesd_conv.py::_taps_fp32); bias [64] fp32.
 // skip and bias may be null.  out must not alias x.  tile_rows, the output
-// rows of a tile, is 4, 2 or 1.  Returns a cudaError_t: 0 on a successful
+// rows of a tile, is 4 or 2.  Returns a cudaError_t: 0 on a successful
 // launch.
 int videosd_taesd_conv3x3_fp32(const void* x, const void* taps, const void* bias, const void* skip,
                                void* out, int batch, int h, int w, int relu, int tile_rows,
@@ -404,7 +404,6 @@ int videosd_taesd_conv3x3_fp32(const void* x, const void* taps, const void* bias
   switch (tile_rows) {
     case 4: return (int)(sk ? launch<4, true>(x, a, device, s) : launch<4, false>(x, a, device, s));
     case 2: return (int)(sk ? launch<2, true>(x, a, device, s) : launch<2, false>(x, a, device, s));
-    case 1: return (int)(sk ? launch<1, true>(x, a, device, s) : launch<1, false>(x, a, device, s));
     default: return (int)cudaErrorInvalidValue;
   }
 }

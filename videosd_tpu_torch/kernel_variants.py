@@ -1,8 +1,8 @@
 """Ablation timings of the 3xTF32 fp32 kernels of K1 (d <= 256) and K3:
 copies of a kernel's source with parts changed, built side by side and
-timed in turns on one card.
+timed in turns on one card: K1's copies, then K3's.
 
-    python3 videosd_tpu_torch/kernel_variants.py [--kernel k1|k3]
+    python3 videosd_tpu_torch/kernel_variants.py
 
 The card's machine has no ``ncu``, so what holds a kernel back is found by
 timing copies of it that drop or change one part.  Each entry of
@@ -10,8 +10,8 @@ timing copies of it that drop or change one part.  Each entry of
 :data:`K3_VARIANTS` (K3: ``csrc/taesd_conv_fp32.cu``) is a list of text
 replacements applied to the source (a replacement whose text is missing
 fails the run: the list follows the source).  Every copy is compiled by its
-own ``nvcc`` into its own library (all started together), loaded with
-ctypes and launched through its C entry: K1's on fp32 ``[1, S, 8*d]``
+own ``nvcc`` into its own library (a kernel's copies all started together),
+loaded with ctypes and launched through its C entry: K1's on fp32 ``[1, S, 8*d]``
 tensors at the sd15 512x512 frame's three shapes, K3's on fp32 ``[1, H,
 W/2, 128]`` at TAESD's four sizes (ReLU, bias) with each size's tile
 height; four turns, the copies in order then reversed, 50 launches each
@@ -23,7 +23,6 @@ card's name and power limit.  Needs a CUDA card and nvcc.
 
 from __future__ import annotations
 
-import argparse
 import ctypes
 import os
 import re
@@ -110,8 +109,9 @@ K3_VARIANTS = {
 }
 
 
-def _build(csrc: str, out: str, source: str, variants: dict, entry: str, argtypes: list) -> dict:
-    """name -> (ctypes library, registers per instance, spill bytes per instance)."""
+def _build(csrc: str, out: str, source: str, variants: dict) -> dict:
+    """name -> (ctypes library, registers per instance, spill bytes per instance)
+    for each copy of ``source`` in ``variants``."""
     src = open(os.path.join(csrc, source)).read()
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     procs = {}
@@ -134,9 +134,7 @@ def _build(csrc: str, out: str, source: str, variants: dict, entry: str, argtype
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"kernel_variants: nvcc failed on {name!r}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(os.path.join(out, f"v{i}.so"))
-        getattr(lib, entry).argtypes = argtypes
-        libs[name] = (lib, re.findall(r"Used (\d+) registers", log),
+        libs[name] = (ctypes.CDLL(os.path.join(out, f"v{i}.so")), re.findall(r"Used (\d+) registers", log),
                       re.findall(r"(\d+) bytes spill stores", log))
     return libs
 
@@ -165,10 +163,10 @@ def _k3(torch, csrc: str, out: str) -> None:
     from videosd_tpu_torch.ops.cuda import taesd_conv as k3
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs = _build(csrc, out, "taesd_conv_fp32.cu", K3_VARIANTS, "videosd_taesd_conv3x3_fp32",
-                  [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
-    for name, (_, regs, spills) in libs.items():
-        print(f"{name}: registers {regs}, spill bytes {spills} (tile rows 1, 2, 4, each "
+    libs = _build(csrc, out, "taesd_conv_fp32.cu", K3_VARIANTS)
+    for name, (lib, regs, spills) in libs.items():
+        lib.videosd_taesd_conv3x3_fp32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        print(f"{name}: registers {regs}, spill bytes {spills} (tile rows 2 and 4, each "
               f"without and with a skip)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = (torch.rand(64, 64, 3, 3, generator=gen, device="cuda") * 2 - 1) / 24.0
@@ -179,8 +177,7 @@ def _k3(torch, csrc: str, out: str) -> None:
         rows = k3.fp32_tile_rows(b, h, 2 * wp)
         xp = torch.randn(shape, generator=gen, device="cuda")
         o = torch.empty_like(xp)
-        exact = k3.packed_conv3x3_reference(w.double(), bias.double(), xp.double(),
-                                            relu=True).float()
+        exact = k3.packed_conv3x3_reference(w, bias, xp.double(), relu=True).float()
         stream = torch.cuda.current_stream().cuda_stream
 
         def run(lib):
@@ -203,11 +200,11 @@ def _k3(torch, csrc: str, out: str) -> None:
 def _k1(torch, csrc: str, out: str) -> None:
     """VARIANTS at SHAPES."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs = _build(csrc, out, "flash_attention_fp32.cu", VARIANTS,
-                  "videosd_flash_attention_fp32_fwd",
-                  [vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_float, ci, vp])
-    for name, (_, regs, spills) in libs.items():
+    libs = _build(csrc, out, "flash_attention_fp32.cu", VARIANTS)
+    for name, (lib, regs, spills) in libs.items():
+        lib.videosd_flash_attention_fp32_fwd.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+            ci, vp]
         print(f"{name}: registers {regs}, spill bytes {spills} (instances 256 .. 8)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for h, s, d in SHAPES:
@@ -240,17 +237,12 @@ def _k1(torch, csrc: str, out: str) -> None:
 def main() -> None:
     import torch
 
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernel", choices=("k1", "k3"), default="k1")
-    kernel = parser.parse_args().kernel
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-    with tempfile.TemporaryDirectory() as out:
-        if kernel == "k3":
-            _k3(torch, csrc, out)
-        else:
-            _k1(torch, csrc, out)
+    for ablation in (_k1, _k3):
+        with tempfile.TemporaryDirectory() as out:
+            ablation(torch, csrc, out)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

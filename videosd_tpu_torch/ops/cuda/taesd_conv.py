@@ -72,7 +72,7 @@ _MAX_STAGES = 4
 # 64 output pixels, most rows first, each tile in two work items of 32 output
 # channels; a halo stage is one TMA box of 16 input channels x 66 pixels x
 # (rows + 2) rows; the taps of one half, big and small planes, stay resident
-FP32_TILE_ROWS = (4, 2, 1)
+FP32_TILE_ROWS = (4, 2)
 FP32_TILE_W = 64
 FP32_HALF = 32
 _FP32_STAGE_CHANNELS = 16
@@ -105,8 +105,9 @@ def _packed(y):
 def packed_conv3x3_reference(weight, bias, xp, *, relu: bool, skip=None):
     """3x3 SAME conv of packed ``xp`` with a ``[C, C, 3, 3]`` ``weight``,
     then +``bias``, then ReLU, or +``skip`` then ReLU (``relu=False`` drops
-    the ReLU), all in fp32 (in fp64 for an fp64 ``xp``: the exact sums the
-    fp32 kernel is held to); returns packed ``xp.dtype``."""
+    the ReLU), all in fp32 (in fp64 for an fp64 ``xp``, the weight, bias and
+    skip cast to it: the exact sums the fp32 kernel is held to); returns
+    packed ``xp.dtype``."""
     acc = torch.float64 if xp.dtype == torch.float64 else torch.float32
     y = F.conv2d(_nchw(xp).to(acc), weight.to(acc), padding=1)
     if bias is not None:
@@ -209,8 +210,10 @@ def fp32_tile_rows(b: int, h: int, w: int) -> int:
     max(2 x rows, 4) / 4 warps a scheduler, and the busiest SM runs
     ceil(items / 132) rounds.  On an H100 at 700 W (``chip_smoke.py`` times
     every height at the 512^2 frame's TAESD sizes) 4 rows were fastest at
-    512^2, 256^2 and 128^2 (there 128 items on 132 SMs); at 64^2 2 and 1
-    rows were within 6 % of each other and 4 rows took 1.7x as long.
+    512^2, 256^2 and 128^2 (there 128 items on 132 SMs); at 64^2 4 rows took
+    1.7x as long as 2.  Under this cost a tile of 1 row never wins (2 rows
+    take as many rounds or fewer at the same 4 warps a scheduler), so the
+    kernel has no instance of it.
     """
     if min(b, h, w) < 1:
         raise ValueError(f"empty shape {(b, h, w)}")
@@ -318,8 +321,6 @@ def _launch(weight, bias, xp, relu: bool, skip, tile_w=None, tile_rows=None):
     global launches, launches_fp32
     from videosd_tpu_torch._build import load_library
 
-    if xp.device.type != "cuda":
-        raise ValueError(f"the TAESD conv kernel needs CUDA tensors, got {xp.device}")
     _check(weight, bias, xp, skip)
     fp32 = xp.dtype == torch.float32
     b, h, wp, _ = xp.shape
@@ -334,6 +335,8 @@ def _launch(weight, bias, xp, relu: bool, skip, tile_w=None, tile_rows=None):
         tile = tile_width(b, h, 2 * wp) if tile_w is None else tile_w
         if tile not in TILE_WIDTHS:
             raise ValueError(f"tile width {tile} not in {TILE_WIDTHS}")
+    if xp.device.type != "cuda":
+        raise ValueError(f"the TAESD conv kernel needs CUDA tensors, got {xp.device}")
     lib = load_library()
     taps = taps_for(weight, xp.dtype)
     bias32 = None if bias is None else _cached(bias, "bias", torch.float32,
