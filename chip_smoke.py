@@ -193,12 +193,15 @@ K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160)
 K1_TIMED = {kind: [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
                    (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)] for kind in ("bf16", "fp32")}
 # K1 above d = 256 (the wide kernels), as (B, H, Sq, Sk, d), in bf16 and fp32
-# with loud neighbours where H = 2: in bf16 two column slices (264, 320, 512)
-# and three (640), in fp32 one (up to 512) and two (640, Q streamed), keys !=
-# queries, and the KL VAE's mid attention at 512x512 (one head of 512 over
-# 64^2 latents) at batch 1 and 4
+# with loud neighbours where H = 2: in bf16 a cluster of two column slices
+# (264, 320, 512), three (640) and eight (2048, the widest one cluster
+# takes), two clusters of 6 past the cluster limit (2568), in fp32 one slice
+# (up to 512) and more (Q streamed); keys != queries, the KL VAE's mid
+# attention at 512x512 (one head of 512 over 64^2 latents) at batch 1 and 4,
+# an odd number of query tiles (192 rows), one query tile on one key tile
 K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
-           (4, 1, 4096, 4096, 512), (2, 2, 256, 512, 640)]
+           (4, 1, 4096, 4096, 512), (2, 2, 256, 512, 640), (1, 2, 192, 256, 512),
+           (1, 1, 64, 64, 520), (1, 2, 128, 192, 2048), (1, 1, 128, 128, 2568)]
 K1_WIDE_TIMED = {"bf16": [(1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)],
                  "fp32": [(1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]}
 # the tiny KL frame sizes, with K1's fp32 launches per frame: the UNet's 8 and
@@ -552,8 +555,12 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
         bars = (f"max|d| {mx:.3e} (bar {max_bar:.3e}: {K1_MAX_ULPS} ulps of the largest output) "
                 f"mean|d| {mean:.3e} (bar {mean_bar:.3e}: 2^-7 of mean|o| "
                 f"{ref.float().abs().mean().item():.3e})")
-        plan = (f"bf16, the wide kernel, Q {'resident' if fa.wide_q_resident(d) else 'streamed'}"
-                if d > fa.MAX_HEAD_DIM else
+        wide = fa.wide_plan(d) if d > fa.MAX_HEAD_DIM else None
+        plan = (f"bf16, the wide kernel, {wide.grid_slices // wide.cluster_slices} cluster(s) "
+                f"of {wide.cluster_slices} blocks per query tile, depth "
+                f"shares of up to {wide.share} panels, Q "
+                f"{'resident' if wide.q_resident else 'streamed'}"
+                if wide else
                 f"bf16, {fa.block_rows(sq, b * h, d)} rows/block on the {fa.instance_width(d)}-wide "
                 f"instance")
     if d > fa.MAX_HEAD_DIM:

@@ -335,23 +335,57 @@ def test_plain_version_matches_jax_above_256(rng, b, sq, sk, h, dh, dtype):
         assert _within_k1_bar(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("d, slices, resident", [(257, 2, True), (264, 2, True), (512, 2, True),
-                                                 (640, 3, True), (1216, 5, True),
-                                                 (1217, 5, False), (1600, 7, False)])
-def test_wide_plan(d, slices, resident):
-    """The wide kernel's plan: one block per 256 output columns of each
-    query tile; Q's 64-column panels resident beside a ring of 8 panels up
-    to d = 1216 (19 panels of the block's 27), streamed with K's above; the
-    d <= 256 kernels' range refused."""
-    assert FA.wide_slices(d) == slices
-    assert FA.wide_q_resident(d) is resident
+# (sq, d) -> (cluster_slices, grid_slices, share, q_resident, ring_slots); the
+# plan is d's alone, sq gives the grid's query tiles
+_WIDE_PLANS = {
+    (4096, 512): (2, 2, 4, True, 4),  # the KL VAE at 512x512: 64 tiles, clusters of 2 slices
+    (192, 512): (2, 2, 4, True, 4),  # 3 query tiles
+    (64, 520): (3, 3, 3, True, 4),  # one query tile, 9 panels over 3 slices
+    (256, 264): (2, 2, 3, True, 4),  # 5 panels: shares of 2 and 3
+    (320, 257): (2, 2, 3, True, 4),  # 5 query tiles
+    (256, 640): (3, 3, 4, True, 4),  # a cluster of 3
+    (256, 1600): (7, 7, 4, True, 4),  # 7 slices
+    (128, 2048): (8, 8, 4, True, 4),  # the widest head one cluster takes
+    (128, 2568): (6, 12, 7, True, 3),  # 11 slices in two clusters of 6, one block without columns
+    (128, 4096): (8, 16, 8, True, 3),  # the widest share kept resident (2 clusters of 8)
+    (128, 8200): (7, 35, 19, False, 5),  # a share past the resident limit: Q streams
+}
+
+
+@pytest.mark.parametrize("sq, d", list(_WIDE_PLANS), ids=lambda x: str(x))
+def test_wide_plan(sq, d):
+    """The bf16 wide kernel's plan: a block per 64 query rows and 256 output
+    columns; the slices of a query tile in one cluster of at most 8 (more
+    slices in clusters of equal size, padded with blocks that own no
+    columns), whose blocks split the depth panels of Q K^T (every block a
+    share, the shares covering the depth); the grid (Sq / 64, grid_slices)
+    a multiple of the cluster (1, cluster_slices) at any count of query
+    tiles; Q's share resident beside a ring of at least 3 slots of 4 panels,
+    else streamed through a ring of 5, all within the block's shared memory;
+    the d <= 256 kernels' range and ragged lengths refused."""
+    plan = FA.wide_plan(d)
+    assert tuple(plan[:5]) == _WIDE_PLANS[sq, d]
+    cs, grid_y = plan.cluster_slices, plan.grid_slices
+    assert 2 <= cs <= FA.WIDE_MAX_CLUSTER
+    assert grid_y % cs == 0
+    slices = FA.wide_slices(d)
+    assert slices <= grid_y < slices + grid_y // cs  # each cluster pads by less than a block
     panels = -(-d // 64)
-    ring = FA.WIDE_SLOTS - panels if resident else FA.WIDE_SLOTS
-    assert ring >= FA.WIDE_MIN_RING
-    assert FA.WIDE_SLOTS * 8192 + 1024 + (2 * FA.WIDE_SLOTS + 1) * 8 <= FA.SMEM_LIMIT
+    shares = [(r + 1) * panels // cs - r * panels // cs for r in range(cs)]
+    assert sum(shares) == panels and min(shares) >= 1 and max(shares) == plan.share
+    held = plan.share if plan.q_resident else 0
+    assert held + plan.ring_slots * FA.WIDE_GROUP <= FA.WIDE_PANELS
+    # a slot per S group and P V's, and one to fill: 3 resident, 4 streamed (Q's beside K's)
+    assert plan.ring_slots >= (FA.WIDE_MIN_SLOTS if plan.q_resident else 4)
+    static = (2 * FA.WIDE_PANELS // FA.WIDE_GROUP + 3) * 8  # the kernel's mbarriers
+    assert plan.smem == 1024 + 4 * 64 * 64 * 4 + FA.WIDE_PANELS * 8192
+    assert plan.smem + static <= FA.SMEM_LIMIT
     with pytest.raises(ValueError, match="d <= 256"):
-        FA.wide_slices(256)
-    assert FA.wide_slices(d, torch.bfloat16) == slices
+        FA.wide_plan(256)
+    ragged = torch.zeros(1, sq + 32, d, dtype=torch.bfloat16)
+    keys = torch.zeros(1, 64, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        FA._launch(ragged, keys, keys, 1, d ** -0.5)
 
 
 @pytest.mark.parametrize("d, slices, resident", [(257, 1, True), (264, 1, True), (512, 1, True),

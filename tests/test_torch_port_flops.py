@@ -140,14 +140,15 @@ def test_kl_frame_flops_match_jax(monkeypatch):
 
 def test_sd15_kl_frame_pads_the_wide_attention():
     """sd15 512x512 with the KL VAE: the padded count adds, beside the
-    UNet's d = 40 padding, the wide kernel's recomputed logits at the VAE's
-    d = 512 (two slices of 256 columns: 2 Q·Kᵀ + 1 P·V, a width of 768 in
-    ``4 Sq Sk w``) in encode and in decode, at [1, 4096, 4096]."""
+    UNet's d = 40 padding, nothing for the wide kernel at the VAE's d = 512
+    in encode and in decode ([1, 4096, 4096]): its two slices of 256 columns
+    split the depth of Q·Kᵀ in one cluster (1 Q·Kᵀ + 1 P·V, a width of 512
+    in ``4 Sq Sk w``)."""
     meta = P.ModelBundle.random("sd15", dtype=torch.bfloat16, device="meta", with_kl_vae=True)
     kl = PF.frame_flops(meta, P.FrameSpec(height=512, width=512, steps=4, vae="kl"))
     taesd = PF.frame_flops(meta, P.FrameSpec(height=512, width=512, steps=4))
     unet_pad = 28 * 4.0 * 8 * 4096 * 4096 * (48 - 40)
-    assert kl["padded"] - kl["logical"] == unet_pad + 2 * 4.0 * 4096 * 4096 * (768 - 512)
+    assert kl["padded"] - kl["logical"] == unet_pad + 2 * 4.0 * 4096 * 4096 * (512 - 512)
     assert taesd["padded"] - taesd["logical"] == unet_pad
     assert kl["logical"] > taesd["logical"]
 
@@ -165,8 +166,8 @@ def test_fp32_kl_frame_forms_the_wide_logits_once():
     (40, torch.bfloat16, 48), (80, torch.bfloat16, 80), (160, torch.bfloat16, 160),
     (8, torch.bfloat16, 16), (24, torch.bfloat16, 48), (72, torch.bfloat16, 80),
     (256, torch.bfloat16, 256), (8, torch.float32, 8), (20, torch.float32, 24),
-    (6, torch.float32, 8), (512, torch.bfloat16, 768), (512, torch.float32, 512),
-    (264, torch.bfloat16, 480), (264, torch.float32, 268), (640, torch.bfloat16, 1280),
+    (6, torch.float32, 8), (512, torch.bfloat16, 512), (512, torch.float32, 512),
+    (264, torch.bfloat16, 320), (264, torch.float32, 268), (640, torch.bfloat16, 640),
     (516, torch.float32, 788), (640, torch.float32, 960),
 ])
 def test_padded_width_is_the_kernels(d, dtype, width):

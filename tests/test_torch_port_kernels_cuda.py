@@ -305,15 +305,18 @@ def test_k1_fp32_on_card(gen, no_tf32, shape):
         FA._launch(q, k, v, h, d ** -0.5, block_m=128)
 
 
-# (batch, heads, sq, sk, d) above d = 256, for the wide kernels: in bf16 two
-# slices of 256 columns (264, 320, 512), three (640) and more (1024, 1600), in
-# fp32 one slice of 512 up to 512 and two at 516, 640 and 1024; keys !=
-# queries, the KL VAE's [1, 4096, 512] at 512x512, a d whose Q streams (1600
-# in bf16: past the ring's resident limit; 640 and up in fp32: past 576), and
-# d off the 16-byte rows in bf16 (260 and 516: padded copies)
+# (batch, heads, sq, sk, d) above d = 256, for the wide kernels: in bf16 a
+# cluster of two slices of 256 columns (264, 320, 512), three (640) and more
+# (1024, 1600, 2048: the widest one cluster takes), two clusters of 6 past
+# the cluster limit (2568: one block of each without columns), in fp32 one
+# slice of 512 up to 512 and more above; keys != queries, the KL VAE's
+# [1, 4096, 512] at 512x512, an odd number of query tiles (192 rows), one
+# query tile on one key tile (520), d whose Q streams in fp32 (640 and up:
+# past 576), and d off the 16-byte rows in bf16 (260 and 516: padded copies)
 _K1_WIDE = [(1, 2, 256, 256, 264), (1, 2, 512, 256, 320), (1, 1, 4096, 4096, 512),
             (2, 2, 256, 512, 640), (1, 1, 256, 192, 1600), (1, 2, 128, 192, 260),
-            (1, 2, 256, 256, 516), (1, 1, 256, 512, 1024)]
+            (1, 2, 256, 256, 516), (1, 1, 256, 512, 1024), (1, 2, 192, 256, 512),
+            (1, 1, 64, 64, 520), (1, 2, 128, 192, 2048), (1, 1, 128, 128, 2568)]
 
 
 @pytest.mark.cuda
@@ -351,6 +354,20 @@ def test_k1_wide_on_card(gen, no_tf32, shape, dtype):
     assert torch.equal(FA._launch(q, k, v, h, d ** -0.5, block_m=rows), out)
     with pytest.raises(ValueError, match="rows per block"):
         FA._launch(q, k, v, h, d ** -0.5, block_m=2 * rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [257, 264, 512, 520, 640, 1600, 2048, 2568, 8200])
+def test_k1_wide_plan_is_the_kernels(gen, d):
+    """``wide_plan`` (the wrapper's mirror, checked on the CPU) equals the
+    plan the bf16 wide kernel launches with, read from its library."""
+    import ctypes
+
+    from videosd_tpu_torch._build import load_library
+
+    out = (ctypes.c_int * 6)()
+    assert load_library().videosd_flash_attention_wide_plan(d, out) == 0
+    assert list(out) == [int(x) for x in FA.wide_plan(d)]
 
 
 @pytest.mark.cuda

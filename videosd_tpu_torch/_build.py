@@ -122,6 +122,8 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp]
         fn.restype = ci
+    lib.videosd_flash_attention_wide_plan.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.videosd_flash_attention_wide_plan.restype = ci
     lib.videosd_taesd_conv3x3.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.videosd_taesd_conv3x3.restype = ci
     lib.videosd_taesd_conv3x3_fp32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]

@@ -1,5 +1,5 @@
-// TMA, bulk copies and mbarriers for sm_90a, shared by the kernels that use
-// them (flash_attention.cu, taesd_conv.cu).
+// TMA, bulk copies, mbarriers and thread-block clusters for sm_90a, shared by
+// the kernels that use them (flash_attention.cu, taesd_conv.cu, ...).
 //
 // Device side: thin inline-PTX wrappers.  Host side: cuTensorMapEncodeTiled,
 // looked up in libcuda once (nothing links it), and a cache of tensor maps
@@ -72,6 +72,77 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------- clusters (sm_90)
+
+// Every thread of every block of the cluster: earlier writes are seen after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The address of the shared-memory location `addr` of this block in the block
+// of rank `rank` of the cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// One arrival on an mbarrier of any block of the cluster (an address from
+// mapa), releasing this thread's earlier memory accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// mbar_wait that acquires at cluster scope: what the threads of other blocks
+// released with their arrivals is seen after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void fence_acq_rel_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// 16 bytes into another block's shared memory (an address from mapa), counted
+// in bytes on that block's mbarrier `bar` (also from mapa), as a TMA load is.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+// 16 bytes of another block's shared memory (an address from mapa).
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // TMA store of one box from shared memory; what falls outside the tensor is

@@ -11,18 +11,18 @@ between calls.  It times, with torch.profiler (the device time of every
 kernel and memset a call issues, median of three sessions of 20 calls):
 
 * first, before any profiler session (one slows the host's later
-  launches): the fp32 sd15 512x512 4-step ControlNet + KL frame (the
-  configuration of ``videosd_tpu/tools/parity.py``, random weights from
-  seed 0, TF32 off), replayed from its CUDA graph: the median ms of
-  FRAMES blocking frames (host clock);
+  launches): the sd15 512x512 4-step ControlNet + KL frame in fp32 (the
+  configuration of ``videosd_tpu/tools/parity.py``, TF32 off) and in bf16
+  (the production dtype), random weights from seed 0, replayed from its
+  CUDA graph: the median ms of FRAMES blocking frames (host clock);
 * K1, ``flash_attention`` on ``[1, S, 8*d]`` tensors at the sd15 512x512
   main path's three shapes in bf16 and in fp32 (the d <= 256 fp32 kernel),
-  and in fp32 on one head of d = 512 at the KL VAE's [1, 4096, 512] and
-  [4, 4096, 512] (the wide fp32 kernel);
+  and on one head of d = 512 at the KL VAE's [1, 4096, 512] and
+  [4, 4096, 512] in bf16 and in fp32 (the wide kernels);
 * the sd15 KL VAE (``models/vae.py``, published widths, weights from torch's
-  default init under seed 0) in fp32, TF32 off: one encode of a 512x512
-  frame and one decode of its 64x64 latent, all its kernels (two of them
-  the wide fp32 kernel);
+  default init under seed 0) in bf16 and in fp32 (TF32 off): one encode of
+  a 512x512 frame and one decode of its 64x64 latent, all its kernels (two
+  of them the wide kernel of the dtype);
 * K2, ``fused_preprocess`` of a uint8 frame at 512x512, 768x768, 480x640
   and 1080x1920, with its device operations per call;
 * K3's fp32 kernel, ``packed_conv3x3`` on fp32 ``[1, H, W/2, 128]`` at the
@@ -47,7 +47,7 @@ import subprocess
 import sys
 
 K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
-K1_WIDE_FP32 = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
+K1_WIDE = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
 K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920)]
 K3_SHAPES = [(1, 512, 256, 128), (1, 256, 128, 128), (1, 128, 64, 128), (1, 64, 32, 128)]
 CALLS, SESSIONS = 20, 3
@@ -71,8 +71,8 @@ def _device(torch, fn) -> tuple[float, float]:
     return statistics.median(ms), statistics.median(ops)
 
 
-def _fp32_frame_ms(torch) -> float:
-    """Median ms of FRAMES blocking replays of the fp32 sd15 CN + KL frame."""
+def _frame_ms(torch, dtype) -> float:
+    """Median ms of FRAMES blocking replays of the sd15 CN + KL frame."""
     import time
 
     import numpy as np
@@ -84,7 +84,7 @@ def _fp32_frame_ms(torch) -> float:
         build_prompt_encoder,
     )
 
-    bundle = ModelBundle.random("sd15", dtype=torch.float32, device="cuda", with_kl_vae=True)
+    bundle = ModelBundle.random("sd15", dtype=dtype, device="cuda", with_kl_vae=True)
     embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
     program = build_frame_program(bundle, FrameSpec(batch=1, height=512, width=512, steps=4,
                                                     vae="kl"))
@@ -152,9 +152,10 @@ def main() -> None:
         raise SystemExit("kernel_times: needs a CUDA card")
     tree = os.path.relpath(root, here)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps({"tree": tree, "kernel": "fp32 sd15 CN+KL frame, replayed",
-                      "shape": [1, 512, 512, 3], "ms_per_frame": _fp32_frame_ms(torch)}))
-    torch.cuda.empty_cache()
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        print(json.dumps({"tree": tree, "kernel": f"{name} sd15 CN+KL frame, replayed",
+                          "shape": [1, 512, 512, 3], "ms_per_frame": _frame_ms(torch, dtype)}))
+        torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype, name in ((torch.bfloat16, "K1"), (torch.float32, "K1 fp32")):
         for h, s, d in K1_SHAPES:
@@ -163,20 +164,24 @@ def main() -> None:
             ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=h))
             print(json.dumps({"tree": tree, "kernel": name, "shape": [h, s, d],
                               "device_ms": ms, "device_ops_per_call": ops}))
-    for b, s, d in K1_WIDE_FP32:
-        q, k, v = (torch.randn(b, s, d, generator=gen, device="cuda") for _ in range(3))
-        ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=1))
-        print(json.dumps({"tree": tree, "kernel": "K1 wide fp32", "shape": [b, s, d],
-                          "device_ms": ms, "device_ops_per_call": ops}))
-    torch.manual_seed(0)
-    vae = AutoencoderKL(VAE_PRESETS["sd15"]).cuda().float().eval()
-    x = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
-    z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
-    with torch.inference_mode():
-        ms, ops = _device(torch, lambda: (vae_encode(vae, x), vae_decode(vae, z)))
-    print(json.dumps({"tree": tree, "kernel": "KL VAE fp32 encode + decode",
-                      "shape": [1, 512, 512, 3], "device_ms": ms, "device_ops_per_call": ops}))
-    del vae
+    for dtype, name in ((torch.bfloat16, "K1 wide"), (torch.float32, "K1 wide fp32")):
+        for b, s, d in K1_WIDE:
+            q, k, v = (torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            ms, ops = _device(torch, lambda: fa.flash_attention(q, k, v, num_heads=1))
+            print(json.dumps({"tree": tree, "kernel": name, "shape": [b, s, d],
+                              "device_ms": ms, "device_ops_per_call": ops}))
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        torch.manual_seed(0)
+        vae = AutoencoderKL(VAE_PRESETS["sd15"]).cuda().to(dtype).eval()
+        x = (torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1).to(dtype)
+        z = torch.randn(1, 64, 64, 4, generator=gen, device="cuda").to(dtype)
+        with torch.inference_mode():
+            ms, ops = _device(torch, lambda: (vae_encode(vae, x), vae_decode(vae, z)))
+        print(json.dumps({"tree": tree, "kernel": f"KL VAE {name} encode + decode",
+                          "shape": [1, 512, 512, 3], "device_ms": ms,
+                          "device_ops_per_call": ops}))
+        del vae
     for hw in K2_SHAPES:
         frame = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
         ms, ops = _device(torch, lambda: k2.fused_preprocess(frame))

@@ -1,24 +1,28 @@
-"""Ablation timings of the 3xTF32 fp32 kernels of K1 (d <= 256) and K3:
-copies of a kernel's source with parts changed, built side by side and
-timed in turns on one card: K1's copies, then K3's.
+"""Ablation timings of the 3xTF32 fp32 kernels of K1 (d <= 256) and K3, and
+of K1's wide bf16 kernel (d > 256): copies of a kernel's source with parts
+changed, built side by side and timed in turns on one card.
 
     python3 videosd_tpu_torch/kernel_variants.py
 
-The card's machine has no ``ncu``, so what holds a kernel back is found by
-timing copies of it that drop or change one part.  Each entry of
-:data:`VARIANTS` (K1: ``csrc/flash_attention_fp32.cu``) or
-:data:`K3_VARIANTS` (K3: ``csrc/taesd_conv_fp32.cu``) is a list of text
-replacements applied to the source (a replacement whose text is missing
-fails the run: the list follows the source).  Every copy is compiled by its
-own ``nvcc`` into its own library (a kernel's copies all started together),
-loaded with ctypes and launched through its C entry: K1's on fp32 ``[1, S, 8*d]``
-tensors at the sd15 512x512 frame's three shapes, K3's on fp32 ``[1, H,
-W/2, 128]`` at TAESD's four sizes (ReLU, bias) with each size's tile
-height; four turns, the copies in order then reversed, 50 launches each
+K1's copies, then K3's, then the wide kernel's.  The card's machine has no
+``ncu``, so what holds a kernel back is found by timing copies of it that
+drop or change one part.  Each entry of :data:`VARIANTS` (K1:
+``csrc/flash_attention_fp32.cu``), :data:`K3_VARIANTS` (K3:
+``csrc/taesd_conv_fp32.cu``) or :data:`WIDE_VARIANTS` (K1 wide bf16:
+``csrc/flash_attention_wide.cu``) is a list of text replacements applied to
+the source (a replacement whose text is missing fails the run: the list
+follows the source).  Every copy is compiled by its own ``nvcc`` into its
+own library (a kernel's copies all started together), loaded with ctypes
+and launched through its C entry: K1's on fp32 ``[1, S, 8*d]`` tensors at
+the sd15 512x512 frame's three shapes, K3's on fp32 ``[1, H, W/2, 128]`` at
+TAESD's four sizes (ReLU, bias) with each size's tile height, the wide
+kernel's on bf16 ``[B, 4096, 512]`` (the KL VAE's mid attention, batch 1
+and 4); four turns, the copies in order then reversed, 50 launches each
 timed by CUDA events.  Prints each copy's registers and spills, its
 median-of-turns ms per launch and its largest error relative to the plain
-version in fp64 (copies that drop arithmetic are wrong by design), then the
-card's name and power limit.  Needs a CUDA card and nvcc.
+version (in fp64 for the fp32 kernels; copies that drop arithmetic are
+wrong by design), then the card's name and power limit.  Needs a CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -109,9 +113,48 @@ K3_VARIANTS = {
 }
 
 
-def _build(csrc: str, out: str, source: str, variants: dict) -> dict:
+WIDE_SHAPES = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
+_WIDE_QK = ("          wgmma::ss_m64n64k16(s, kmajor_desc(qa + off, kd), kmajor_desc(ka + off, kd),\n"
+            "                              j > d0 || kd > 0);")
+_WIDE_PV = ("        for (int kk = 0; kk < kKeys / 16; ++kk) wgmma::Rs<128>::mma(all, pa[kk], "
+            "v_desc(va, kk));")
+_WIDE_NO_CLUSTER_EXCHANGE = [
+    ("    named_barrier_sync(2, 128 * kConsumers);  // both read: the buffers may be written again\n"
+     "    if (pl.cs == 1) return;", "    named_barrier_sync(2, 128 * kConsumers);  // both read: the "
+     "buffers may be written again\n    if (true) return;"),
+    ("  auto finish = [&](float(&s)[32], int t) {\n    if (pl.cs == 1) return;",
+     "  auto finish = [&](float(&s)[32], int t) {\n    if (true) return;")]
+WIDE_VARIANTS = {
+    "as committed": [],
+    # each block forms S from its own depth share only: no partials between blocks
+    "no cluster exchange": _WIDE_NO_CLUSTER_EXCHANGE,
+    # nor between the block's two warpgroups: each forms S from its own half
+    "no exchange": _WIDE_NO_CLUSTER_EXCHANGE + [
+        ("  auto combine = [&](float(&s)[32], int t) {\n",
+         "  auto combine = [&](float(&s)[32], int t) {\n    if (true) return;\n")],
+    # P V's wgmma dropped (its waits and releases kept), or Q K^T's
+    "no P V": [(_WIDE_PV, "        all[0] += __uint_as_float(pa[0][0] ^ va);")],
+    "no Q K^T": [(_WIDE_QK, "          s[kd] += __uint_as_float(qa ^ ka);")],
+    # S(j+1) issued after tile j's softmax and O's rescale, not before them
+    "S after softmax": [("    int kept = n;\n    if constexpr (next) kept = issue_qk(nxt);\n"
+                         "    finish(cur, t);\n    softmax(cur);\n", "    finish(cur, t);\n"
+                         "    softmax(cur);\n"),
+                        ("        acc[c][i + 3] *= alpha[1];\n      }\n    const int first_v = n;",
+                         "        acc[c][i + 3] *= alpha[1];\n      }\n    int kept = n;\n"
+                         "    if constexpr (next) kept = issue_qk(nxt);\n    const int first_v = n;")],
+    # the softmax (and P's packing) dropped: P V runs on stale P
+    "no softmax": [("  auto softmax = [&](float(&s)[32]) {\n",
+                    "  auto softmax = [&](float(&s)[32]) {\n    return;\n")],
+    # the producer arrives on each full barrier without copying (stale data)
+    "no K/V loads": [("        mbar_arrive_expect_tx(ring.full_bar(n), count * kPanelBytes);\n"
+                      "        load(", "        mbar_arrive(ring.full_bar(n));\n        if (false)"
+                      " load(")],
+}
+
+
+def _build(csrc: str, out: str, source: str, variants: dict, extra: str = "") -> dict:
     """name -> (ctypes library, registers per instance, spill bytes per instance)
-    for each copy of ``source`` in ``variants``."""
+    for each copy of ``source`` in ``variants``, ``extra`` appended to each."""
     src = open(os.path.join(csrc, source)).read()
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     procs = {}
@@ -121,8 +164,10 @@ def _build(csrc: str, out: str, source: str, variants: dict) -> dict:
             if old not in text:
                 raise SystemExit(f"kernel_variants: {name!r}: {old!r} is not in the source")
             text = text.replace(old, new)
+        text += extra
         path = os.path.join(out, f"v{i}.cu")
-        shutil.copy(os.path.join(csrc, "tma_sm90.cuh"), out)
+        for header in ("tma_sm90.cuh", "wgmma_sm90.cuh"):
+            shutil.copy(os.path.join(csrc, header), out)
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
@@ -234,13 +279,82 @@ def _k1(torch, csrc: str, out: str) -> None:
                   f"from fp64 {err:.2e}")
 
 
+# appended to each copy of the wide kernel: the clusters of its d = 512 launch
+# (the even instance, cq x 2 blocks of its shared memory) the card holds at once
+_WIDE_CLUSTERS = r"""
+extern "C" int variants_resident_clusters(int cq, int* out) {
+  auto kernel = flash_wide_fwd_kernel<true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(64, 2, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cq;
+  cluster.val.clusterDim.y = 2;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(out, reinterpret_cast<const void*>(kernel), &cfg);
+  return (int)err;
+}
+"""
+
+
+def _wide(torch, csrc: str, out: str) -> None:
+    """WIDE_VARIANTS at WIDE_SHAPES, after the clusters of 1 x 2 and 2 x 2
+    blocks the card holds at once."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from videosd_tpu_torch.ops.cuda import flash_attention as fa
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs = _build(csrc, out, "flash_attention_wide.cu", WIDE_VARIANTS, _WIDE_CLUSTERS)
+    for name, (lib, regs, spills) in libs.items():
+        lib.videosd_flash_attention_wide_fwd.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+            ci, vp]
+        print(f"{name}: registers {regs}, spill bytes {spills}")
+    for cq in (1, 2):
+        n = ctypes.c_int(0)
+        err = libs["as committed"][0].variants_resident_clusters(cq, ctypes.byref(n))
+        print(f"clusters of {cq} x 2 blocks resident at once: {n.value} ({cq * 2 * n.value} "
+              f"blocks; the d = 512 launch at [1, 4096, 512] has 128; cudaError {err})")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, s, d in WIDE_SHAPES:
+        q, k, v = (torch.randn(b, s, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        o = torch.empty_like(q)
+        strides = (ctypes.c_longlong * 8)(*(x for t in (q, k, v, o)
+                                            for x in (t.stride(0), t.stride(1))))
+        plain = fa.flash_attention_reference(q, k, v, d ** -0.5).float()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(lib):
+            err = lib.videosd_flash_attention_wide_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, 1, s, s, d, strides,
+                d ** -0.5, 0, stream)
+            if err:
+                raise SystemExit(f"kernel_variants: launch failed: cudaError {err}")
+
+        ms = _turns(torch, libs, run)
+        for name, (lib, _, _) in libs.items():
+            run(lib)
+            torch.cuda.synchronize()
+            err = ((o.float() - plain).abs().max() / plain.abs().max()).item()
+            print(f"[{b},{s},{d}] {name}: {statistics.median(ms[name]):.4f} ms per launch "
+                  f"(turns {', '.join(f'{t:.4f}' for t in ms[name])}), max |d| / max |o| "
+                  f"from the plain version {err:.2e}")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-    for ablation in (_k1, _k3):
+    for ablation in (_k1, _k3, _wide):
         with tempfile.TemporaryDirectory() as out:
             ablation(torch, csrc, out)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,12 +10,14 @@ up to d = 256 (both products in 3xTF32 on ``mma.sync``, K and V through a
 TMA ring; :func:`fp32_block_rows` and :func:`fp32_stages` mirror its plan),
 ``videosd_tpu_torch/csrc/flash_attention_wide.cu`` for bf16 above d = 256
 (the KL VAE's d = 512: 64 query rows and one slice of at most 256 output
-columns per block, each slice forming the logits over the whole depth), and
+columns per block, the slices of a query tile in one thread-block cluster
+that forms the logits once, each block over its share of the depth;
+:func:`wide_plan` mirrors the launch), and
 ``videosd_tpu_torch/csrc/flash_attention_wide_fp32.cu`` for fp32 above
 d = 256 (32 query rows and up to 512 output columns per block, so at
 d = 512 the logits are formed once; both products on the tensor cores in
 3xTF32, three TF32 ``mma.sync`` products of split operands, near fp32
-rounding).  :func:`wide_slices` gives the slices per query tile.  The
+rounding).  :func:`wide_slices` gives the column slices per query tile.  The
 kernels' own TF32 arithmetic does not read torch's TF32 flags.
 
 * :func:`flash_attention_reference` is the plain PyTorch version: the
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +59,7 @@ __all__ = [
     "KEY_TILE",
     "MAX_HEAD_DIM",
     "NUM_SMS",
+    "WidePlan",
     "block_rows",
     "flash_attention",
     "flash_attention_bhsd",
@@ -71,7 +75,7 @@ __all__ = [
     "plan_fits",
     "row_plans",
     "wide_fp32_q_resident",
-    "wide_q_resident",
+    "wide_plan",
     "wide_slices",
 ]
 
@@ -92,11 +96,15 @@ _FIXED_REGISTERS = 48 + 44
 # rows of 16 bytes: the element alignment of a head read in place
 _ALIGN = {torch.bfloat16: 8, torch.float32: 4}
 
-# the bf16 wide kernel (d > 256): output columns per block, and the panels
-# of 64 columns a block's shared memory holds; Q stays resident beside a ring
-# of at least 8 panels (flash_attention_wide.cu)
+# the bf16 wide kernel (d > 256, flash_attention_wide.cu::make_plan): output
+# columns per block; the portable cluster size; the panels of 64 columns a block's shared memory holds (Q's share
+# resident beside a ring of at least 3 slots of 4 panels), beside four fp32
+# 64 x 64 tiles of S (its two warpgroups' partials, the cluster's exchange
+# buffers) and 1 KB of alignment
 WIDE_SLICE = 256
-WIDE_SLOTS, WIDE_MIN_RING = 27, 8
+WIDE_MAX_CLUSTER = 8
+WIDE_PANELS, WIDE_GROUP, WIDE_MIN_SLOTS = 20, 4, 3
+WIDE_SMEM = 1024 + 4 * 64 * 64 * 4 + WIDE_PANELS * 8192
 # the fp32 wide kernel: output columns and query rows per block; the bytes of
 # shared memory beside Q and the ring (1 KB of alignment slack, a V tile of
 # 32 x 512 floats, the S partials of 4 x 32 x 40, which P aliases) and of one
@@ -232,19 +240,44 @@ def fp32_stages(d: int) -> int:
 
 
 def wide_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Blocks per query tile of the wide kernel of ``dtype`` at head dim
-    ``d`` > 256: one per slice of at most :data:`WIDE_SLICE` (bf16) or
-    :data:`WIDE_SLICE_FP32` (fp32) output columns, each of which forms the
-    logits over the whole depth again."""
+    """Slices of output columns per query tile of the wide kernel of
+    ``dtype`` at head dim ``d`` > 256: one block per :data:`WIDE_SLICE`
+    (bf16) or :data:`WIDE_SLICE_FP32` (fp32) columns.  An fp32 block forms
+    the logits over the whole depth; the bf16 slices of a query tile split
+    it in a cluster (:func:`wide_plan`)."""
     if d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} runs on the d <= {MAX_HEAD_DIM} kernels")
     return -(-d // (WIDE_SLICE_FP32 if dtype == torch.float32 else WIDE_SLICE))
 
 
-def wide_q_resident(d: int) -> bool:
-    """Whether the bf16 wide kernel keeps Q's 64-column panels resident
-    (beside a ring of :data:`WIDE_MIN_RING` panels) or streams them with K's."""
-    return -(-d // 64) + WIDE_MIN_RING <= WIDE_SLOTS
+class WidePlan(NamedTuple):
+    """A launch of the bf16 wide kernel (``flash_attention_wide.cu::make_plan``)."""
+
+    cluster_slices: int  # slice blocks a cluster spans, splitting the depth of Q K^T
+    grid_slices: int  # slice blocks per query tile, a multiple of cluster_slices
+    share: int  # the most 64-column depth panels of Q K^T one block forms
+    q_resident: bool  # Q's share kept in shared memory (else streamed beside K)
+    ring_slots: int  # slots of the K/V ring, each 4 panels of 64 rows x 64 columns (32 KB)
+    smem: int  # bytes of dynamic shared memory a block asks for
+
+
+def wide_plan(d: int) -> WidePlan:
+    """The bf16 wide kernel's cluster at head dim ``d`` > 256: a block per 64
+    query rows and :data:`WIDE_SLICE` output columns (the grid is
+    ``(Sq / 64, grid_slices, B * H)``); the slices of a query tile in one
+    cluster (at most :data:`WIDE_MAX_CLUSTER`; more slices split into
+    clusters of equal size, padded with blocks that own no columns), which
+    forms the logits once, each block over its share of the depth panels."""
+    if d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} runs on the d <= {MAX_HEAD_DIM} kernels")
+    slices = wide_slices(d)
+    clusters = -(-slices // WIDE_MAX_CLUSTER)
+    cs = -(-slices // clusters)
+    panels = -(-d // 64)
+    share = -(-panels // cs)
+    resident = share + WIDE_GROUP * WIDE_MIN_SLOTS <= WIDE_PANELS
+    slots = (WIDE_PANELS - share if resident else WIDE_PANELS) // WIDE_GROUP
+    return WidePlan(cs, clusters * cs, share, resident, slots, WIDE_SMEM)
 
 
 def wide_fp32_q_resident(d: int) -> bool:

@@ -43,6 +43,7 @@ from videosd_tpu_torch.ops.cuda.flash_attention import (
     MAX_HEAD_DIM,
     depth,
     instance_width,
+    wide_plan,
     wide_slices,
 )
 from videosd_tpu_torch.pipelines.lcm_img2img import (
@@ -84,16 +85,18 @@ def attention_padded_width(d: int, dtype: torch.dtype) -> int:
     width ``w`` of ``4 Sq Sk w`` flops: the bf16 instance rounded up to 16,
     or ``d`` rounded up to 8 in fp32 (the ``mma.sync`` k-step of Q·Kᵀ's
     depth and the n-tile of P·V's columns).  Above d = 256 the wide kernels run
-    Q·Kᵀ once per slice (:func:`wide_slices`) and P·V once: in bf16 both at
-    ``d`` padded to 64 (panels), in fp32 Q·Kᵀ at ``d`` padded to 16 (two
-    k-steps of 8) and P·V at ``d`` padded to 8 (an m16n8 tile's columns).
-    ``w`` is their mean: 768 at d = 512 in bf16 (two slices of 256
-    columns), 512 in fp32 (one slice of 512)."""
+    P·V once and Q·Kᵀ once per block (fp32: one per slice of 512 columns,
+    :func:`wide_slices`) or once per cluster (bf16: the slices of a cluster
+    split the depth, :func:`wide_plan`; one cluster up to d = 2048): in bf16
+    both at ``d`` padded to 64 (panels), in fp32 Q·Kᵀ at ``d`` padded to 16
+    (two k-steps of 8) and P·V at ``d`` padded to 8 (an m16n8 tile's
+    columns).  ``w`` is their mean: 512 at d = 512 in bf16 and in fp32."""
     if d > MAX_HEAD_DIM:
         if dtype == torch.float32:
             return (-(-d // 16) * 16 * wide_slices(d, dtype) + -(-d // 8) * 8) // 2
+        plan = wide_plan(d)
         dp = -(-d // 64) * 64
-        return dp * (wide_slices(d) + 1) // 2
+        return dp * (plan.grid_slices // plan.cluster_slices + 1) // 2
     if dtype == torch.float32:
         return -(-d // 8) * 8
     return depth(instance_width(d))
