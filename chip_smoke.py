@@ -76,9 +76,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``warm_alpha=0`` equal to no warm start bit for bit, reuse of the same
    frame's caches close to the parity frame, and ``crop_resize`` on the
    card equal to the CPU's;
+6b'. reference mode: the phase-5 bundle's sd15 512x512 4-step TAESD bf16
+   reference frame (no ControlNet, two UNet passes a step) through
+   ``build_reference_program``: two replayed calls equal to the eager
+   ``reference_frame_program`` bit for bit, 180 K1 launches per frame at
+   capture (60 of them banked, on twice the keys), style fidelity 0 equal
+   to the plain frame program on the same noise, the median replayed
+   ms/frame and ``ref_mode_fps`` as the bench measures it;
+6b''. the serving engine (``videosd_tpu_torch/runtime``): four streams of
+   512x512 camera frames into one ``Engine`` (max_batch 4) on the phase-5
+   bundle, one switched to reference mode partway: the batches formed,
+   frames/s, each stream's p50 latency, the graphs held and the card's
+   memory; the reference bucket's warm-up and capture on a background
+   thread while the dispatch thread serves the other streams; one
+   dispatched batch run again through ``build_frame_program`` equal bit
+   for bit; no error logged by the engine;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
-   nowhere in the port), and at the main path's shapes under every number
+   nowhere in the port; the reference mode's banked shapes among them),
+   and at the main path's shapes under every number
    of query rows per block the kernel can run: the first profiler sessions
    of the run, after every frame timing;
 7. kernel K2 (the fused preprocess with its Sobel stencil) against its
@@ -104,8 +120,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     of the replayed frame, and device time by class of operation (K1,
     GEMMs, convolutions, layout transposes, copies and casts, elementwise,
     reductions, norms, softmax); then the same over two replayed KL
-    frames, and over two replayed fp32 parity frames (K1's fp32 device ms
-    per frame).
+    frames, over two replayed fp32 parity frames (K1's fp32 device ms
+    per frame), and over two replayed reference frames.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
@@ -166,15 +182,23 @@ from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     frame_program,
     kernel_launches,
 )
+from videosd_tpu_torch.pipelines.reference_attn import (  # noqa: E402
+    build_reference_program,
+    reference_frame_program,
+)
 
 # K1's shapes on the main path, [B*H, S, d_head]: sd15 at 512x512 has 8 heads
 # over 64^2, 32^2 and 16^2 latents
 K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
-# further K1 shapes held against plain, as (B, H, Sq, Sk, d): the
-# reference-attention read (twice the keys), batch 2 (at d = 80 the grid then
-# takes 128 rows per block), d = 64, and few queries on many keys at d = 160
-K1_EXTRA = [(1, 8, 4096, 8192, 40), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
-            (1, 8, 1024, 1024, 64), (1, 8, 256, 4096, 160)]
+# the reference-attention READ pass's banked self-attentions at sd15 512^2
+# (twice the keys), as (B, H, Sq, Sk, d): 20 launches of each per 4-step
+# reference frame, beside 40 of each square shape
+K1_BANKED = [(1, 8, 4096, 8192, 40), (1, 8, 1024, 2048, 80), (1, 8, 256, 512, 160)]
+# further K1 shapes held against plain, as (B, H, Sq, Sk, d): the banked ones,
+# batch 2 (at d = 80 the grid then takes 128 rows per block), d = 64, and few
+# queries on many keys at d = 160
+K1_EXTRA = K1_BANKED + [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
+                        (1, 8, 1024, 1024, 64), (1, 8, 256, 4096, 160)]
 # K1 in bf16 at every kind of head dim, as (B, H, Sq, Sk, d): the tiny
 # family's 8 (256^2: 1024 tokens) and 16 (keys != queries), 24 and 72 (below
 # their instance's width, 40 and 80), 20 (off the 16-byte rows: a padded
@@ -248,6 +272,24 @@ K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
 # routed self-attentions per sd15 512^2 4-step frame: per step 15 in the UNet
 # (down 0-2 x 2, up 1-3 x 3) and 6 in the ControlNet (down 0-2 x 2)
 K1_PER_FRAME = 84
+# per sd15 512^2 4-step reference frame (no ControlNet): per step the WRITE
+# pass's 15, and the READ pass's 15 plain and 15 banked (the mid block's 64
+# tokens stay on the plain route)
+K1_REF_PER_FRAME = 4 * 45
+# the reference frame with style fidelity 0 against the plain frame program
+# (no ControlNet) on the same inputs and noise: the blends then return the
+# plain branches exactly (0 * x + 1 * y in fp32), so the two run the same
+# kernels on the same values; the bar, one image level and one bf16 ulp of
+# the largest latent, only allows a library that picks another algorithm
+REF_SF0_LEVELS = 1
+REF_FRAMES = 10
+# the engine phase: streams of 512^2 camera frames into one Engine (max_batch
+# 4, sd15 CN + TAESD bf16, the phase-5 bundle), frames per stream, and the
+# frame after which one stream switches to reference mode (its first ref
+# frames pass through while the ref bucket warms up and captures on a
+# background thread)
+ENGINE_STREAMS, ENGINE_FRAMES, ENGINE_REF_AFTER, ENGINE_REF_S = 4, 40, 12, 180
+ENGINE_SIDE = 512
 # K1 launches per sd15 512^2 4-step CN + KL frame: the 84 routed attentions of
 # the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
 # decode on the wide kernel
@@ -664,12 +706,14 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
     result = {}
     for kind, dtype, cases in (("bf16", torch.bfloat16, _k1_cases() + K1_TIMED["bf16"][3:]),
                                ("fp32", torch.float32, K1_TIMED["fp32"])):
-        main_rows, per_shape = [], []
+        main_rows, per_shape, banked = [], [], []
         for b, h, sq, sk, d in cases:
             row = _k1_time(gen, b, h, sq, sk, d, dtype, card, clock)
             tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
             if (b, h, sq, sk, d) in K1_TIMED[kind]:
                 per_shape.append(row)
+            if kind == "bf16" and (b, h, sq, sk, d) in K1_BANKED:
+                banked.append(row)
             if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:
                 main_rows.append(row)
             if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
@@ -694,6 +738,8 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
         print(f"K1 {kind}, one call at each of its {len(main_rows)} timed main shapes: "
               + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
         result[kind] = {**total, "per_shape": per_shape}
+        if banked:  # the reference mode's READ pass, 20 launches of each per frame
+            result[kind]["banked_per_shape"] = banked
         # the wide kernel: the KL VAE's [1, 4096, 512] (its main-path shape, twice
         # per KL frame) carries the entry's numbers
         rows = []
@@ -1340,6 +1386,214 @@ def phase_engine_call(card: str, main) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def phase_reference(card: str, main) -> tuple[int, dict]:
+    """Reference mode on the phase-5 bundle: the sd15 512x512 4-step TAESD
+    bf16 reference frame (no ControlNet) through ``build_reference_program``,
+    two replayed calls equal to the eager ``reference_frame_program`` bit
+    for bit, K1_REF_PER_FRAME K1 launches per frame at capture; style
+    fidelity 0 against the plain frame program on the same noise; the
+    median ms of blocking replays and frames/s as the bench measures
+    ``ref_mode_fps``.  Returns (K1 launches of its warm-up and capture, what
+    ``phase_ref_profile`` profiles)."""
+    bundle, embeds, frame, args, _, _ = main
+    spec = FrameSpec(batch=1, height=512, width=512, steps=4, use_controlnet=False)
+    program = build_reference_program(bundle, spec)
+    rng = np.random.default_rng(11)
+    ref = torch.from_numpy(rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda()
+    sf = torch.ones((1, 2), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    counted = {}
+    _replay_vs_eager("reference mode", program,
+                     [((frame, ref, embeds, *args[:2], sf, [23 + i]), {}) for i in range(2)],
+                     {"flash_attention": K1_REF_PER_FRAME}, counted,
+                     eager_program=reference_frame_program)
+    launches = counted["flash_attention"]
+    if launches != 2 * K1_REF_PER_FRAME or any(
+            n for k, n in counted.items() if k != "flash_attention"):
+        fail(f"the reference path launched {counted} in its warm-up and capture, expected "
+             f"{2 * K1_REF_PER_FRAME} of K1 and nothing else")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    noise = torch.from_numpy(rng.standard_normal((5, 1, 64, 64, 4)).astype(np.float32)).cuda()
+    ref_noise = torch.from_numpy(rng.standard_normal((1, 64, 64, 4)).astype(np.float32)).cuda()
+    sf0 = program(frame, ref, embeds, *args[:2], torch.zeros((1, 2), device="cuda"), [23],
+                  noise, ref_noise)
+    plain = build_frame_program(bundle, spec)(frame, embeds, *args[:3], [23], noise=noise)
+    d_img = (sf0[0].int() - plain[0].int()).abs().max().item()
+    d_lat = (sf0[1].float() - plain[1].float()).abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(plain[1].float().abs().max().item())) - 7)
+    full = program(frame, ref, embeds, *args[:2], sf, [23], noise, ref_noise)
+    moved = (full[0].float() - plain[0].float()).abs().mean().item()
+    print(f"reference mode, style fidelity 0 vs the plain frame program (no ControlNet, same "
+          f"noise): equal bit for bit {_same(sf0, plain)}, image max|d| {d_img} levels (bar "
+          f"{REF_SF0_LEVELS}), latents max|d| {d_lat:.3e} (bar {ulp:.3e}: one bf16 ulp of the "
+          f"largest latent); fidelity 1 moves the image by mean|d| {moved:.2f} levels")
+    if d_img > REF_SF0_LEVELS or d_lat > ulp or moved == 0.0:
+        fail("the reference program at style fidelity 0 is not the plain program, or at 1 the "
+             "reference does not move the image")
+
+    times = []
+    for i in range(REF_FRAMES):
+        out, ms, _ = _timed_frame(program, frame, ref, embeds, *args[:2], sf, [30 + i])
+        _check_frame("reference mode", out)
+        times.append(ms)
+
+    def call(i):
+        return program(frame, frame, embeds, *args[:2], sf, [23 + i])
+
+    fps = max(bench._fps(call, 20) for _ in range(3))  # the bench's ref_mode_fps
+    (bucket,) = program.buckets.values()
+    median = statistics.median(times)
+    print(f"sd15 512x512 4-step TAESD bf16 reference mode batch 1 on {card}, CUDA graph "
+          f"replays: median {median:.2f} ms/frame over {REF_FRAMES} blocking frames (min "
+          f"{min(times):.2f}, max {max(times):.2f}); ref_mode_fps {fps:.3f} frames/s (best of 3 "
+          f"windows of 20 frames, two in flight); K1 {program.last_launches['flash_attention']} "
+          f"launches/frame in the graph ({launches} by the wrapper: warm-up and capture); "
+          f"warm-up + capture {bucket.capture_s:.2f} s; peak allocated {peak:.2f} GiB")
+    return launches, {"call": lambda: call(0), "replay_ms": median}
+
+
+def phase_engine(card: str, main) -> None:
+    """The serving engine over the port: ENGINE_STREAMS synchronous streams
+    of 512x512 camera frames into one ``Engine`` (max_batch 4) on the
+    phase-5 bundle, one stream switched to reference mode after
+    ENGINE_REF_AFTER frames; the batches formed, frames/s, each stream's
+    p50 latency, the graphs held and the card's memory; a batch the engine
+    dispatched, run again through ``build_frame_program`` with the same
+    inputs, equal bit for bit; and the reference bucket's warm-up and
+    capture on a background thread while the dispatch thread keeps
+    replaying the other streams' graphs.  Any error the engine logs (it
+    keeps serving past a failed batch) fails the phase."""
+    import asyncio
+    import logging
+    import threading
+
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    bundle = main[0]
+    errors = []
+
+    class _Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(self.format(record))
+
+    handler = _Errors(level=logging.ERROR)
+    logging.getLogger("videosd_tpu_torch.engine").addHandler(handler)
+    try:
+        side = ENGINE_SIDE
+        eng = Engine(bundle=bundle, max_streams=ENGINE_STREAMS, max_batch=4, frame_hw=(side, side))
+        t0 = time.perf_counter()
+        eng.warmup(batch_sizes=(1, 2, 4), steps=(4,), height=side, width=side)
+        warm_s = time.perf_counter() - t0
+        dispatches, batches, last_call = [], collections.Counter(), {}
+        dispatch, get_program = eng._dispatch_bucket, eng._get_program
+        record_generation = eng.telemetry.record_generation
+
+        def timed_dispatch(spec, ref_mode, *a, **kw):
+            t = time.perf_counter()
+            raw = dispatch(spec, ref_mode, *a, **kw)
+            dispatches.append((threading.current_thread().name, t, time.perf_counter(), ref_mode))
+            return raw
+
+        def spy_program(spec, *, ref_mode=False):
+            program = get_program(spec, ref_mode=ref_mode)
+
+            def call(*a, **kw):
+                out = program(*a, **kw)
+                if not ref_mode and threading.current_thread().name == "tpu-dispatch":
+                    last_call.update(spec=spec, args=a, kwargs=kw, out=out)
+                return out
+
+            return call
+
+        def count_batch(seconds, batch=1, fill=1.0):
+            batches[batch] += 1
+            record_generation(seconds, batch=batch, fill=fill)
+
+        eng._dispatch_bucket, eng._get_program = timed_dispatch, spy_program
+        eng.telemetry.record_generation = count_batch
+        rng = np.random.default_rng(21)
+        cams = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+                for _ in range(ENGINE_STREAMS)]
+        lat = [[] for _ in range(ENGINE_STREAMS)]
+        ref_sid = ENGINE_STREAMS - 1
+        finished = []  # (time, frames generated) as each stream ends
+
+        def ref_batches():
+            return sum(rm for th, _, _, rm in dispatches if th == "tpu-dispatch")
+
+        async def client(st, i):
+            # the reference stream goes on until 8 reference-mode batches were
+            # served (its first frames in that mode pass through while the
+            # bucket warms up), within ENGINE_REF_S seconds
+            n, deadline = 0, time.monotonic() + ENGINE_REF_S
+            while n < ENGINE_FRAMES or (i == ref_sid and ref_batches() < 8):
+                if n == ENGINE_REF_AFTER and i == ref_sid:
+                    eng.update_options(st.stream_id, {"ref": True})
+                if time.monotonic() > deadline:
+                    fail(f"stream {i}: fewer than 8 reference-mode batches in {ENGINE_REF_S} s")
+                t = time.perf_counter()
+                await asyncio.wait_for(eng.submit_frame(st.stream_id, np.roll(cams[i], 8 * n, 1)),
+                                       300)
+                lat[i].append((time.perf_counter() - t) * 1e3)
+                n += 1
+                await asyncio.sleep(0.02)  # the client's turnaround (a 50 frames/s camera)
+            finished.append((time.perf_counter(), eng.telemetry.frames_out))
+
+        async def run():
+            eng.start()
+            try:
+                sts = [eng.open_stream({"prompt": f"stream {i}", "seed": 100 + i, "height": side,
+                                        "width": side, "warm_alpha": 0.3 if i == 1 else 0.0})
+                       for i in range(ENGINE_STREAMS)]
+                before, t = eng.telemetry.frames_out, time.perf_counter()
+                await asyncio.gather(*[client(st, i) for i, st in enumerate(sts)])
+                wall = time.perf_counter() - t
+                # while every stream still ran: up to the first stream's end
+                steady = (finished[0][1] - before) / (finished[0][0] - t)
+                return (eng.telemetry.frames_out - before) / wall, steady, wall, eng.stats()
+            finally:
+                await eng.stop()
+
+        fps, steady, wall, stats = asyncio.run(run())
+    finally:
+        logging.getLogger("videosd_tpu_torch.engine").removeHandler(handler)
+    if errors:
+        fail(f"the engine logged {len(errors)} error(s); the first: {errors[0]}")
+    bg = [(t0, t1) for th, t0, t1, rm in dispatches if th == "bucket-compile" and rm]
+    if len(bg) != 1:
+        fail(f"expected one background warm-up of the reference bucket, saw {len(bg)}")
+    served = sum(1 for th, a, b, rm in dispatches
+                 if th == "tpu-dispatch" and bg[0][0] <= a and b <= bg[0][1])
+    print(f"engine, {ENGINE_STREAMS} streams of {side}x{side} frames, sd15 CN+TAESD bf16, max_batch 4, "
+          f"stream {ref_sid} in reference mode from its frame {ENGINE_REF_AFTER}, on {card}: "
+          f"warmup of batch 1/2/4 {warm_s:.1f} s; frames per batch formed {dict(batches)}; "
+          f"{steady:.2f} frames/s generated while all {ENGINE_STREAMS} streams ran, {fps:.2f} over "
+          f"the whole {wall:.1f} s; p50 latency per stream (ms) "
+          + ", ".join(f"{statistics.median(v):.1f}" for v in lat)
+          + f" (stream {ref_sid}'s with its passthrough frames); graphs held {stats['graphs']}; {stats['memory_gib']['allocated']:.2f} GiB "
+          f"allocated, {stats['memory_gib']['reserved']:.2f} GiB reserved; dispatch threads "
+          f"{stats['dispatch_threads']}")
+    print(f"engine: the reference bucket warmed up and captured on the background thread in "
+          f"{bg[0][1] - bg[0][0]:.2f} s, while the dispatch thread dispatched {served} batches "
+          f"of the other streams; {ref_batches()} reference-mode batches served after it")
+    if served < 1:
+        fail("no batch was served while the reference bucket captured in the background")
+    if batches[4] + batches[3] < 1 or ref_batches() < 8:
+        fail(f"the engine formed no batch of 3 or 4 streams ({dict(batches)}) or served fewer than "
+             f"8 reference-mode batches")
+    again = build_frame_program(bundle, last_call["spec"])(*last_call["args"],
+                                                           **last_call["kwargs"])
+    same = _same(again, last_call["out"])
+    print(f"engine: its last dispatched batch ({last_call['spec'].batch} rows), run again "
+          f"through build_frame_program with the same inputs and seeds, equal bit for bit: "
+          f"{same}")
+    if not same:
+        fail("a batch the engine dispatched differs from build_frame_program on its inputs")
+
+
 def _same(a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -1349,7 +1603,7 @@ def _spread(a, b) -> list:
 
 
 def _replay_vs_eager(name: str, program, calls: list, want: dict,
-                     counted: dict | None = None) -> list:
+                     counted: dict | None = None, eager_program=frame_program) -> list:
     """Two calls in a row of one signature of ``program`` (replays of the
     graph its first call captured), each against the eager frame_program of
     the same inputs bit for bit, after eager against itself; the graph's
@@ -1363,8 +1617,8 @@ def _replay_vs_eager(name: str, program, calls: list, want: dict,
     launches = program.last_launches
     captured = [b.capture_s for k, b in program.buckets.items() if k not in before]
     torch.cuda.synchronize()
-    eager = [frame_program(program.bundle, program.spec, *a, **kw) for a, kw in calls]
-    again = frame_program(program.bundle, program.spec, *calls[0][0], **calls[0][1])
+    eager = [eager_program(program.bundle, program.spec, *a, **kw) for a, kw in calls]
+    again = eager_program(program.bundle, program.spec, *calls[0][0], **calls[0][1])
     stable = _same(eager[0], again)
     bar = [0.0] * len(again) if stable else _spread(eager[0], again)
     diffs = [_spread(g, e) for g, e in zip(got, eager)]
@@ -1439,7 +1693,7 @@ def phase_graph(card: str, main, pallas_program) -> tuple[dict, float]:
     graphs = sum(len(p.buckets) for p in programs.values())
     print(f"graphs held: {graphs} in {len(programs)} programs, {held:.2f} GiB allocated with "
           f"the bundle's weights, peak allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB "
-          f"(the graphs' private pools keep the blocks their captures freed) ({card})")
+          f"(the graphs share one pool, which keeps the blocks their captures freed) ({card})")
 
     # eager and replayed parity frames in alternating turns (before any profiler session)
     turns = []
@@ -1652,7 +1906,7 @@ def phase_fp32_frame(card: str) -> dict:
 
 # the bench's window sizes for one short pass through its code
 BENCH_SHORT = {"windows": 1, "frames": 3, "latency_frames": 3, "batch4_frames": 2,
-               "temporal_frames": 4}
+               "temporal_frames": 4, "ref_frames": 3}
 
 
 def phase_bench(bundle) -> None:
@@ -1662,7 +1916,7 @@ def phase_bench(bundle) -> None:
     print(f"bench, short windows {BENCH_SHORT}: {json.dumps(result)}")
     rates = [v for k, v in result.items() if k.endswith("_fps") and v is not None]
     rates += [result["value"], result["p50_latency_ms"]]
-    if len(rates) != 8 or not all(math.isfinite(r) and r > 0 for r in rates):
+    if len(rates) != 9 or not all(math.isfinite(r) and r > 0 for r in rates):
         fail("the bench gave a rate that is not positive and finite")
 
 
@@ -1811,6 +2065,12 @@ def phase_fp32_profile(card: str, fp32: dict) -> None:
                     {"flash_fwd_fp32_kernel": K1_PER_FRAME, "flash_wide_fwd_fp32_kernel": 2})
 
 
+def phase_ref_profile(card: str, ref: dict) -> None:
+    """The same over two replayed reference frames: K1's 180 (60 banked)."""
+    _profile_frames(card, "reference-mode", ref["call"], ref["replay_ms"],
+                    {"flash_fwd_kernel": K1_REF_PER_FRAME})
+
+
 def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -> None:
     """Profiles two calls of ``call``; ``want``: kernels per frame by a
     substring of their names."""
@@ -1865,6 +2125,8 @@ def main() -> None:
     phase_production(card, main, programs)
     phase_engine_call(card, main)
     del programs, pallas_program
+    ref_launches, ref = phase_reference(card, main)
+    phase_engine(card, main)
     kl = phase_kl(card)
     fp32_frame = phase_fp32_frame(card)
     phase_bench(main[0])
@@ -1877,11 +2139,12 @@ def main() -> None:
     phase_profile(card, main, replay_ms)
     phase_kl_profile(card, kl)
     phase_fp32_profile(card, fp32_frame)
+    phase_ref_profile(card, ref)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
-         "launches": k1_launches, "max_abs_err": k1_err, **k1_times},
+         "launches": k1_launches + ref_launches, "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
          "launches": fp32_frame["launches"], "max_abs_err": k1_fp32_err, **k1_fp32_times},

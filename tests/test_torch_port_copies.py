@@ -2,11 +2,18 @@
 
 The port never imports ``videosd_tpu``, so it carries its own copies of the
 weight plans, the snapshot loader ``load_model_dir``, the CLIP tokenizer,
-the alphas table, the safetensors reader and the host I420 helpers.  Each is held equal to the original here, and the port's modules
+the alphas table, the safetensors reader, the host I420 helpers, and the
+serving runtime's host code (``config.py``, ``io/discovery.py``, the
+dispatch worker, the frame queue with its native source, the telemetry's
+timers).  Each is held equal to the original here, and the port's modules
 own exactly the state-dict keys their plan names.  Also: the port imports
 with JAX unavailable.
 """
 
+import ast
+import asyncio
+import copy
+import dataclasses
 import os
 import re
 import subprocess
@@ -17,6 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from videosd_tpu import config as JCFG
+from videosd_tpu.io import discovery as JD
+from videosd_tpu.io import lora as JL
 from videosd_tpu.io import safetensors as JS
 from videosd_tpu.io import weights as JW
 from videosd_tpu.models.clip_text import CLIP_PRESETS as J_CLIP
@@ -27,7 +37,12 @@ from videosd_tpu.models.vae import vae_init
 from videosd_tpu.ops import preprocess as JP
 from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
 from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
+from videosd_tpu.runtime import dispatch as JDISP
+from videosd_tpu.runtime import framequeue as JFQ
+from videosd_tpu.runtime import telemetry as JTEL
 from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
+from videosd_tpu_torch import config as PCFG
+from videosd_tpu_torch.io import discovery as PD
 from videosd_tpu_torch.io import safetensors as PS
 from videosd_tpu_torch.io import weights as PW
 from videosd_tpu_torch.ops import preprocess as PP
@@ -42,6 +57,9 @@ from videosd_tpu_torch.models import (
     TAESDConfig,
     UNet2DConditionModel,
 )
+from videosd_tpu_torch.runtime import dispatch as PDISP
+from videosd_tpu_torch.runtime import framequeue as PFQ
+from videosd_tpu_torch.runtime import telemetry as PTEL
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
 
@@ -192,6 +210,8 @@ def test_port_imports_without_jax():
         "import videosd_tpu_torch.pipelines.lcm_img2img\n"
         "import videosd_tpu_torch.ops, videosd_tpu_torch.schedulers, videosd_tpu_torch.ops.tiling\n"
         "import videosd_tpu_torch.models.vae, videosd_tpu_torch.ops.flops\n"
+        "import videosd_tpu_torch.pipelines.reference_attn, videosd_tpu_torch.runtime.engine\n"
+        "import videosd_tpu_torch.config, videosd_tpu_torch.io.discovery\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'videosd_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -217,3 +237,172 @@ def test_port_sources_name_no_jax_and_no_library_attention():
         assert not imports.search(text), path
         if not path.endswith("chip_smoke.py"):
             assert not library.search(text), path
+
+
+# ------------------------------------------------------------ the runtime's copies
+
+
+def _stripped(node):
+    """``node`` without docstrings, as ``ast.dump`` text."""
+    node = copy.deepcopy(node)
+    for n in ast.walk(node):
+        body = getattr(n, "body", None)
+        if (isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and body
+                and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            n.body = body[1:] or [ast.Pass()]
+    return ast.dump(node)
+
+
+def _defs(module) -> dict:
+    """Top-level functions and classes of ``module``'s source, and each
+    class's methods as ``Class.method``."""
+    out = {}
+    with open(module.__file__, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = _stripped(node)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{sub.name}"] = _stripped(sub)
+    return out
+
+
+# (port module, original, names that must be equal in code)
+_COPIES = {
+    "dispatch": (PDISP, JDISP, ["DispatchWorker"]),
+    "framequeue": (PFQ, JFQ, ["_PyQueue", "FrameQueue", "_load", "native_available"]),
+    "discovery": (PD, JD, ["find_snapshot", "resolve_weights"]),
+    "telemetry": (PTEL, JTEL, ["EMA", "StageTimers", "Telemetry.record_generation",
+                               "Telemetry.print_gentime", "Telemetry.snapshot"]),
+    "config": (PCFG, JCFG, ["default_options", "coerce_option", "coerce_options",
+                            "StreamOptions", "load_config"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_COPIES))
+def test_runtime_copy_code_equals_original(name):
+    ours, theirs, names = _COPIES[name]
+    mine, orig = _defs(ours), _defs(theirs)
+    for n in names:
+        assert mine[n] == orig[n], f"{name}.{n} differs from its original"
+
+
+def test_config_copy_equals_original():
+    """The copied ServerConfig: the same fields and defaults, the same option
+    tables, and from_dict normalizing the same inputs the same way (the
+    lora normalizer is a copy of the JAX package's io/lora.py one)."""
+    assert _defs(PCFG)["normalize_lora_setting"] == _defs(JL)["normalize_lora_setting"]
+    assert PCFG._OPTION_COERCIONS == JCFG._OPTION_COERCIONS
+    assert PCFG._OPTION_DEFAULTS == JCFG._OPTION_DEFAULTS
+    fields = [(f.name, f.default if f.default is not dataclasses.MISSING else f.default_factory())
+              for f in dataclasses.fields(PCFG.ServerConfig)]
+    assert fields == [(f.name, f.default if f.default is not dataclasses.MISSING
+                       else f.default_factory()) for f in dataclasses.fields(JCFG.ServerConfig)]
+    raw = {"family": "tiny", "frame_hw": [64, 48], "output_format": "I420", "quant": "None",
+           "lora": ["a.safetensors", {"path": "b", "scale": 0.5}], "lora_scale": 0.8,
+           "option_defaults": {"steps": "2", "ref": "false"}, "gpus": 4, "mesh_model": 2,
+           "models": {"x": "repo/x", "y": {"model": "repo/y", "lora": "c"}}, "bogus": 1}
+    assert dataclasses.asdict(PCFG.ServerConfig.from_dict(raw)) == dataclasses.asdict(
+        JCFG.ServerConfig.from_dict(raw))
+    for bad in ({"output_format": "yuv"}, {"quant": "int4"}, {"mesh_pipe": 3},
+                {"models": {"default": "m"}}, {"gpus": 2, "mesh_data": 3}):
+        with pytest.raises(ValueError):
+            JCFG.ServerConfig.from_dict(bad)
+        with pytest.raises(ValueError):
+            PCFG.ServerConfig.from_dict(bad)
+    msg = {"strength": "0.8", "steps": "2", "ref": "no", "controlnet": "true", "x": [1]}
+    assert PCFG.coerce_options(msg) == JCFG.coerce_options(msg)
+
+
+def test_framequeue_native_source_is_a_copy():
+    with open(os.path.join(os.path.dirname(PFQ.__file__), "native", "framequeue.cpp")) as f:
+        ours = f.read()
+    with open(os.path.join(os.path.dirname(JFQ.__file__), "native", "framequeue.cpp")) as f:
+        assert ours == f.read()
+    # built into the package's git-ignored _build/, not beside the source
+    assert os.path.dirname(PFQ._SO).endswith(os.path.join("videosd_tpu_torch", "_build"))
+
+
+@pytest.mark.parametrize("force_py", [True, False])
+def test_framequeue_latest_wins(force_py):
+    if not force_py and not PFQ.native_available():
+        pytest.skip("no native toolchain")
+    fq = PFQ.FrameQueue(2, 8, force_python=force_py)
+    a = np.arange(8, dtype=np.uint8)
+    b = a[::-1].copy()
+    fq.put(0, a)
+    id_b = fq.put(0, b)
+    out = np.zeros(8, np.uint8)
+    fid, _ = fq.take(0, out)
+    assert fid == id_b
+    np.testing.assert_array_equal(out, b)
+    assert fq.take(0, out)[0] == 0  # nothing new
+    assert fq.stats()["frames_dropped"] == 1
+
+
+@pytest.mark.parametrize("force_py", [True, False])
+def test_framequeue_per_stream_isolation(force_py):
+    if not force_py and not PFQ.native_available():
+        pytest.skip("no native toolchain")
+    fq = PFQ.FrameQueue(3, 4, force_python=force_py)
+    fq.put(1, np.full(4, 7, np.uint8))
+    out = np.zeros(4, np.uint8)
+    assert fq.take(0, out)[0] == 0
+    assert fq.take(1, out)[0] != 0
+    np.testing.assert_array_equal(out, 7)
+
+
+@pytest.mark.parametrize("force_py", [True, False])
+def test_pacing_gate(force_py):
+    if not force_py and not PFQ.native_available():
+        pytest.skip("no native toolchain")
+    fq = PFQ.FrameQueue(1, 4, force_python=force_py)
+    fq.record_gen(10.0)  # huge gen time
+    fq.mark_gen_start()
+    assert not fq.pacing_ok(sessions=4, executors=1)
+    assert fq.pacing_ok(sessions=0, executors=1)
+
+
+def test_ema_matches_reference_constants():
+    e = PTEL.EMA()
+    assert e.value == 0.4
+    e.update(1.0)
+    assert abs(e.value - (0.95 * 0.4 + 0.05 * 1.0)) < 1e-12
+
+
+def test_telemetry_snapshot():
+    ours, theirs = PTEL.Telemetry(), JTEL.Telemetry()
+    for t in (ours, theirs):
+        t.record_generation(0.1, batch=2, fill=0.5)
+        t.stages.record("pack", 0.01)
+    snap = ours.snapshot()
+    assert snap["frames_out"] == 2 and snap["batches"] == 1
+    assert snap == theirs.snapshot()
+
+
+def test_dispatch_worker_orders_and_propagates():
+    """Results resolve in submission order with pipelining, dispatch and
+    finalize exceptions surface through the future, stop() drains."""
+
+    async def run():
+        w = PDISP.DispatchWorker(depth=2)
+        loop = asyncio.get_running_loop()
+        done = []
+
+        def mk(i):
+            return w.run(loop, lambda i=i: i * 10, lambda raw: done.append(raw) or raw)
+
+        res = await asyncio.gather(*[mk(i) for i in range(5)])
+        assert res == [0, 10, 20, 30, 40]
+        assert done == [0, 10, 20, 30, 40]  # finalized oldest-first
+        with pytest.raises(RuntimeError):
+            await w.run(loop, lambda: (_ for _ in ()).throw(RuntimeError("d")), lambda raw: raw)
+        with pytest.raises(ValueError):
+            await w.run(loop, lambda: 1, lambda raw: (_ for _ in ()).throw(ValueError("f")))
+        assert await w.run(loop, lambda: 7, lambda r: r) == 7  # still serviceable
+        w.stop()
+
+    asyncio.run(run())

@@ -19,6 +19,11 @@ its first call (the warm-up here) captures it.
   ``value``;
 * the two temporal DeepCache programs over ``temporal_frames`` frames, a
   produce frame every 2nd frame and reuse of its caches between;
+* ``ref_mode_fps``: the reference-attention program
+  (``pipelines/reference_attn.py``, 4 steps, no ControlNet, the frame as
+  its own reference, style fidelity 1 for both mechanisms), as the JAX
+  bench measures it: the best of ``windows`` windows of ``ref_frames``
+  frames with two in flight;
 * ``flops_per_frame_tflop_logical`` / ``_padded`` from
   ``ops/flops.py`` and ``mfu``, ``mfu_padded``, ``mfu_batch4`` against
   the card's bf16 peak (None for a card the table does not know);
@@ -27,8 +32,7 @@ its first call (the warm-up here) captures it.
   private pool keeps the blocks its capture freed: reserved, not
   allocated).
 
-``ref_mode_fps`` is null: reference-attention mode is not ported.  The
-JAX bench's ``vs_baseline`` and ``production_turbo_vs_baseline`` compare
+The JAX bench's ``vs_baseline`` and ``production_turbo_vs_baseline`` compare
 with an earlier production target and are left out.  Needs a CUDA card;
 without one it exits with an error and prints no result.
 """
@@ -50,6 +54,7 @@ from videosd_tpu_torch.pipelines.lcm_img2img import (
     build_frame_program,
     build_prompt_encoder,
 )
+from videosd_tpu_torch.pipelines.reference_attn import build_reference_program
 
 __all__ = ["main", "run"]
 
@@ -98,7 +103,8 @@ def _check(out, batch: int) -> None:
 
 
 def run(bundle: ModelBundle | None = None, *, windows: int = 3, frames: int = 30,
-        latency_frames: int = 10, batch4_frames: int = 12, temporal_frames: int = 32) -> dict:
+        latency_frames: int = 10, batch4_frames: int = 12, temporal_frames: int = 32,
+        ref_frames: int = 20) -> dict:
     """The bench's measurements as a dict of its JSON keys.  ``bundle``: an
     sd15 bf16 bundle on the card (default: a random one, seed 0); the
     window sizes are ``bench.py``'s by default."""
@@ -171,7 +177,15 @@ def run(bundle: ModelBundle | None = None, *, windows: int = 3, frames: int = 30
 
         result[key] = max(_fps(temporal, temporal_frames) for _ in range(windows))
 
-    result["ref_mode_fps"] = None  # reference-attention mode is not ported
+    ref_program = build_reference_program(bundle, dataclasses.replace(spec, use_controlnet=False))
+    programs.append(ref_program)
+    sf_pair = torch.ones((1, 2), device=dev)
+
+    def ref_call(i):
+        return ref_program(frame, frame, embeds, *scalars[:2], sf_pair, [23 + i])
+
+    _check(ref_call(0), 1)
+    result["ref_mode_fps"] = max(_fps(ref_call, ref_frames) for _ in range(windows))
     flops = frame_flops(bundle, spec)
     flops4 = frame_flops(bundle, program4.spec)
     peak = device_peak_flops(card)

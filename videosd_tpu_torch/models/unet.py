@@ -10,8 +10,12 @@ on the token view, fused-QKV self-attention (long sequences go to kernel
 K1 through ``layers.attention``), 77-token cross-attention, the LCM
 guidance ``cond_proj``, the ControlNet residual adds, and the DeepCache
 split (the deep feature out of a full pass, and the shallow pass over a
-cached one).  Not covered yet: reference-attention banks and SDXL
-``text_time``.
+cached one), and the reference-attention hooks: the WRITE pass banks each
+self-attention's normed input (``bank_out``) and the READ pass attends
+over it beside its own tokens (``bank``, a :class:`BankReader`), with an
+``adain`` hook after every resnet(+attention) pair of the down and up
+blocks and after the mid block (``pipelines/reference_attn.py``).  Not
+covered yet: SDXL ``text_time``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,32 @@ from videosd_tpu_torch.models.layers import (
     upsample_nearest2d,
 )
 
-__all__ = ["UNET_PRESETS", "UNet2DConditionModel", "UNetConfig", "unet_apply"]
+__all__ = ["UNET_PRESETS", "BankReader", "UNet2DConditionModel", "UNetConfig", "unet_apply"]
+
+
+class BankReader:
+    """Sequential reader over a flat attention bank.
+
+    The WRITE pass appends one entry per self-attention call site in
+    traversal order (``bank_out``); the READ pass consumes them in the same
+    order, whichever block it is in.
+
+    ``fidelity`` (style fidelity, [B,1,1] fp32 or a scalar) blends the
+    banked and the plain self-attention OUTPUTS at each read site: 0 is the
+    no-reference block exactly, 1 fully banked attention.  Scaling the
+    banked tokens instead would leave zero tokens holding softmax mass at
+    fidelity 0.
+    """
+
+    def __init__(self, entries, fidelity=1.0):
+        self.entries = list(entries)
+        self.fidelity = fidelity
+        self._i = 0
+
+    def next(self):
+        e = self.entries[self._i]
+        self._i += 1
+        return e
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,8 +195,20 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, self_kv=None, self_kv_weight=1.0):
+        """``self_kv``: banked tokens [B, S', C] that the self-attention also
+        attends over (keys and values from ``cat([h, self_kv])``);
+        ``self_kv_weight`` blends that banked output with the plain one in
+        fp32 (0: the plain block exactly)."""
+        h = self.norm1(x)
+        if self_kv is None:
+            attn = self.attn1(h)
+        else:
+            banked = self.attn1(h, torch.cat([h, self_kv], dim=1))
+            plain = self.attn1(h)
+            sf = self_kv_weight
+            attn = (sf * banked.float() + (1.0 - sf) * plain.float()).to(x.dtype)
+        x = x + attn
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -188,12 +229,20 @@ class Transformer2DModel(nn.Module):
         # a 1x1 conv is a linear over the token view (the JAX _proj_as_linear)
         return F.linear(h, mod.weight.reshape(mod.weight.shape[0], -1), mod.bias)
 
-    def forward(self, x, context):
+    def forward(self, x, context, bank=None, bank_out=None):
+        """``bank_out``: a list the WRITE pass appends each inner block's
+        ``norm1`` of its input to; ``bank``: the READ pass's
+        :class:`BankReader`."""
         b, c, hh, ww = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         h = self._as_linear(self.proj_in, h)
         for blk in self.transformer_blocks:
-            h = blk(h, context)
+            if bank_out is not None:
+                bank_out.append(blk.norm1(h))
+            if bank is None:
+                h = blk(h, context)
+            else:
+                h = blk(h, context, self_kv=bank.next(), self_kv_weight=bank.fidelity)
         h = self._as_linear(self.proj_out, h)
         return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -218,18 +267,21 @@ class DownBlock2D(nn.Module):
         )
         self.downsamplers = None if final else nn.ModuleList([_Resample(cout, stride=2)])
 
-    def resnets_and_attentions(self, x, temb, context):
-        """The block without its downsampler (DeepCache's shallow path)."""
+    def resnets_and_attentions(self, x, temb, context, bank=None, bank_out=None, adain=None):
+        """The block without its downsampler (DeepCache's shallow path);
+        ``adain`` runs after each resnet(+attention) pair."""
         res = []
         for i, rn in enumerate(self.resnets):
             x = rn(x, temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
+            if adain is not None:
+                x = adain(x)
             res.append(x)
         return x, res
 
-    def forward(self, x, temb, context):
-        x, res = self.resnets_and_attentions(x, temb, context)
+    def forward(self, x, temb, context, **hooks):
+        x, res = self.resnets_and_attentions(x, temb, context, **hooks)
         if self.downsamplers is not None:
             x = self.downsamplers[0].conv(x)
             res.append(x)
@@ -244,10 +296,11 @@ class UNetMidBlock2DCrossAttn(nn.Module):
         self.resnets = nn.ModuleList([ResnetBlock2D(cfg, ch, ch), ResnetBlock2D(cfg, ch, ch)])
         self.attentions = nn.ModuleList([Transformer2DModel(cfg, ch, depth)])
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, bank=None, bank_out=None, adain=None):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, context)
-        return self.resnets[1](x, temb)
+        x = self.attentions[0](x, context, bank=bank, bank_out=bank_out)
+        x = self.resnets[1](x, temb)
+        return x if adain is None else adain(x)
 
 
 class UpBlock2D(nn.Module):
@@ -268,11 +321,13 @@ class UpBlock2D(nn.Module):
         )
         self.upsamplers = None if final else nn.ModuleList([_Resample(out_ch)])
 
-    def forward(self, x, res_samples, temb, context):
+    def forward(self, x, res_samples, temb, context, bank=None, bank_out=None, adain=None):
         for i, rn in enumerate(self.resnets):
             x = rn(torch.cat([x, res_samples.pop()], dim=1), temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
+            if adain is not None:
+                x = adain(x)
         if self.upsamplers is not None:
             x = self.upsamplers[0].conv(upsample_nearest2d(x))
         return x
@@ -323,12 +378,14 @@ class UNetEncoder(nn.Module):
             ch = out_ch
         self.mid_block = UNetMidBlock2DCrossAttn(cfg)
 
-    def encode(self, x, temb, context):
+    def encode(self, x, temb, context, **hooks):
+        """Down and mid blocks; ``hooks`` (``bank``, ``bank_out``, ``adain``)
+        reach every block."""
         down_res = [x]
         for blk in self.down_blocks:
-            x, res = blk(x, temb, context)
+            x, res = blk(x, temb, context, **hooks)
             down_res.extend(res)
-        return self.mid_block(x, temb, context), down_res
+        return self.mid_block(x, temb, context, **hooks), down_res
 
 
 class UNet2DConditionModel(UNetEncoder):
@@ -358,9 +415,13 @@ class UNet2DConditionModel(UNetEncoder):
         mid_block_additional_residual=None,
         deep_feature=None,
         return_deep_feature: bool = False,
+        bank=None,
+        bank_out=None,
+        adain=None,
     ):
         """NCHW forward; the ControlNet residuals and the deep feature are
-        NCHW too.
+        NCHW too.  ``bank``/``bank_out``/``adain``: the reference-attention
+        READ and WRITE hooks (``pipelines/reference_attn.py``).
 
         DeepCache split (Ma et al., arXiv:2312.00858), as the JAX
         ``unet_apply``: ``return_deep_feature=True`` also returns the
@@ -376,6 +437,8 @@ class UNet2DConditionModel(UNetEncoder):
         context = encoder_hidden_states.to(sample.dtype)
         x = self.conv_in(sample)
         if deep_feature is not None:
+            if bank is not None or bank_out is not None or adain is not None:
+                raise ValueError("deep_feature is incompatible with bank/adain modes")
             if mid_block_additional_residual is not None:
                 raise ValueError("deep_feature is incompatible with mid_block_additional_residual")
             if return_deep_feature:
@@ -385,7 +448,8 @@ class UNet2DConditionModel(UNetEncoder):
             _, res = self.down_blocks[0].resnets_and_attentions(x, temb, context)
             down_res = self._add_residuals([x, *res], down_block_additional_residuals)
             return self._head(self.up_blocks[-1](deep_feature, down_res, temb, context))
-        x, down_res = self.encode(x, temb, context)
+        hooks = dict(bank=bank, bank_out=bank_out, adain=adain)
+        x, down_res = self.encode(x, temb, context, **hooks)
         down_res = self._add_residuals(down_res, down_block_additional_residuals)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(x.dtype)
@@ -394,7 +458,7 @@ class UNet2DConditionModel(UNetEncoder):
         for blk in self.up_blocks:
             deep = x
             res_samples, down_res = down_res[-n:], down_res[:-n]
-            x = blk(x, res_samples, temb, context)
+            x = blk(x, res_samples, temb, context, **hooks)
         out = self._head(x)
         return (out, deep) if return_deep_feature else out
 
@@ -429,11 +493,15 @@ def unet_apply(
     mid_block_additional_residual=None,
     deep_feature=None,
     return_deep_feature: bool = False,
+    bank=None,
+    bank_out=None,
+    adain=None,
 ):
     """UNet forward with the JAX package's layouts: ``sample`` [B,h,w,C] NHWC,
     ``timesteps`` [B], context [B,S,D], ControlNet residuals and the
     DeepCache feature NHWC; returns NHWC (and the deep feature with
-    ``return_deep_feature``)."""
+    ``return_deep_feature``).  The reference-attention hooks pass through;
+    ``adain`` sees NCHW activations."""
     down = (
         None
         if down_block_additional_residuals is None
@@ -451,6 +519,9 @@ def unet_apply(
         mid_block_additional_residual=mid,
         deep_feature=None if deep_feature is None else _nchw(deep_feature),
         return_deep_feature=return_deep_feature,
+        bank=bank,
+        bank_out=bank_out,
+        adain=adain,
     )
     if return_deep_feature:
         return _nhwc(out[0]), _nhwc(out[1])

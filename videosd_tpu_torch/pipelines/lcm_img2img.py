@@ -58,6 +58,7 @@ import dataclasses
 import functools
 import gc
 import os
+import threading
 import time
 from typing import Any
 
@@ -471,15 +472,16 @@ def _staged_dtype(bundle: ModelBundle, name: str, x) -> torch.dtype:
     return x.dtype  # frame (uint8), the per-element fp32 scalars, src_box, deep_caches
 
 
-def _new_buffers(bundle: ModelBundle, spec: FrameSpec, inputs: dict) -> dict:
+def _new_buffers(bundle: ModelBundle, spec: FrameSpec, inputs: dict,
+                 noise_rows: int | None = None) -> dict:
     """Empty device buffers for ``inputs``, each in its staged dtype; the
-    noise buffer always exists."""
+    noise buffer [noise_rows (default S+1), B, h, w, 4] always exists."""
     dev = bundle.device
     bufs = {name: None if x is None else torch.empty(x.shape, dtype=_staged_dtype(bundle, name, x),
                                                      device=dev)
             for name, x in inputs.items()}
-    bufs["noise"] = torch.empty((spec.steps + 1, spec.batch, *_latent_hw(bundle, spec), 4),
-                                dtype=torch.float32, device=dev)
+    bufs["noise"] = torch.empty((noise_rows or spec.steps + 1, spec.batch,
+                                 *_latent_hw(bundle, spec), 4), dtype=torch.float32, device=dev)
     return bufs
 
 
@@ -507,6 +509,22 @@ def _apply_hook(hook, images):
                            f"{err}") from err
 
 
+def _encode_latents(bundle: ModelBundle, spec: FrameSpec, img_pm1):
+    """[B, H, W, 3] images in [-1, 1] -> [B, h, w, 4] latents, through
+    TAESD or the KL VAE (scaled by its ``scaling_factor``)."""
+    if spec.vae == "kl":
+        return _times(vae_encode(bundle.models["vae"], img_pm1), bundle.vae_cfg.scaling_factor)
+    return taesd_encode(bundle.models["taesd"], img_pm1, bundle.taesd_cfg)
+
+
+def _decode_latents(bundle: ModelBundle, spec: FrameSpec, z):
+    """The inverse of :func:`_encode_latents`: images in [-1, 1]."""
+    if spec.vae == "kl":
+        # a true division (torch on CUDA multiplies by the reciprocal of a float)
+        return vae_decode(bundle.models["vae"], div_rn(z, bundle.vae_cfg.scaling_factor))
+    return taesd_decode(bundle.models["taesd"], z, bundle.taesd_cfg)
+
+
 def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, guidance,
                 cn_scale, noise, warm_latents=None, warm_alpha=None, src_box=None,
                 deep_caches=None):
@@ -525,11 +543,7 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
     ctrl = None
     if spec.use_controlnet:
         ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
-    img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
-    if spec.vae == "kl":
-        latents0 = _times(vae_encode(models["vae"], img_pm1), bundle.vae_cfg.scaling_factor)
-    else:
-        latents0 = taesd_encode(models["taesd"], img_pm1, bundle.taesd_cfg)  # [B, h, w, 4]
+    latents0 = _encode_latents(bundle, spec, (img01 * 2.0 - 1.0).to(dtype))  # [B, h, w, 4]
     if warm_latents is not None:
         a = warm_alpha[:, None, None, None]
         latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
@@ -596,11 +610,7 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         latents = torch.where(m, new_lat, latents)
         denoised = torch.where(m, new_den, denoised)
 
-    if spec.vae == "kl":
-        # a true division (torch on CUDA multiplies by the reciprocal of a float)
-        out = vae_decode(models["vae"], div_rn(denoised, bundle.vae_cfg.scaling_factor))
-    else:
-        out = taesd_decode(models["taesd"], denoised, bundle.taesd_cfg)
+    out = _decode_latents(bundle, spec, denoised)
     if bundle.safety_hook is not None:
         out = _apply_hook(bundle.safety_hook, out)
     if temporal_produce:
@@ -673,21 +683,53 @@ def _capture_stream(device: torch.device):
     return torch.cuda.Stream(device)
 
 
-class _Bucket:
-    """One call signature of a :class:`FrameProgram`: its static input
-    buffers and, on a CUDA bundle, the CUDA graph captured over them and its
-    static outputs."""
+@functools.lru_cache(maxsize=None)
+def _capture_lock(device: torch.device):
+    """One warm-up and capture at a time on ``device``: they share its side
+    stream, and a serving engine captures on background threads."""
+    return threading.Lock()
 
-    def __init__(self, bundle: ModelBundle, spec: FrameSpec, inputs: dict):
-        self.bundle, self.spec = bundle, spec
-        self.buffers = _new_buffers(bundle, spec, inputs)
+
+_GRAPH_POOLS: dict = {}
+
+
+def _graph_pool(device: torch.device):
+    """The memory pool every CUDA graph on ``device`` captures into (call
+    under :func:`_capture_lock`).  Graphs that share a pool may reuse each
+    other's intermediate blocks, which is safe because every program
+    replays on its caller's stream and clones its outputs right after the
+    replay, in stream order, before any other graph can run: no two replays
+    overlap, and no replay's static outputs are read after another replay.
+
+    The pool is kept alive by a graph of its own: the allocators drop a
+    pool when its last graph dies, and capturing into a dropped pool's
+    handle fails.  A failed capture retires the pool
+    (:meth:`_Bucket._capture`)."""
+    entry = _GRAPH_POOLS.get(device)
+    if entry is None:
+        handle, keeper = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(_capture_stream(device)):
+            keeper.capture_begin(pool=handle, capture_error_mode="thread_local")
+            torch.zeros(1, device=device)
+            keeper.capture_end()
+        entry = _GRAPH_POOLS[device] = (handle, keeper)
+    return entry[0]
+
+
+class _Bucket:
+    """One call signature of a program: its static input buffers and, on a
+    CUDA bundle, the CUDA graph of ``body(**buffers)`` captured over them
+    and its static outputs."""
+
+    def __init__(self, bundle: ModelBundle, buffers: dict, body):
+        self.bundle, self.buffers, self.body = bundle, buffers, body
         self.graph = self.outputs = None
         self.launches = dict.fromkeys(kernel_launches(), 0)
         self.capture_s = 0.0  # wall time of the warm-up and the capture
 
     def run(self) -> tuple:
         if self.bundle.device.type != "cuda":
-            return _frame_body(self.bundle, self.spec, **self.buffers)
+            return self.body(**self.buffers)
         if self.graph is None:
             self._capture()
         self.graph.replay()
@@ -696,35 +738,70 @@ class _Bucket:
     def _capture(self) -> None:
         """Warm up eagerly on a side stream (library plans and handles, K1's
         library and tensor maps, K3's taps, the resize matrices: every cache
-        built at first use), then capture the body on that stream.  A fault
-        raises; nothing falls back to the eager program."""
+        built at first use), then capture the body on that stream, into the
+        device's shared pool (:func:`_graph_pool`).  The capture is in
+        ``thread_local`` mode and makes no device-wide sync, so another
+        thread may replay other graphs meanwhile.  A fault raises; nothing
+        falls back to the eager program."""
         dev = self.bundle.device
         t0 = time.perf_counter()
         side = _capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            _frame_body(self.bundle, self.spec, **self.buffers)
-            torch.cuda.synchronize(dev)
-            gc.collect()  # no tensor of the warm-up is freed by the collector mid-capture
-            torch.cuda.empty_cache()
-            before = kernel_launches()
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin()
-            try:
-                outputs = _frame_body(self.bundle, self.spec, **self.buffers)
-            except BaseException:
-                # the fault invalidated the capture, so ending it fails too
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.launches = {k: n - before[k] for k, n in kernel_launches().items()}
+        with _capture_lock(dev):
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.body(**self.buffers)
+                side.synchronize()
+                gc.collect()  # no tensor of the warm-up is freed by the collector mid-capture
+                before = kernel_launches()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=_graph_pool(dev), capture_error_mode="thread_local")
+                try:
+                    outputs = self.body(**self.buffers)
+                except BaseException:
+                    # the fault invalidated the capture, so ending it fails too,
+                    # and the allocator then never stops recording into the
+                    # pool: later captures take a new one
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    _GRAPH_POOLS.pop(dev, None)
+                    raise
+                graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.launches = {k: n - before[k] for k, n in kernel_launches().items()}
         self.graph, self.outputs = graph, outputs
         self.capture_s = time.perf_counter() - t0
 
 
-class FrameProgram:
+class _Program:
+    """The calling convention of :class:`FrameProgram` and the reference
+    program: a bucket per call signature, staged inputs, cloned outputs.
+    Subclasses give ``_body(bundle, spec, **buffers)`` and the rows of
+    their noise buffer beyond the frame's S+1 (``extra_noise_rows``)."""
+
+    extra_noise_rows = 0
+
+    def __init__(self, bundle: ModelBundle, spec: FrameSpec):
+        self.bundle, self.spec = bundle, spec
+        self.buckets: dict = {}
+        self.last_launches: dict | None = None
+
+    def _run(self, inputs: dict, seed) -> tuple:
+        """``inputs``: a call's checked inputs, named as the body's arguments."""
+        key = tuple((name, tuple(x.shape), _staged_dtype(self.bundle, name, x))
+                    for name, x in inputs.items() if x is not None and name != "noise")
+        bucket = self.buckets.get(key)
+        if bucket is None:
+            rows = self.spec.steps + 1 + self.extra_noise_rows
+            bucket = self.buckets[key] = _Bucket(
+                self.bundle, _new_buffers(self.bundle, self.spec, inputs, rows),
+                functools.partial(self._body, self.bundle, self.spec))
+        _stage(bucket.buffers, inputs, seed, self.spec.batch)
+        outputs = bucket.run()
+        self.last_launches = bucket.launches
+        return tuple(x.clone() for x in outputs)
+
+
+class FrameProgram(_Program):
     """The frame program of one (bundle, spec) bucket, the port's
     counterpart of the JAX package's jitted ``build_frame_program``.
 
@@ -745,11 +822,11 @@ class FrameProgram:
     move only at capture.
     """
 
+    _body = staticmethod(_frame_body)
+
     def __init__(self, bundle: ModelBundle, spec: FrameSpec):
         _check_spec(bundle, spec)
-        self.bundle, self.spec = bundle, spec
-        self.buckets: dict = {}
-        self.last_launches: dict | None = None
+        super().__init__(bundle, spec)
 
     @torch.inference_mode()
     def __call__(self, frame_u8, prompt_embeds, strength, guidance, cn_scale, seed, noise=None,
@@ -758,15 +835,7 @@ class FrameProgram:
         inputs = _call_inputs(self.bundle, self.spec, frame_u8, prompt_embeds, strength,
                               guidance, cn_scale, noise, warm_latents, warm_alpha, pooled_embeds,
                               src_box, deep_caches)
-        key = tuple((name, tuple(x.shape), _staged_dtype(self.bundle, name, x))
-                    for name, x in inputs.items() if x is not None and name != "noise")
-        bucket = self.buckets.get(key)
-        if bucket is None:
-            bucket = self.buckets[key] = _Bucket(self.bundle, self.spec, inputs)
-        _stage(bucket.buffers, inputs, seed, self.spec.batch)
-        outputs = bucket.run()
-        self.last_launches = bucket.launches
-        return tuple(x.clone() for x in outputs)
+        return self._run(inputs, seed)
 
 
 def build_frame_program(bundle: ModelBundle, spec: FrameSpec) -> FrameProgram:
