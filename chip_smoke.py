@@ -9,7 +9,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: compile the package's CUDA kernels from ``videosd_tpu_torch/csrc``;
 3. kernel K1 (flash attention) against its plain PyTorch version in bf16 at
    the main path's shapes and at further ones (keys != queries, batch 2,
-   d = 64), at every kind of head dim up to 256 (the tiny family's 8 and
+   d = 64, the sd21 frame's three shapes of heads of 64), at every kind of head dim up to 256 (the tiny family's 8 and
    16, d below its instance's width, d off the 16-byte rows, the widest),
    with the heads read in place beside heads of large values, and the
    in-place ``[B, S, H*D]`` entry against the folded one; then its fp32
@@ -91,6 +91,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    thread while the dispatch thread serves the other streams; one
    dispatched batch run again through ``build_frame_program`` equal bit
    for bit; no error logged by the engine;
+6b'''. the server (``videosd_tpu_torch/server``): five protocol sessions
+   (``server/protocol.py``, the per-connection code of ``/ws``; three raw
+   RGB24 clients, one packed I420, one JPEG with the ``jpeg`` option where
+   a codec runs) over one ``Engine`` on the phase-5 bundle, 30 frames each
+   with two in flight: frames/s and p50 per stream beside the engine
+   phase's (6b'');
+   every reply the engine's output for its frame, in the order sent; one
+   dispatched batch again through ``build_frame_program`` bit for bit; a
+   2-second trace during traffic summarized by block with the engine's
+   ``kernel_symbols()`` (unet/... and controlnet present, at most 10 %
+   unmapped, no K1 outside attention blocks); where aiohttp imports,
+   ``create_app`` on 127.0.0.1 driven over ``/healthz``, ``/stats``,
+   ``/ws`` and ``/profile``; a ``{"server": ...}`` JSON line;
+6d. the sd21 frame (stabilityai/sd-turbo topology at full widths, OpenCLIP
+   ViT-H text, its ControlNet, TAESD, 512x512, 4 steps, bf16, random
+   weights): replay equal to eager bit for bit, 84 K1 launches per frame at
+   d = 64, replayed ms/frame, peak memory and FLOPs; its profile last;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
@@ -144,11 +161,13 @@ import collections
 import copy
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -204,6 +223,10 @@ K1_EXTRA = K1_BANKED + [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
 # their instance's width, 40 and 80), 20 (off the 16-byte rows: a padded
 # copy), 64, and 256 (the widest instance); heads read in place beside heads
 # of large values (_k1_case)
+# K1's shapes on the sd21 frame's path at 512x512, as (B, H, Sq, Sk, d): heads
+# of 64 (5, 10 and 20 of them at 320, 640 and 1280 channels) over 64^2, 32^2
+# and 16^2 latents
+K1_SD21 = [(1, 5, 4096, 4096, 64), (1, 10, 1024, 1024, 64), (1, 20, 256, 256, 64)]
 K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
                 (1, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
                 (1, 2, 256, 256, 256)]
@@ -290,6 +313,19 @@ REF_FRAMES = 10
 # background thread)
 ENGINE_STREAMS, ENGINE_FRAMES, ENGINE_REF_AFTER, ENGINE_REF_S = 4, 40, 12, 180
 ENGINE_SIDE = 512
+# the server phase: protocol sessions over one Engine (max_batch 4) on the
+# phase-5 bundle, frames per stream, frames each client keeps in flight, the
+# seconds of the trace taken during traffic, and the largest share of the
+# traced device time the rollup by block may leave unmapped
+SERVER_FRAMES, SERVER_IN_FLIGHT, SERVER_TRACE_S, SERVER_UNMAPPED_PCT = 30, 2, 2.0, 10.0
+# the server phase's process is killed after this many seconds (it takes ~90)
+SERVER_CHILD_S = 300
+# blocks of the frame that hold no attention: K1 placed there is misplaced
+NO_ATTENTION_BLOCKS = ("preprocess", "vae_encode", "vae_decode", "postprocess", "stage")
+# K1 launches per sd21 512^2 4-step CN frame: the sd15 topology's 15 routed
+# attentions a UNet pass and 6 a ControlNet call, at d = 64
+K1_SD21_PER_FRAME = 84
+SD21_FRAMES = 10
 # K1 launches per sd15 512^2 4-step CN + KL frame: the 84 routed attentions of
 # the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
 # decode on the wide kernel
@@ -380,8 +416,16 @@ CROP_ATOL = 1e-5
 GRAPH_TURNS, GRAPH_TURN_FRAMES = 4, 5
 
 
+_T0 = time.perf_counter()
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def _note(msg: str) -> None:
+    """A progress line, with the seconds since the process started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -620,7 +664,7 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
 
 
 def _k1_cases():
-    return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA
+    return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA + K1_SD21
 
 
 def phase_k1() -> tuple[float, float, float, float]:
@@ -706,7 +750,7 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
     result = {}
     for kind, dtype, cases in (("bf16", torch.bfloat16, _k1_cases() + K1_TIMED["bf16"][3:]),
                                ("fp32", torch.float32, K1_TIMED["fp32"])):
-        main_rows, per_shape, banked = [], [], []
+        main_rows, per_shape, banked, sd21 = [], [], [], []
         for b, h, sq, sk, d in cases:
             row = _k1_time(gen, b, h, sq, sk, d, dtype, card, clock)
             tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
@@ -714,6 +758,8 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
                 per_shape.append(row)
             if kind == "bf16" and (b, h, sq, sk, d) in K1_BANKED:
                 banked.append(row)
+            if kind == "bf16" and (b, h, sq, sk, d) in K1_SD21:
+                sd21.append(row)
             if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:
                 main_rows.append(row)
             if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
@@ -740,6 +786,13 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
         result[kind] = {**total, "per_shape": per_shape}
         if banked:  # the reference mode's READ pass, 20 launches of each per frame
             result[kind]["banked_per_shape"] = banked
+        if sd21:  # the sd21 frame's shapes (d = 64), 28 launches of each per frame
+            result[kind]["sd21_per_shape"] = sd21
+            slower = [r["shape"] for r in sd21 if r["device_ms"] > r["library_ms"]]
+            print(f"K1 at the sd21 frame's shapes (d = 64): device ms "
+                  + ", ".join(f"{r['shape']} {r['device_ms']:.4f} (bound {r['bound_ms']:.4f}, "
+                              f"SDPA {r['library_ms']:.4f})" for r in sd21)
+                  + f"; slower than SDPA at {slower or 'none'}")
         # the wide kernel: the KL VAE's [1, 4096, 512] (its main-path shape, twice
         # per KL frame) carries the entry's numbers
         rows = []
@@ -1455,7 +1508,27 @@ def phase_reference(card: str, main) -> tuple[int, dict]:
     return launches, {"call": lambda: call(0), "replay_ms": median}
 
 
-def phase_engine(card: str, main) -> None:
+class _ErrorLog(logging.Handler):
+    """Collects the ERROR records of the named loggers while it is entered."""
+
+    def __init__(self, *names):
+        super().__init__(level=logging.ERROR)
+        self.names, self.errors = names, []
+
+    def emit(self, record):
+        self.errors.append(self.format(record))
+
+    def __enter__(self):
+        for name in self.names:
+            logging.getLogger(name).addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            logging.getLogger(name).removeHandler(self)
+
+
+def phase_engine(card: str, main) -> dict:
     """The serving engine over the port: ENGINE_STREAMS synchronous streams
     of 512x512 camera frames into one ``Engine`` (max_batch 4) on the
     phase-5 bundle, one stream switched to reference mode after
@@ -1467,21 +1540,12 @@ def phase_engine(card: str, main) -> None:
     replaying the other streams' graphs.  Any error the engine logs (it
     keeps serving past a failed batch) fails the phase."""
     import asyncio
-    import logging
     import threading
 
     from videosd_tpu_torch.runtime.engine import Engine
 
     bundle = main[0]
-    errors = []
-
-    class _Errors(logging.Handler):
-        def emit(self, record):
-            errors.append(self.format(record))
-
-    handler = _Errors(level=logging.ERROR)
-    logging.getLogger("videosd_tpu_torch.engine").addHandler(handler)
-    try:
+    with _ErrorLog("videosd_tpu_torch.engine") as log:
         side = ENGINE_SIDE
         eng = Engine(bundle=bundle, max_streams=ENGINE_STREAMS, max_batch=4, frame_hw=(side, side))
         t0 = time.perf_counter()
@@ -1558,10 +1622,8 @@ def phase_engine(card: str, main) -> None:
                 await eng.stop()
 
         fps, steady, wall, stats = asyncio.run(run())
-    finally:
-        logging.getLogger("videosd_tpu_torch.engine").removeHandler(handler)
-    if errors:
-        fail(f"the engine logged {len(errors)} error(s); the first: {errors[0]}")
+    if log.errors:
+        fail(f"the engine logged {len(log.errors)} error(s); the first: {log.errors[0]}")
     bg = [(t0, t1) for th, t0, t1, rm in dispatches if th == "bucket-compile" and rm]
     if len(bg) != 1:
         fail(f"expected one background warm-up of the reference bucket, saw {len(bg)}")
@@ -1592,6 +1654,482 @@ def phase_engine(card: str, main) -> None:
           f"{same}")
     if not same:
         fail("a batch the engine dispatched differs from build_frame_program on its inputs")
+    return {"steady_fps": steady, "fps": fps,
+            "p50_ms": [statistics.median(v) for v in lat[:ref_sid]]}
+
+
+def _jpeg_codec() -> str:
+    """The JPEG codec the server would run: libjpeg through the native
+    binding, else PIL, else none."""
+    from videosd_tpu_torch.runtime import jpegcodec
+
+    if jpegcodec.native_available():
+        return "native"
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return "none"
+    return "pil"
+
+
+def _server_payloads(kind: str, cam, frames: int) -> list:
+    """A client's binary messages: raw RGB24 or packed I420 behind the u16
+    height and width, or JPEG blobs; the camera pans 8 pixels a frame."""
+    from videosd_tpu_torch.runtime import jpegcodec
+
+    out = []
+    for n in range(frames):
+        img = np.ascontiguousarray(np.roll(cam, 8 * n, 1))
+        head = struct.pack("<HH", *img.shape[:2])
+        if kind == "rgb":
+            out.append(head + img.tobytes())
+        elif kind == "i420":
+            out.append(head + rgb_to_i420_host(img).tobytes())
+        else:
+            out.append(jpegcodec.encode_rgb(img, quality=90))
+    return out
+
+
+def _check_by_block(label: str, summary: dict) -> None:
+    """The rollup by block placed every graph replay by position, holds
+    unet/... and controlnet entries, leaves at most SERVER_UNMAPPED_PCT of
+    the device time unmapped, and places every K1 event in a transformer
+    block of the UNet or the ControlNet (none in a block without attention,
+    none by name)."""
+    if "by_block" not in summary:
+        fail(f"{label}: the summary has no by_block ({summary.get('error')})")
+    blocks = {e["name"]: e["pct"] for e in summary["by_block"]}
+    k1_blocks = {b for op in summary["ops"] if "flash_fwd_kernel" in op["name"]
+                 for b in op["blocks"]}
+    print(f"{label}: device time {summary['device_time_ms']:.2f} ms traced; by block (% of it): "
+          + ", ".join(f"{n} {p}" for n, p in blocks.items())
+          + f"; events placed by {summary['mapped_by']}; graph replays {summary['graph_replays']}"
+          f"; K1's blocks {sorted(k1_blocks)}")
+    replays = summary["graph_replays"]
+    if not replays["replays"] or replays["placed"] != replays["replays"]:
+        fail(f"{label}: {replays['placed']} of {replays['replays']} graph replays placed by "
+             f"position")
+    if not any(b.startswith("unet/") for b in blocks) or not any(
+            b == "controlnet" or b.startswith("controlnet/") for b in blocks):
+        fail(f"{label}: by_block lacks unet/... or controlnet entries: {sorted(blocks)}")
+    if blocks.get("(unmapped)", 0.0) > SERVER_UNMAPPED_PCT:
+        fail(f"{label}: {blocks['(unmapped)']}% of the device time is unmapped "
+             f"(bound {SERVER_UNMAPPED_PCT}%)")
+    wrong = sorted(b for b in k1_blocks if b.startswith(NO_ATTENTION_BLOCKS)
+                   or not b.startswith(("unet/", "controlnet/")))
+    if not k1_blocks or wrong:
+        fail(f"{label}: K1 placed in blocks without attention {wrong} (or nowhere)")
+
+
+def phase_server_process(card: str, engine_res: dict) -> int:
+    """Runs phase_server in a process of its own (``chip_smoke.py --server``,
+    on a bundle drawn as phase 5's: sd15 bf16, seed 0) and returns its K1
+    launches.  Its profiler sessions (CPU and CUDA, with the frame's
+    ranges) left the CUDA-only sessions that this process takes later
+    seeing no kernels (twice on an H100); in a process of their own
+    they leave this one's untouched, and its frames are timed before any
+    profiler session of that process.  The child's lines are passed on as
+    they come, so a child that stops shows where; one that outlives
+    SERVER_CHILD_S is killed and fails the phase."""
+    import threading
+
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--server",
+                              json.dumps({"card": card, **engine_res})],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+
+    def relay():
+        for line in child.stdout:
+            lines.append(line)
+            sys.stdout.write(line)
+            sys.stdout.flush()
+
+    reader = threading.Thread(target=relay, daemon=True)
+    reader.start()
+    try:
+        rc = child.wait(timeout=SERVER_CHILD_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        reader.join(timeout=10)
+        fail(f"the server phase's process ran past {SERVER_CHILD_S} s and was killed")
+    reader.join(timeout=10)
+    if rc != 0:
+        fail(f"the server phase's process exited {rc}")
+    result = [ln for ln in lines if ln.startswith('{"server_launches"')]
+    if not result:
+        fail("the server phase's process printed no result")
+    return json.loads(result[-1])["server_launches"]
+
+
+def server_main(arg: str) -> None:
+    """The server phase's process (``chip_smoke.py --server JSON``): the
+    card's name from the parent, the phase-5 bundle drawn again.  Every
+    thread's stack is dumped, and the process ends, if it is still running
+    SERVER_CHILD_S - 30 seconds after it started."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(SERVER_CHILD_S - 30, exit=True)
+    engine_res = json.loads(arg)
+    card = engine_res.pop("card")
+    bundle = ModelBundle.random("sd15", dtype=torch.bfloat16, device="cuda")
+    launches = phase_server(card, (bundle,), engine_res)
+    print(json.dumps({"server_launches": launches}), flush=True)
+    _note("server process: result printed, exiting")
+
+
+def phase_server(card: str, main, engine_res: dict) -> int:
+    """6b-3: the server over the port.  Protocol sessions
+    (``server/protocol.py``, the per-connection code of ``/ws``) over one
+    ``Engine`` (max_batch 4) on the phase-5 bundle: three clients send raw
+    RGB24, one packed I420 and, where a JPEG codec runs, one more JPEG
+    with the ``jpeg`` option, SERVER_FRAMES frames each with
+    SERVER_IN_FLIGHT in flight.  Frames/s over the streams and p50 per
+    stream beside the engine phase's numbers; every reply's header and
+    size, and every reply equal to what the engine returned for that
+    frame, in the order sent; one dispatched batch run again through
+    ``build_frame_program`` equal bit for bit, and a reply equal to one of
+    its rows; a SERVER_TRACE_S-second trace during traffic through
+    ``start_trace``/``stop_trace`` and ``summarize_trace(symbols=
+    engine.kernel_symbols())``, as ``/profile`` does, held by
+    ``_check_by_block``.  Where aiohttp imports, ``create_app`` also serves
+    on 127.0.0.1 and aiohttp's client drives ``/healthz``, ``/stats``,
+    ``/ws`` and ``/profile``.  Any logged engine or server error fails the
+    phase.  Returns the K1 launches of the phase (the engine's warm-ups and
+    captures, counted from 0 just before)."""
+    import asyncio
+    import threading
+
+    from videosd_tpu_torch.runtime.engine import Engine
+    from videosd_tpu_torch.runtime.telemetry import summarize_trace
+    from videosd_tpu_torch.server import protocol
+
+    try:
+        import aiohttp  # noqa: F401
+        have_aiohttp = True
+    except ImportError:
+        have_aiohttp = False
+    codec = _jpeg_codec()
+    bundle, side = main[0], ENGINE_SIDE
+    kinds = ["rgb", "rgb", "rgb", "i420"] + (["jpeg"] if codec != "none" else [])
+    rng = np.random.default_rng(31)
+    cams = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8) for _ in kinds]
+    payloads = [_server_payloads(kind, cam, SERVER_FRAMES) for kind, cam in zip(kinds, cams)]
+    _zero_counts()
+    with _ErrorLog("videosd_tpu_torch.engine", "videosd_tpu_torch.server") as log:
+        eng = Engine(bundle=bundle, max_streams=len(kinds) + 1, max_batch=4,
+                     frame_hw=(side, side))
+        t0 = time.perf_counter()
+        # five ready streams form a batch of five over max_batch 4, served in
+        # the batch-8 bucket: warmed here, so no capture lands in the timing
+        eng.warmup(batch_sizes=(1, 2, 4, 8), steps=(4,), height=side, width=side)
+        warm_s = time.perf_counter() - t0
+        _note(f"server: engine warmed up in {warm_s:.1f} s")
+        outputs, calls = collections.defaultdict(dict), collections.Counter()
+        recent = collections.deque(maxlen=8)  # the dispatch thread's last program calls
+        submit, get_program = eng.submit_frame, eng._get_program
+
+        async def spy_submit(sid, frame):  # what the engine returned for each frame, by order
+            i = calls[sid]
+            calls[sid] += 1
+            out = await submit(sid, frame)
+            outputs[sid][i] = out
+            return out
+
+        def spy_program(spec, *, ref_mode=False):
+            program = get_program(spec, ref_mode=ref_mode)
+
+            def call(*a, **kw):
+                out = program(*a, **kw)
+                if threading.current_thread().name == "tpu-dispatch":
+                    recent.append(dict(spec=spec, args=a, kwargs=kw, out=out))
+                return out
+
+            return call
+
+        eng.submit_frame, eng._get_program = spy_submit, spy_program
+        queues = [asyncio.Queue() for _ in kinds]
+        replies = [[] for _ in kinds]
+
+        def sender(i):
+            async def send(payload):
+                queues[i].put_nowait(payload)
+            return send
+
+        async def client(sess, i, frames=None, until=None):
+            """Sends frames keeping SERVER_IN_FLIGHT in flight; latencies (ms)."""
+            sent, lat, n = collections.deque(), [], 0
+
+            async def take():
+                msg = await asyncio.wait_for(queues[i].get(), 300)
+                lat.append((time.perf_counter() - sent.popleft()) * 1e3)
+                replies[i].append(msg)
+
+            while (n < frames) if frames is not None else (time.perf_counter() < until):
+                sent.append(time.perf_counter())
+                await sess.on_binary(payloads[i][n % SERVER_FRAMES])
+                n += 1
+                if len(sent) >= SERVER_IN_FLIGHT:
+                    await take()
+            while sent:
+                await take()
+            return lat
+
+        async def http_check(tmp):
+            from aiohttp import ClientSession, web
+
+            from videosd_tpu_torch.server.app import create_app
+
+            runner = web.AppRunner(create_app(engine=eng))
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+            _note(f"server: create_app serving at {base}")
+            try:
+                async with ClientSession() as http:
+                    health = await (await http.get(base + "/healthz")).json()
+                    ws = await http.ws_connect(base + "/ws")
+                    await ws.send_str(json.dumps({"type": "init", "options": {
+                        "height": side, "width": side, "prompt": "over http", "seed": 9}}))
+                    got, done = [], asyncio.Event()
+
+                    async def traffic():
+                        n = 0
+                        while not done.is_set() or n < 4:
+                            await ws.send_bytes(payloads[0][n % SERVER_FRAMES])
+                            got.append(await asyncio.wait_for(ws.receive(), 300))
+                            n += 1
+
+                    async def profile():
+                        try:
+                            r = await http.post(base + f"/profile?seconds=1&dir={tmp}/http")
+                            return r.status, await r.json()
+                        finally:
+                            done.set()
+
+                    (status, body), _ = await asyncio.gather(profile(), traffic())
+                    _note(f"server: /profile answered {status}")
+                    stats = await (await http.get(base + "/stats")).json()
+                    await ws.close()
+            finally:
+                await runner.cleanup()  # stops the engine
+                _note("server: the aiohttp app cleaned up")
+            bad = [m for m in got if m.type.name != "BINARY" or len(m.data) != 4 + side * side * 3
+                   or struct.unpack("<HH", m.data[:4]) != (side, side)]
+            print(f"server over aiohttp on 127.0.0.1: /healthz {health}; /ws {len(got)} replies "
+                  f"({len(bad)} malformed); /stats jpeg_codec {stats.get('jpeg_codec')}, "
+                  f"frames_out {stats['frames_out']}; /profile {status}")
+            if not health.get("ok") or bad or status != 200 or stats.get("jpeg_codec") != codec:
+                fail("the aiohttp server answered wrong (see the line above)")
+            _check_by_block("/profile over aiohttp", body["summary"])
+
+        async def run(tmp):
+            eng.start()
+            sessions = [protocol.Session(eng, sender(i)) for i in range(len(kinds))]
+            for i, (sess, kind) in enumerate(zip(sessions, kinds)):
+                await sess.on_text(json.dumps({"type": "init", "options": {
+                    "height": side, "width": side, "prompt": f"stream {i}", "seed": 200 + i,
+                    "jpeg": kind == "jpeg"}}))
+            t, made = time.perf_counter(), eng.telemetry.frames_out
+            lat = await asyncio.gather(*[client(s, i, frames=SERVER_FRAMES)
+                                         for i, s in enumerate(sessions)])
+            wall, made = time.perf_counter() - t, eng.telemetry.frames_out - made
+            _note(f"server: {made} generations timed in {wall:.1f} s")
+            eng._get_program = get_program  # the checked batches are the timed window's
+            # the trace, during traffic
+            until = time.perf_counter() + SERVER_TRACE_S + 1.5
+            traffic = asyncio.gather(*[client(s, i, until=until) for i, s in enumerate(sessions)])
+            await asyncio.sleep(0.5)
+            await eng.start_trace(f"{tmp}/direct")
+            _note("server: trace started")
+            await asyncio.sleep(SERVER_TRACE_S)
+            await eng.stop_trace()
+            _note("server: trace stopped and written")
+            await traffic
+            for sess in sessions:
+                sess.close()
+            loop = asyncio.get_running_loop()
+            t_sym = time.perf_counter()
+            symbols = await eng.kernel_symbols()
+            t_sym = time.perf_counter() - t_sym
+            _note(f"server: kernel_symbols took {t_sym:.1f} s")
+            summary = await loop.run_in_executor(
+                None, lambda: summarize_trace(f"{tmp}/direct", top=500, symbols=symbols))
+            _note("server: trace summarized")
+            if have_aiohttp:
+                await http_check(tmp)
+            else:
+                await eng.stop()
+            return lat, wall, made, symbols, t_sym, summary
+
+        with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+            lat, wall, made, symbols, t_sym, summary = asyncio.run(run(tmp))
+        _note("server: event loop closed")
+        eng.submit_frame = submit
+    if log.errors:
+        fail(f"the engine or server logged {len(log.errors)} error(s); the first: {log.errors[0]}")
+    launches = fa.launches
+    # every reply: its header and size, and the engine's output for that frame, in order
+    for i, kind in enumerate(kinds):
+        sid = i  # the sessions opened their streams in order on a fresh engine
+        if len(replies[i]) < SERVER_FRAMES or len(outputs[sid]) != len(replies[i]):
+            fail(f"stream {i}: {len(replies[i])} replies to {len(outputs[sid])} frames")
+        for k, msg in enumerate(replies[i]):
+            out = outputs[sid][k]
+            if isinstance(msg, dict):
+                fail(f"stream {i} ({kind}): reply {k} is an error: {msg}")
+            if kind == "jpeg":
+                ok = msg[:2] == b"\xff\xd8" and msg == protocol.jpeg_encode(out, eng)
+            else:
+                ok = (len(msg) == 4 + side * side * 3
+                      and struct.unpack("<HH", msg[:4]) == (side, side)
+                      and msg == protocol.frame_reply(out, eng))
+            if not ok:
+                fail(f"stream {i} ({kind}): reply {k} is not the engine's output for frame {k}")
+    # a frame whose stream had a newer one waiting shares that one's
+    # generation (the engine's latest-wins mailbox): replies/s counts
+    # replies, frames/s generations, as the engine phase does
+    replies_per_s, fps = len(kinds) * SERVER_FRAMES / wall, made / wall
+    p50 = [statistics.median(v) for v in lat]
+    # the last dispatched batch whose rows some reply carries (a stream's
+    # last frame may be generated after its clients stopped waiting)
+    timed = [msg for rs in replies for msg in rs[:SERVER_FRAMES]]
+    for last_call in reversed(recent):
+        rows = [last_call["out"][0][r].cpu().numpy() for r in range(last_call["spec"].batch)]
+        forms = {protocol.frame_reply(r, eng) for r in rows}
+        if codec != "none":
+            forms |= {protocol.jpeg_encode(r, eng) for r in rows}
+        matched = sum(msg in forms for msg in timed)
+        if matched:
+            break
+    again = build_frame_program(bundle, last_call["spec"])(*last_call["args"],
+                                                           **last_call["kwargs"])
+    same = _same(again, last_call["out"])
+    print(f"server, {len(kinds)} protocol sessions ({', '.join(kinds)}) of {side}x{side} frames, "
+          f"{SERVER_IN_FLIGHT} in flight each, sd15 CN+TAESD bf16, max_batch 4, on {card}: "
+          f"warmup {warm_s:.1f} s; {fps:.2f} frames/s generated and {replies_per_s:.2f} replies/s "
+          f"over the streams ({made} generations for {len(kinds) * SERVER_FRAMES} frames sent); "
+          f"p50 per stream (ms) "
+          + ", ".join(f"{v:.1f}" for v in p50)
+          + f"; beside the engine alone (the engine phase, 4 synchronous streams, one in "
+          f"reference mode): {engine_res['steady_fps']:.2f} frames/s, p50 (ms) "
+          + ", ".join(f"{v:.1f}" for v in engine_res["p50_ms"])
+          + f"; every reply in order and the engine's output for its frame; the last timed "
+          f"batch a reply carries ({last_call['spec'].batch} rows, {matched} reply(ies) equal to "
+          f"one of its rows) again through build_frame_program equal bit for bit: {same}; "
+          f"kernel_symbols {len(symbols)} program signature(s) in {t_sym:.2f} s; K1 launches "
+          f"{launches} (warm-ups and captures)")
+    if not same or not matched:
+        fail("a batch the server's engine dispatched differs from build_frame_program, or no "
+             "reply holds a row of its last eight batches")
+    if not launches:
+        fail("the server's engine launched K1 no time")
+    _check_by_block("server trace, start_trace/stop_trace + kernel_symbols", summary)
+    print(json.dumps({"server": {
+        "aiohttp": have_aiohttp, "jpeg": codec, "streams": kinds, "frames_per_s": fps,
+        "replies_per_s": replies_per_s,
+        "p50_ms": p50, "engine_frames_per_s": engine_res["steady_fps"],
+        "engine_p50_ms": engine_res["p50_ms"], "mapped_by": summary["mapped_by"],
+        "by_block": summary["by_block"][:12]}}))
+    return launches
+
+
+def phase_sd21(card: str) -> dict:
+    """6d: the sd21 frame at full published widths (UNet 320/640/1280/1280
+    with heads of 64 and linear projections, the OpenCLIP ViT-H text
+    tower, the sd21 ControlNet, TAESD), 512x512, 4 steps, bf16, random
+    weights (seed 0), depth not cut: two replayed calls equal to the eager
+    ``frame_program`` bit for bit, K1_SD21_PER_FRAME K1 launches per frame
+    at capture (counted from 0 just before), replayed ms/frame (median of
+    SD21_FRAMES, before any profiler session), peak memory and FLOPs."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sd21", dtype=torch.bfloat16, device="cuda")
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    if tuple(embeds.shape) != (1, 77, 1024):
+        fail(f"the sd21 prompt embedding is {tuple(embeds.shape)}, not [1, 77, 1024]")
+    spec = FrameSpec(batch=1, height=512, width=512, steps=4)
+    program = build_frame_program(bundle, spec)
+    rng = np.random.default_rng(13)
+    frames = [torch.from_numpy(rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)).cuda()
+              for _ in range(2)]
+    args = ([0.6], [5.0], [2.0])
+    torch.cuda.synchronize()
+    print(f"sd21 bf16 bundle (ControlNet, TAESD) + prompt: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    counted = {}
+    got = _replay_vs_eager("sd21 512x512 4-step CN+TAESD bf16", program,
+                           [((frames[i], embeds, *args, [23 + i]), {}) for i in range(2)],
+                           {"flash_attention": K1_SD21_PER_FRAME}, counted)
+    _check_frame("sd21 frame", got[-1])
+    want = {"flash_attention": 2 * K1_SD21_PER_FRAME}  # warm-up and capture
+    if {k: n for k, n in counted.items() if n} != want:
+        fail(f"the sd21 frame launched {counted} in its warm-up and capture, expected {want}")
+    ms = []
+    for i in range(SD21_FRAMES):
+        t0 = time.perf_counter()
+        program(frames[i % 2], embeds, *args, [30 + i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    replay_ms = statistics.median(ms)
+    (bucket,) = program.buckets.values()
+    flops = frame_flops(bundle, spec)
+    print(f"sd21 512x512 4-step CN+TAESD bf16 batch 1 on {card}, CUDA graph replays: median "
+          f"{replay_ms:.2f} ms/frame over {SD21_FRAMES} frames (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}); K1 {program.last_launches['flash_attention']} launches/frame at "
+          f"capture (d = 64); {flops['logical'] / 1e12:.3f} TFLOP/frame logical, "
+          f"{flops['padded'] / 1e12:.3f} padded; warm-up + capture {bucket.capture_s:.2f} s; peak "
+          f"allocated {peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} GiB the earlier "
+          f"phases hold)")
+    launches = counted["flash_attention"] + _sd21_engine(card)
+    return {"program": program, "embeds": embeds, "frame": frames[0], "args": (*args, [23]),
+            "launches": launches, "replay_ms": replay_ms}
+
+
+def _sd21_engine(card: str) -> int:
+    """The engine serving ``family: sd21`` from a config file (random
+    weights): its bundle built from the config, one stream's frames through
+    its batch-1 graph.  Returns its K1 launches (warm-up and capture,
+    counted from 0 just before)."""
+    import asyncio
+
+    from videosd_tpu_torch.config import load_config
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    _zero_counts()
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "config.yaml")
+        with open(path, "w") as f:
+            f.write("family: sd21\ndtype: bfloat16\nweights: random\nframe_hw: [512, 512]\n")
+        eng = Engine(load_config(path), max_streams=1, max_batch=1)
+    eng.warmup(batch_sizes=(1,), steps=(4,), height=512, width=512)
+    frame = np.random.default_rng(14).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+
+    async def run():
+        eng.start()
+        try:
+            st = eng.open_stream({"height": 512, "width": 512, "prompt": "a fox"})
+            return [await asyncio.wait_for(eng.submit_frame(st.stream_id, frame), 120)
+                    for _ in range(3)]
+        finally:
+            await eng.stop()
+
+    outs = asyncio.run(run())
+    unet = eng.bundle.models["unet"]
+    print(f"engine from a config of family sd21 on {card}: bundle {eng.bundle.family}, "
+          f"proj_in {type(unet.down_blocks[0].attentions[0].proj_in).__name__}, "
+          f"{eng.telemetry.frames_out} frames generated, last {outs[-1].shape} "
+          f"{outs[-1].dtype}, K1 {fa.launches} launches (warm-up and capture)")
+    if (eng.bundle.family != "sd21" or not eng.telemetry.frames_out
+            or outs[-1].shape != (512, 512, 3) or not fa.launches):
+        fail("the engine did not serve family sd21 from its config")
+    launches = fa.launches
+    del eng
+    return launches
 
 
 def _same(a, b) -> bool:
@@ -2065,6 +2603,13 @@ def phase_fp32_profile(card: str, fp32: dict) -> None:
                     {"flash_fwd_fp32_kernel": K1_PER_FRAME, "flash_wide_fwd_fp32_kernel": 2})
 
 
+def phase_sd21_profile(card: str, sd21: dict) -> None:
+    """The same over two replayed sd21 frames: K1's 84 at d = 64."""
+    program, embeds, frame, args = sd21["program"], sd21["embeds"], sd21["frame"], sd21["args"]
+    _profile_frames(card, "sd21", lambda: program(frame, embeds, *args), sd21["replay_ms"],
+                    {"flash_fwd_kernel": K1_SD21_PER_FRAME})
+
+
 def phase_ref_profile(card: str, ref: dict) -> None:
     """The same over two replayed reference frames: K1's 180 (60 banked)."""
     _profile_frames(card, "reference-mode", ref["call"], ref["replay_ms"],
@@ -2110,6 +2655,9 @@ def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -
 
 
 def main() -> None:
+    import faulthandler
+
+    faulthandler.dump_traceback_later(1100, exit=True)  # a hang shows where, then ends
     card, clock = phase_card()
     # fp32 products stay fp32 on the card (the fp32 kernels' plain versions
     # and library calls); bf16 work is untouched by these flags
@@ -2126,9 +2674,11 @@ def main() -> None:
     phase_engine_call(card, main)
     del programs, pallas_program
     ref_launches, ref = phase_reference(card, main)
-    phase_engine(card, main)
+    engine_res = phase_engine(card, main)
+    server_launches = phase_server_process(card, engine_res)
     kl = phase_kl(card)
     fp32_frame = phase_fp32_frame(card)
+    sd21 = phase_sd21(card)
     phase_bench(main[0])
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k2_res = phase_k2(card, clock)
@@ -2140,11 +2690,13 @@ def main() -> None:
     phase_kl_profile(card, kl)
     phase_fp32_profile(card, fp32_frame)
     phase_ref_profile(card, ref)
+    phase_sd21_profile(card, sd21)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
-         "launches": k1_launches + ref_launches, "max_abs_err": k1_err, **k1_times},
+         "launches": k1_launches + ref_launches + server_launches + sd21["launches"],
+         "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
          "launches": fp32_frame["launches"], "max_abs_err": k1_fp32_err, **k1_fp32_times},
@@ -2173,4 +2725,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--server"]:
+        server_main(sys.argv[2])
+    else:
+        main()

@@ -2,12 +2,14 @@
 
 The port never imports ``videosd_tpu``, so it carries its own copies of the
 weight plans, the snapshot loader ``load_model_dir``, the CLIP tokenizer,
-the alphas table, the safetensors reader, the host I420 helpers, and the
+the alphas table, the safetensors reader, the host I420 helpers, the
 serving runtime's host code (``config.py``, ``io/discovery.py``, the
 dispatch worker, the frame queue with its native source, the telemetry's
-timers).  Each is held equal to the original here, and the port's modules
-own exactly the state-dict keys their plan names.  Also: the port imports
-with JAX unavailable.
+timers, the JPEG codec with its native source) and the server's sidecars
+(``server/stt.py``, ``server/webrtc.py``, ``promptgen/app.py``).  Each is
+held equal to the original here, with the package's own name in place of
+``videosd_tpu``'s, and the port's modules own exactly the state-dict keys
+their plan names.  Also: the port imports with JAX unavailable.
 """
 
 import ast
@@ -39,6 +41,7 @@ from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
 from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
 from videosd_tpu.runtime import dispatch as JDISP
 from videosd_tpu.runtime import framequeue as JFQ
+from videosd_tpu.runtime import jpegcodec as JJPEG
 from videosd_tpu.runtime import telemetry as JTEL
 from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
 from videosd_tpu_torch import config as PCFG
@@ -59,6 +62,7 @@ from videosd_tpu_torch.models import (
 )
 from videosd_tpu_torch.runtime import dispatch as PDISP
 from videosd_tpu_torch.runtime import framequeue as PFQ
+from videosd_tpu_torch.runtime import jpegcodec as PJPEG
 from videosd_tpu_torch.runtime import telemetry as PTEL
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
@@ -69,10 +73,11 @@ from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_TAESD = {"sd15": {}, "tiny": {"hidden": 16, "blocks_per_stage": 1}}
+_TAESD = {"sd15": {}, "sd21": {}, "tiny": {"hidden": 16, "blocks_per_stage": 1}}
 # the JAX package's KL VAE configs by family (ModelBundle.random)
-_J_VAE = {"sd15": JVAEConfig(), "tiny": JVAEConfig(block_out_channels=(8, 16, 16, 16),
-                                                   layers_per_block=1, norm_num_groups=4)}
+_J_VAE = {"sd15": JVAEConfig(), "sd21": JVAEConfig(),
+          "tiny": JVAEConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1,
+                             norm_num_groups=4)}
 
 # (plan, port module, JAX config table, port config table)
 _MODELS = {
@@ -98,14 +103,14 @@ def _plans(name, family):
     return jplan(jcfg), pplan(pcfg), lambda: ctor(pcfg)
 
 
-@pytest.mark.parametrize("family", ["tiny", "sd15"])
+@pytest.mark.parametrize("family", ["tiny", "sd15", "sd21"])
 @pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd", "vae"])
 def test_plan_copy_equals_original(name, family):
     jplan, pplan, _ = _plans(name, family)
     assert pplan == jplan
 
 
-@pytest.mark.parametrize("family", ["tiny", "sd15"])
+@pytest.mark.parametrize("family", ["tiny", "sd15", "sd21"])
 @pytest.mark.parametrize("name", ["unet", "controlnet", "clip", "taesd", "vae"])
 def test_module_keys_equal_plan_keys(name, family):
     _, pplan, ctor = _plans(name, family)
@@ -212,6 +217,9 @@ def test_port_imports_without_jax():
         "import videosd_tpu_torch.models.vae, videosd_tpu_torch.ops.flops\n"
         "import videosd_tpu_torch.pipelines.reference_attn, videosd_tpu_torch.runtime.engine\n"
         "import videosd_tpu_torch.config, videosd_tpu_torch.io.discovery\n"
+        "import videosd_tpu_torch.server.app, videosd_tpu_torch.server.protocol\n"
+        "import videosd_tpu_torch.server.stt, videosd_tpu_torch.promptgen.app\n"
+        "import videosd_tpu_torch.runtime.jpegcodec\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'videosd_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -262,11 +270,13 @@ def _defs(module) -> dict:
         tree = ast.parse(f.read())
     for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            out[node.name] = _stripped(node)
+            # the port's package name stands where the original names its own
+            out[node.name] = _stripped(node).replace("videosd_tpu_torch", "videosd_tpu")
         if isinstance(node, ast.ClassDef):
             for sub in node.body:
                 if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
-                    out[f"{node.name}.{sub.name}"] = _stripped(sub)
+                    out[f"{node.name}.{sub.name}"] = _stripped(sub).replace(
+                        "videosd_tpu_torch", "videosd_tpu")
     return out
 
 
@@ -279,6 +289,10 @@ _COPIES = {
                                "Telemetry.print_gentime", "Telemetry.snapshot"]),
     "config": (PCFG, JCFG, ["default_options", "coerce_option", "coerce_options",
                             "StreamOptions", "load_config"]),
+    # all but _load, which builds into the package's _build/
+    "jpegcodec": (PJPEG, JJPEG, ["native_available", "_tls_buf", "_pil_decode", "_jpeg_dims",
+                                 "decode_rgb", "decode_i420", "_pil_encode", "encode_rgb",
+                                 "encode_i420"]),
 }
 
 
@@ -315,6 +329,26 @@ def test_config_copy_equals_original():
             PCFG.ServerConfig.from_dict(bad)
     msg = {"strength": "0.8", "steps": "2", "ref": "no", "controlnet": "true", "x": [1]}
     assert PCFG.coerce_options(msg) == JCFG.coerce_options(msg)
+
+
+@pytest.mark.parametrize("path", ["server/stt.py", "server/webrtc.py", "promptgen/app.py"])
+def test_sidecar_copy_equals_original(path):
+    """The STT client, the aiortc wiring and the prompt-generator sidecar
+    are the JAX package's files with the package name replaced (neither
+    imports JAX)."""
+    with open(os.path.join(_REPO, "videosd_tpu_torch", path), encoding="utf-8") as f:
+        ours = f.read()
+    with open(os.path.join(_REPO, "videosd_tpu", path), encoding="utf-8") as f:
+        theirs = f.read()
+    assert ours.replace("videosd_tpu_torch", "videosd_tpu") == theirs
+
+
+def test_jpegcodec_native_source_is_a_copy():
+    with open(os.path.join(os.path.dirname(PJPEG.__file__), "native", "jpegcodec.cpp")) as f:
+        ours = f.read()
+    with open(os.path.join(os.path.dirname(JJPEG.__file__), "native", "jpegcodec.cpp")) as f:
+        assert ours == f.read()
+    assert os.path.dirname(PJPEG._SO).endswith(os.path.join("videosd_tpu_torch", "_build"))
 
 
 def test_framequeue_native_source_is_a_copy():

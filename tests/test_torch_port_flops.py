@@ -191,3 +191,41 @@ def test_mfu_and_peak():
     assert PF.device_peak_flops("NVIDIA H100 80GB HBM3") == 989.4e12
     assert PF.device_peak_flops("NVIDIA A100-SXM4-80GB") is None
     assert PF.device_peak_flops() is None or math.isfinite(PF.device_peak_flops())
+
+
+def test_sd21_512_frame_equals_jax_count(monkeypatch):
+    """The sd21 512x512 4-step CN + TAESD frame at full published widths
+    (heads of 64, linear projections, 1024-wide context): the port's count
+    on the meta device equals JAX's jaxpr walk of its program, traced on
+    abstract parameters (``jax.eval_shape`` of the initializers)."""
+    from videosd_tpu.models import clip_text as JC
+    from videosd_tpu.models import controlnet as JCN
+    from videosd_tpu.models import taesd as JT
+    from videosd_tpu.models import unet as JU
+    from videosd_tpu.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
+    from videosd_tpu.text.tokenizer import CLIPTokenizer
+
+    monkeypatch.setenv("VIDEOSD_ATTN_IMPL", "xla")
+    ucfg, tcfg, key = JU.UNET_PRESETS["sd21"], JT.TAESDConfig(), jax.random.PRNGKey(0)
+    params = {name: jax.eval_shape(lambda k, f=f, c=c: f(k, c, dtype=jnp.bfloat16), key)
+              for name, f, c in (("unet", JU.unet_init, ucfg),
+                                 ("controlnet", JCN.controlnet_init, ucfg),
+                                 ("taesd", JT.taesd_init, tcfg))}
+    sched = LCMSchedulerConfig()
+    jb = J.ModelBundle(family="sd21", unet_cfg=ucfg, clip_cfg=JC.CLIP_PRESETS["sd21"],
+                       sched_cfg=sched, params=params,
+                       alphas_cumprod=jnp.asarray(make_alphas_cumprod(sched)),
+                       tokenizer=CLIPTokenizer(None), taesd_cfg=tcfg, dtype=jnp.bfloat16)
+    spec_kw = dict(batch=1, height=512, width=512, steps=4)
+
+    def abstract(shape, dtype):
+        return jax.ShapeDtypeStruct(shape, dtype)
+
+    want = program_flops(J.build_frame_program(jb, J.FrameSpec(**spec_kw)), params,
+                         abstract((1, 512, 512, 3), jnp.uint8),
+                         abstract((1, 77, 1024), jnp.bfloat16),
+                         *[abstract((1,), jnp.float32)] * 3, abstract((1,), jnp.int32))["logical"]
+    meta = P.ModelBundle.random("sd21", dtype=torch.bfloat16, device="meta")
+    r = PF.frame_flops(meta, P.FrameSpec(**spec_kw))
+    assert r["logical"] == want
+    assert r["padded"] == r["logical"]  # d = 64 is an instance's width: no padding

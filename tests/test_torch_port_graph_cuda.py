@@ -12,9 +12,11 @@ attentions launch K1's fp32 kernel inside the graph; replays are held to
 the eager ``frame_program`` bit for bit, and the reference program's
 (whose banked self-attentions read twice the keys) to the eager
 ``reference_frame_program``.  Also: K1 in bf16 at the reference mode's
-banked shapes against its plain version, and one tick of the serving
-engine over two streams.  The last test makes a capture fail on purpose,
-so it runs last.
+banked shapes and at the sd21 frame's (heads of 64) against its plain
+version, the sd21 topology cut to tiny widths (replay against eager), one
+tick of the serving engine over two streams, and two server protocol
+sessions over a card engine.  The last test makes a capture fail on
+purpose, so it runs last.
 """
 
 import asyncio
@@ -160,6 +162,115 @@ def test_engine_tick_of_two_streams_on_card(tiny):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     for i, o in enumerate(outs):
         np.testing.assert_array_equal(o, want[0][i].cpu().numpy())
+
+
+# the sd21 frame's K1 shapes at 512x512 (B, H, Sq, Sk, d): heads of 64
+_K1_SD21 = [(1, 5, 4096, 4096, 64), (1, 10, 1024, 1024, 64), (1, 20, 256, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _K1_SD21, ids=lambda s: "x".join(map(str, s)))
+def test_k1_sd21_shapes_on_card(tiny, shape):
+    test_k1_banked_shapes_on_card(tiny, shape)
+
+
+@pytest.mark.cuda
+def test_sd21_tiny_width_program_replay_equals_eager_on_card(tiny):
+    """The sd21 topology (heads by dim, linear projections, no guidance
+    embedding) cut to widths (32, 64), heads of 8, context 64, in bf16 at
+    128x128: its 256-token attentions launch K1 (d = 8) inside the graph,
+    and two replays equal the eager frame_program bit for bit."""
+    import dataclasses
+
+    from videosd_tpu_torch.models import (
+        CLIP_PRESETS,
+        UNET_PRESETS,
+        CLIPTextModel,
+        ControlNetModel,
+        UNet2DConditionModel,
+    )
+
+    cfg = dataclasses.replace(UNET_PRESETS["sd21"], block_out_channels=(32, 64),
+                              attn_down=(True, False), transformer_depth=(1, 1),
+                              attention_head_dim=8, cross_attention_dim=64, norm_num_groups=8)
+    clip_cfg = dataclasses.replace(CLIP_PRESETS["sd21"], vocab_size=1000, hidden_size=64,
+                                   num_layers=1, num_heads=4, intermediate_size=128)
+    base = P.ModelBundle.random("tiny", dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    models = dict(base.models)
+    for name, ctor in (("unet", lambda: UNet2DConditionModel(cfg)),
+                       ("controlnet", lambda: ControlNetModel(cfg)),
+                       ("clip", lambda: CLIPTextModel(clip_cfg))):
+        models[name] = ctor().to(device="cuda", dtype=torch.bfloat16).eval()
+        P.init_like_jax(models[name], gen)
+    bundle = dataclasses.replace(base, family="sd21", unet_cfg=cfg, clip_cfg=clip_cfg,
+                                 models=models)
+    embeds = P.build_prompt_encoder(bundle)(bundle.tokenizer(["a fox", "a castle"]))[0]
+    spec = P.FrameSpec(batch=2, height=128, width=128, steps=2)
+    program = P.build_frame_program(bundle, spec)
+    calls = [(_frames(seed), [seed, seed + 1]) for seed in (1, 2)]
+    outs = [program(frame, embeds, *ARGS, seeds) for frame, seeds in calls]
+    assert program.last_launches["flash_attention"] > 0
+    for out, (frame, seeds) in zip(outs, calls):
+        want = P.frame_program(bundle, spec, frame, embeds, *ARGS, seeds)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_protocol_session_of_two_streams_on_card(tiny):
+    """Two protocol sessions (the per-connection code of the server's /ws)
+    over a card engine on the tiny checkpoint: every reply is the RGB24
+    framing of what the engine returned for that frame, in the order sent."""
+    import json
+    import struct
+
+    from videosd_tpu_torch.runtime.engine import Engine
+    from videosd_tpu_torch.server.protocol import Session, frame_reply
+
+    bundle, _ = tiny
+    eng = Engine(bundle=bundle, max_streams=2, max_batch=2, deadline_ms=5, frame_hw=(128, 128))
+    eng.warmup(batch_sizes=(1, 2), steps=(2,), height=128, width=128)
+    outputs = {0: [], 1: []}
+    submit = eng.submit_frame
+
+    async def spy(sid, frame):
+        slot = len(outputs[sid])
+        outputs[sid].append(None)
+        outputs[sid][slot] = await submit(sid, frame)
+        return outputs[sid][slot]
+
+    eng.submit_frame = spy
+    frames = _frames(8).cpu().numpy()
+
+    async def run():
+        eng.start()
+        try:
+            got = {0: [], 1: []}
+
+            def sender(i):
+                async def send(payload):
+                    got[i].append(payload)
+                return send
+
+            sessions = [Session(eng, sender(i)) for i in range(2)]
+            for i, s in enumerate(sessions):
+                await s.on_text(json.dumps({"type": "init", "options": {
+                    "height": 128, "width": 128, "steps": 2, "seed": 3 + i}}))
+            for n in range(3):
+                for i, s in enumerate(sessions):
+                    img = np.ascontiguousarray(np.roll(frames[i], 4 * n, 1))
+                    await s.on_binary(struct.pack("<HH", 128, 128) + img.tobytes())
+            for s in sessions:
+                await asyncio.wait_for(s.drain(), 120)
+                s.close()
+            return got
+        finally:
+            await eng.stop()
+
+    got = asyncio.run(run())
+    for i in range(2):
+        assert len(got[i]) == 3
+        assert got[i] == [frame_reply(out, eng) for out in outputs[i]]
 
 
 @pytest.mark.cuda

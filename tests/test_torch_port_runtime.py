@@ -3,8 +3,9 @@
 fp32 bundle (``device="cpu"``: every program runs eagerly; on a card each
 bucket is a CUDA graph).  The cases of the copies (FrameQueue, EMA,
 pacing, telemetry, DispatchWorker) are in ``test_torch_port_copies.py``.
-Left out until their ports (ROADMAP.md queue 1): the two SDXL cases and
-the HLO-symbol profile case.  The JAX engine is not run here.
+Left out until their port (ROADMAP.md queue 2): the two SDXL cases.  The
+HLO-symbol profile case is here as the kernel-symbol one.  The JAX engine
+is not run here.
 
 Scheduler contract as the JAX engine's: latest-frame-wins dropping, EMA
 pacing, live option mutation, cold buckets served by the nearest ready
@@ -963,3 +964,171 @@ def test_trace_summarizes_the_profiled_work(tmp_path):
     assert {"name", "ms", "pct"} <= set(summary["by_type"][0])
     assert any("conv" in op["name"] for op in summary["ops"]), summary["ops"]
     assert "error" in summarize_trace(str(tmp_path / "empty"))
+
+
+def test_profiler_sessions_start_and_stop_on_the_dispatch_thread(tmp_path, monkeypatch):
+    """The engine starts and ends a trace, and profiles each program body
+    for kernel_symbols, on its dispatch thread holding the launch lock
+    that warm-ups and model loads take: on an H100 a profiler stop beside
+    a graph replay on another thread deadlocked both."""
+    import threading
+
+    from videosd_tpu_torch.runtime import telemetry
+
+    eng = _mk_engine()
+    seen = []
+
+    def spy(fn):
+        def call(*a, **kw):
+            seen.append((fn.__name__, threading.current_thread().name,
+                         eng._launch_lock._is_owned()))
+            return fn(*a, **kw)
+        return call
+
+    eng.telemetry.start_trace = spy(eng.telemetry.start_trace)
+    eng.telemetry.end_trace = spy(eng.telemetry.end_trace)
+    monkeypatch.setattr(telemetry, "profiler", spy(telemetry.profiler))
+
+    async def run():
+        eng.warmup(batch_sizes=(1,), steps=(1,), height=32, width=32)
+        try:
+            await eng.start_trace(str(tmp_path))
+            await eng.stop_trace()
+            return await eng.kernel_symbols()
+        finally:
+            await eng.stop()
+
+    symbols = asyncio.run(run())
+    assert symbols and (tmp_path / "trace.json").exists()
+    assert [n for n, _, _ in seen] == ["start_trace", "profiler", "end_trace"] + [
+        "profiler"] * len(symbols)
+    assert {(thread, held) for _, thread, held in seen} == {("tpu-dispatch", True)}
+
+
+def test_hlo_symbols_and_trace_by_block(rng, tmp_path):
+    """/profile symbolization: the engine's kernel_symbols() lists each
+    captured program's work in order with its model scope, and
+    summarize_trace groups the traced time by block when given it (on the
+    CPU: the dispatch thread's host operators, placed by their enclosing
+    ranges)."""
+    from videosd_tpu_torch.runtime.telemetry import summarize_trace
+
+    async def run():
+        eng = _mk_engine()
+        eng.start()
+        try:
+            st = eng.open_stream({"height": 32, "width": 32, "steps": 1})
+            frame = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+            await _first_real(eng, st, frame)
+            await eng.start_trace(str(tmp_path))
+            await asyncio.wait_for(eng.submit_frame(st.stream_id, frame), 120)
+            await asyncio.wait_for(eng.submit_frame(st.stream_id, 255 - frame), 120)
+            await eng.stop_trace()
+            return await eng.kernel_symbols()
+        finally:
+            await eng.stop()
+
+    symbols = asyncio.run(run())
+    assert symbols, "no kernel symbols recorded"
+    scopes = {sc for seq in symbols.values() for _, sc in seq}
+    assert any(sc.startswith("unet/down0") for sc in scopes), scopes
+    assert {"preprocess", "vae_encode", "controlnet", "vae_decode", "postprocess"} <= {
+        sc.split("/")[0] for sc in scopes}
+    summary = summarize_trace(str(tmp_path), symbols=symbols)
+    assert "by_block" in summary, summary.get("error")
+    blocks = {e["name"]: e["pct"] for e in summary["by_block"]}
+    assert any(b.startswith("unet/") for b in blocks) and "vae_decode" in blocks, blocks
+    assert blocks.get("(unmapped)", 0.0) <= 10.0, blocks
+    assert all("block" in op for op in summary["ops"])
+
+
+def test_trace_by_block_places_graph_replays_by_position(tmp_path):
+    """summarize_trace on a trace of the card's shape, written by hand: each
+    graph replay's events share their cudaGraphLaunch's correlation and are
+    placed by position in the recorded sequence, also where a kernel name
+    runs in two blocks and where the profiler lost an event and named a
+    memset otherwise; an eager launch takes its block from the ranges
+    around it; a replay that fits no sequence falls back to names (``*``
+    where a name ran in two blocks); a copy outside every range is
+    ``(unmapped)``."""
+    import json
+
+    from videosd_tpu_torch.runtime.telemetry import summarize_trace
+
+    seq = ([("conv", "unet/down0/res0"), ("gemm", "unet/down0/tf0"),
+            ("flash_fwd_kernel", "unet/down0/tf0")] * 4
+           + [("conv", "unet/up0/res0"), ("flash_fwd_kernel", "unet/up0/tf0")] * 4
+           + [("Memset (Device)", "vae_decode")])
+    events, corr = [], iter(range(100, 200))
+
+    def launch(name, ts, kernels, cat="kernel"):
+        c = next(corr)
+        events.append({"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts, "dur": 1,
+                       "tid": 1, "args": {"correlation": c}})
+        for i, k in enumerate(kernels):
+            events.append({"ph": "X", "cat": "Memset" in k and "gpu_memset" or cat, "name": k,
+                           "ts": ts + 5 + 20 * i, "dur": 10, "args": {"correlation": c,
+                                                                       "stream": 7}})
+
+    names = [n for n, _ in seq]
+    launch("cudaGraphLaunch", 0, names)
+    launch("cudaGraphLaunch", 1000, names[:1] + names[2:-1] + ["Memset (Unknown)"])
+    launch("cudaGraphLaunch", 2000, ["conv", "relu"])
+    events += [{"ph": "X", "cat": "user_annotation", "name": n, "ts": ts, "dur": 50, "tid": 1}
+               for n, ts in (("unet", 3000), ("mid", 3001))]
+    launch("cudaLaunchKernel", 3010, ["relu"])
+    launch("cudaMemcpyAsync", 4000, ["Memcpy DtoH"], cat="gpu_memcpy")
+    with open(tmp_path / "trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+    summary = summarize_trace(str(tmp_path), symbols={"b1": seq})
+    assert summary["graph_replays"] == {"replays": 3, "placed": 2, "unplaced": [2]}
+    assert summary["mapped_by"] == {"trace": 2, "position": 41, "name": 1, "none": 1}
+    assert {e["name"]: e["ms"] for e in summary["by_block"]} == {
+        "unet/down0": 0.23, "unet/up0": 0.16, "vae_decode": 0.02, "unet/mid": 0.01,
+        "unet/down0*": 0.01, "(unmapped)": 0.02}
+    flash = next(op for op in summary["ops"] if op["name"] == "flash_fwd_kernel")
+    assert flash["blocks"] == {"unet/down0": 0.08, "unet/up0": 0.08}
+
+
+def test_trace_by_block_places_replays_cut_by_the_trace_window():
+    """A replay the trace's start cut (its head missing) aligns from where
+    its first names occur in the recorded sequence; one its end cut (its
+    tail missing) from the start; a recorded sequence one event shorter
+    than the replay (a lost event in the eager session) still fits."""
+    from videosd_tpu_torch.runtime.telemetry import _graph_blocks
+
+    seq = ([(f"conv{i % 7}", "unet/down0/res0") for i in range(40)]
+           + [(f"gemm{i % 5}", "unet/up1/tf0") for i in range(40)]
+           + [(f"ew{i % 3}", "vae_decode") for i in range(40)])
+    names = [n for n, _ in seq]
+    blocks = ["unet/down0"] * 40 + ["unet/up1"] * 40 + ["vae_decode"] * 40
+    symbols = {"b1": seq[:57] + seq[58:]}  # the eager session lost one event
+    assert _graph_blocks(names[50:], symbols)[-45:] == blocks[-45:]  # head cut
+    assert _graph_blocks(names[:70], symbols)[:40] == blocks[:40]  # tail cut
+    assert _graph_blocks(names, symbols)[-60:] == blocks[-60:]
+    assert _graph_blocks(["x"] * 30, symbols) is None
+
+
+@pytest.mark.parametrize("lost", [(20, 30), (70, 80), (20, 23)])
+@pytest.mark.parametrize("side", ["record", "replay"])
+def test_trace_by_block_places_replays_across_a_run_of_lost_events(side, lost):
+    """Where the eager record or the replay lost a run of events, a walk
+    along the sequence can drift through two blocks that run the same
+    kernels (or fall short); the replay is then placed by the diff, every
+    event in its block."""
+    from videosd_tpu_torch.runtime.telemetry import _graph_blocks, _walk
+
+    seq = ([(f"k{i % 7}", "unet/down0/res0") for i in range(60)]
+           + [(f"k{i % 7}", "unet/down1/res0") for i in range(60)]
+           + [(f"e{i % 3}", "vae_decode") for i in range(30)])
+    names = [n for n, _ in seq]
+    blocks = ["unet/down0"] * 60 + ["unet/down1"] * 60 + ["vae_decode"] * 30
+    lo, hi = lost
+    if side == "record":
+        record, replay, want = seq[:lo] + seq[hi:], names, blocks
+    else:
+        record, replay, want = seq, names[:lo] + names[hi:], blocks[:lo] + blocks[hi:]
+    if side == "record":  # the walk alone falls short or drifts here
+        hits, idx = _walk(replay, record)
+        assert hits < 0.9 * len(replay) or [record[i][1][:10] for i in idx] != want
+    assert _graph_blocks(replay, {"b1": record}) == want

@@ -1,10 +1,12 @@
-"""CLIP text encoder (the SD1.5 text tower) as torch modules.
+"""CLIP text encoders (SD1.5's CLIP ViT-L/14 and SD2.1's OpenCLIP ViT-H
+text towers) as torch modules.
 
 Counterpart of ``videosd_tpu/models/clip_text.py`` with transformers'
 ``CLIPTextModel`` parameter names (``text_model.*``).  Pre-LN blocks,
-causal mask, quick_gelu, final LN; the pooled output is the final hidden
-state at the EOT token (argmax of the ids).  Its attention is masked, so it
-stays on the plain route, as it did under XLA.
+causal mask, quick_gelu (CLIP) or gelu (OpenCLIP), final LN; the pooled
+output is the final hidden state at the EOT token (argmax of the ids).  Its
+attention is masked, so it stays on the plain route, as it did under XLA.
+Not covered yet: SDXL's penultimate-state and projected towers.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from videosd_tpu_torch.models.layers import LayerNorm, attention
@@ -35,6 +38,14 @@ class CLIPTextConfig:
 
 CLIP_PRESETS = {
     "sd15": CLIPTextConfig(),
+    # SD2.1 / SD-Turbo: OpenCLIP ViT-H/14's text tower (its 24th layer dropped)
+    "sd21": CLIPTextConfig(
+        hidden_size=1024,
+        num_layers=23,
+        num_heads=16,
+        intermediate_size=4096,
+        hidden_act="gelu",
+    ),
     "tiny": CLIPTextConfig(
         vocab_size=1000,
         hidden_size=32,
@@ -48,7 +59,12 @@ CLIP_PRESETS = {
 def _act(name: str, x):
     if name == "quick_gelu":
         return x * torch.sigmoid(1.702 * x)
-    raise NotImplementedError(f"hidden_act={name!r} (SD2.x/SDXL towers) is not ported yet")
+    if name == "gelu":
+        # transformers' "gelu" is the exact erf form; the tanh form only for
+        # a bf16 input, as the JAX tower's gelu(approximate=bf16).  The
+        # tower passes fp32 in either dtype, so it is erf in both.
+        return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+    raise ValueError(f"unknown hidden_act {name!r}")
 
 
 class _Layer(nn.Module):

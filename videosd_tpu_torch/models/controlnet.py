@@ -47,6 +47,7 @@ class ControlNetConditioningEmbedding(nn.Module):
 
 
 class ControlNetModel(UNetEncoder):
+    block_scopes = False
     # parameters that the JAX package initializes to zero
     ZERO_INIT = ("controlnet_down_blocks.", "controlnet_mid_block.",
                  "controlnet_cond_embedding.conv_out.")

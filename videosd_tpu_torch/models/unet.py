@@ -1,12 +1,12 @@
-"""Conditional diffusion UNet (SD1.5 parity path) as torch modules.
+"""Conditional diffusion UNet (the SD1.5 and SD2.1 families) as torch modules.
 
 Counterpart of ``videosd_tpu/models/unet.py``.  Module and parameter
 names are diffusers' ``UNet2DConditionModel`` names, so a diffusers-layout
 state dict loads with ``load_state_dict``; activations are NCHW inside the
 modules.  :func:`unet_apply` keeps the JAX package's NHWC interface.
 
-Covered: resnets, Transformer2D with the 1x1 projections applied as linears
-on the token view, fused-QKV self-attention (long sequences go to kernel
+Covered: resnets, Transformer2D with its projections applied as linears on
+the token view (SD1.5's 1x1 convs, SD2.1's ``nn.Linear``), fused-QKV self-attention (long sequences go to kernel
 K1 through ``layers.attention``), 77-token cross-attention, the LCM
 guidance ``cond_proj``, the ControlNet residual adds, and the DeepCache
 split (the deep feature out of a full pass, and the shallow pass over a
@@ -20,11 +20,13 @@ covered yet: SDXL ``text_time``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from videosd_tpu_torch.models.layers import (
     GroupNorm,
@@ -101,6 +103,14 @@ class UNetConfig:
 UNET_PRESETS: dict[str, UNetConfig] = {
     # SimianLuo/LCM_Dreamshaper_v7 and SD1.5-family ControlNet hosts
     "sd15": UNetConfig(time_cond_proj_dim=256),
+    # SD2.1 / SD-Turbo (stabilityai/sd-turbo): 1024-dim OpenCLIP context,
+    # heads of 64 (5/10/20 at 320/640/1280 channels), linear projections
+    "sd21": UNetConfig(
+        cross_attention_dim=1024,
+        attention_head_dim=64,
+        head_dim_is_num_heads=False,
+        use_linear_projection=True,
+    ),
     # tiny config for tests: the sd15 topology at 2 stages and narrow widths
     "tiny": UNetConfig(
         block_out_channels=(32, 64),
@@ -117,10 +127,8 @@ UNET_PRESETS: dict[str, UNetConfig] = {
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.addition_embed_type is not None or cfg.use_linear_projection:
-        raise NotImplementedError(
-            "SD2.x/SDXL UNets (linear projections, text_time) are not ported yet"
-        )
+    if cfg.addition_embed_type is not None:
+        raise NotImplementedError("SDXL UNets (addition_embed_type text_time) are not ported yet")
 
 
 # ------------------------------------------------------------------ blocks
@@ -218,15 +226,20 @@ class Transformer2DModel(nn.Module):
         super().__init__()
         heads = cfg.num_heads(channels)
         self.norm = GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        if cfg.use_linear_projection:
+            self.proj_in = nn.Linear(channels, channels)
+            self.proj_out = nn.Linear(channels, channels)
+        else:
+            self.proj_in = nn.Conv2d(channels, channels, 1)
+            self.proj_out = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(cfg, channels, heads) for _ in range(depth)]
         )
 
     @staticmethod
     def _as_linear(mod, h):
-        # a 1x1 conv is a linear over the token view (the JAX _proj_as_linear)
+        # a 1x1 conv is a linear over the token view (the JAX _proj_as_linear);
+        # a linear's weight passes through
         return F.linear(h, mod.weight.reshape(mod.weight.shape[0], -1), mod.bias)
 
     def forward(self, x, context, bank=None, bank_out=None):
@@ -272,9 +285,11 @@ class DownBlock2D(nn.Module):
         ``adain`` runs after each resnet(+attention) pair."""
         res = []
         for i, rn in enumerate(self.resnets):
-            x = rn(x, temb)
+            with record_function(f"res{i}"):
+                x = rn(x, temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
+                with record_function(f"tf{i}"):
+                    x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
             if adain is not None:
                 x = adain(x)
             res.append(x)
@@ -323,9 +338,11 @@ class UpBlock2D(nn.Module):
 
     def forward(self, x, res_samples, temb, context, bank=None, bank_out=None, adain=None):
         for i, rn in enumerate(self.resnets):
-            x = rn(torch.cat([x, res_samples.pop()], dim=1), temb)
+            with record_function(f"res{i}"):
+                x = rn(torch.cat([x, res_samples.pop()], dim=1), temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
+                with record_function(f"tf{i}"):
+                    x = self.attentions[i](x, context, bank=bank, bank_out=bank_out)
             if adain is not None:
                 x = adain(x)
         if self.upsamplers is not None:
@@ -359,9 +376,17 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(temb)))
 
 
+def _scope(name: str, on: bool):
+    return record_function(name) if on else contextlib.nullcontext()
+
+
 class UNetEncoder(nn.Module):
     """conv_in, time embedding, down blocks and mid block: the part the UNet
     and the ControlNet share."""
+
+    # the UNet's blocks carry the JAX unet_apply's scopes (down{i}, mid);
+    # the ControlNet's, as JAX's controlnet_apply, only their res/tf ones
+    block_scopes = True
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -382,10 +407,13 @@ class UNetEncoder(nn.Module):
         """Down and mid blocks; ``hooks`` (``bank``, ``bank_out``, ``adain``)
         reach every block."""
         down_res = [x]
-        for blk in self.down_blocks:
-            x, res = blk(x, temb, context, **hooks)
+        for i, blk in enumerate(self.down_blocks):
+            with _scope(f"down{i}", self.block_scopes):
+                x, res = blk(x, temb, context, **hooks)
             down_res.extend(res)
-        return self.mid_block(x, temb, context, **hooks), down_res
+        with _scope("mid", self.block_scopes):
+            x = self.mid_block(x, temb, context, **hooks)
+        return x, down_res
 
 
 class UNet2DConditionModel(UNetEncoder):
@@ -445,9 +473,12 @@ class UNet2DConditionModel(UNetEncoder):
                 raise ValueError("return_deep_feature requires a full pass (deep_feature=None)")
             if len(self.down_blocks) < 2:
                 raise ValueError("deep_feature split needs >= 2 resolution blocks")
-            _, res = self.down_blocks[0].resnets_and_attentions(x, temb, context)
+            with record_function("down0"):
+                _, res = self.down_blocks[0].resnets_and_attentions(x, temb, context)
             down_res = self._add_residuals([x, *res], down_block_additional_residuals)
-            return self._head(self.up_blocks[-1](deep_feature, down_res, temb, context))
+            with record_function(f"up{len(self.up_blocks) - 1}"):
+                x = self.up_blocks[-1](deep_feature, down_res, temb, context)
+            return self._head(x)
         hooks = dict(bank=bank, bank_out=bank_out, adain=adain)
         x, down_res = self.encode(x, temb, context, **hooks)
         down_res = self._add_residuals(down_res, down_block_additional_residuals)
@@ -455,10 +486,11 @@ class UNet2DConditionModel(UNetEncoder):
             x = x + mid_block_additional_residual.to(x.dtype)
         n = self.cfg.layers_per_block + 1
         deep = None
-        for blk in self.up_blocks:
+        for i, blk in enumerate(self.up_blocks):
             deep = x
             res_samples, down_res = down_res[-n:], down_res[:-n]
-            x = blk(x, res_samples, temb, context, **hooks)
+            with record_function(f"up{i}"):
+                x = blk(x, res_samples, temb, context, **hooks)
         out = self._head(x)
         return (out, deep) if return_deep_feature else out
 

@@ -48,6 +48,7 @@ class VAEConfig:
 
 VAE_PRESETS: dict[str, VAEConfig] = {
     "sd15": VAEConfig(),
+    "sd21": VAEConfig(),
     # the tiny family's (videosd_tpu/pipelines/lcm_img2img.py ModelBundle.random)
     "tiny": VAEConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4),
 }

@@ -63,6 +63,7 @@ import time
 from typing import Any
 
 import torch
+from torch.profiler import record_function
 from torch import nn
 
 from videosd_tpu_torch.io.weights import (
@@ -535,15 +536,20 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
     unet, models = bundle.models["unet"], bundle.models
     cfg = bundle.unet_cfg
 
-    rgb = i420_to_rgb255(frame) if spec.in_format == "i420" else frame
-    if src_box is not None:
-        img01 = crop_resize(rgb, src_box, spec.height, spec.width)
-    else:
-        img01 = preprocess_frame(rgb, spec.height, spec.width)
-    ctrl = None
-    if spec.use_controlnet:
-        ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
-    latents0 = _encode_latents(bundle, spec, (img01 * 2.0 - 1.0).to(dtype))  # [B, h, w, 4]
+    # the stages carry the JAX program's named scopes, as profiler ranges
+    # (record_function adds no kernel): the trace by block reads them
+    with record_function("preprocess"):
+        rgb = i420_to_rgb255(frame) if spec.in_format == "i420" else frame
+        if src_box is not None:
+            img01 = crop_resize(rgb, src_box, spec.height, spec.width)
+        else:
+            img01 = preprocess_frame(rgb, spec.height, spec.width)
+        ctrl = None
+        if spec.use_controlnet:
+            ctrl = _nchw(sobel_control_image(img01, spec.canny_low, spec.canny_high).to(dtype))
+        img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
+    with record_function("vae_encode"):
+        latents0 = _encode_latents(bundle, spec, img_pm1)  # [B, h, w, 4]
     if warm_latents is not None:
         a = warm_alpha[:, None, None, None]
         latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
@@ -583,25 +589,28 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         )
         if spec.use_controlnet and keep > 0.0:
             if cn_interval == 1 or cn_cache is None or refresh(s, cn_interval):
-                cn_cache = models["controlnet"](
-                    x, t, context, ctrl, conditioning_scale=cn_scale, timestep_cond=w_emb,
-                )
+                with record_function("controlnet"):
+                    cn_cache = models["controlnet"](
+                        x, t, context, ctrl, conditioning_scale=cn_scale, timestep_cond=w_emb,
+                    )
             down_res, mid_res = cn_cache
         unet_kw = dict(timestep_cond=w_emb, down_block_additional_residuals=down_res)
-        if deep_caches is not None:
-            # temporal reuse: shallow pass over the carried feature of step s
-            # (the mid residual conditions the carried trunk; it is dropped)
-            eps = unet(x, t, context, deep_feature=_nchw(deep_caches[:, s]), **unet_kw)
-        elif temporal_produce or (dc_interval > 1 and (dc_cache is None or refresh(s, dc_interval))):
-            # a full pass that also captures the trunk's output feature
-            eps, dc_cache = unet(x, t, context, mid_block_additional_residual=mid_res,
-                                 return_deep_feature=True, **unet_kw)
-            if temporal_produce:
-                new_caches.append(dc_cache)
-        elif dc_interval > 1:
-            eps = unet(x, t, context, deep_feature=dc_cache, **unet_kw)
-        else:
-            eps = unet(x, t, context, mid_block_additional_residual=mid_res, **unet_kw)
+        with record_function("unet"):
+            if deep_caches is not None:
+                # temporal reuse: shallow pass over the carried feature of step
+                # s (the mid residual conditions the carried trunk; it is dropped)
+                eps = unet(x, t, context, deep_feature=_nchw(deep_caches[:, s]), **unet_kw)
+            elif temporal_produce or (dc_interval > 1
+                                      and (dc_cache is None or refresh(s, dc_interval))):
+                # a full pass that also captures the trunk's output feature
+                eps, dc_cache = unet(x, t, context, mid_block_additional_residual=mid_res,
+                                     return_deep_feature=True, **unet_kw)
+                if temporal_produce:
+                    new_caches.append(dc_cache)
+            elif dc_interval > 1:
+                eps = unet(x, t, context, deep_feature=dc_cache, **unet_kw)
+            else:
+                eps = unet(x, t, context, mid_block_additional_residual=mid_res, **unet_kw)
         new_lat, new_den = step(
             bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
             noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
@@ -610,13 +619,16 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         latents = torch.where(m, new_lat, latents)
         denoised = torch.where(m, new_den, denoised)
 
-    out = _decode_latents(bundle, spec, denoised)
+    with record_function("vae_decode"):
+        out = _decode_latents(bundle, spec, denoised)
     if bundle.safety_hook is not None:
-        out = _apply_hook(bundle.safety_hook, out)
-    if temporal_produce:
-        caches = torch.stack([f.permute(0, 2, 3, 1) for f in new_caches], dim=1)
-        return postprocess_image(out), denoised, caches
-    return postprocess_image(out), denoised
+        with record_function("safety"):
+            out = _apply_hook(bundle.safety_hook, out)
+    with record_function("postprocess"):
+        if temporal_produce:
+            caches = torch.stack([f.permute(0, 2, 3, 1) for f in new_caches], dim=1)
+            return postprocess_image(out), denoised, caches
+        return postprocess_image(out), denoised
 
 
 @torch.inference_mode()
@@ -795,7 +807,8 @@ class _Program:
             bucket = self.buckets[key] = _Bucket(
                 self.bundle, _new_buffers(self.bundle, self.spec, inputs, rows),
                 functools.partial(self._body, self.bundle, self.spec))
-        _stage(bucket.buffers, inputs, seed, self.spec.batch)
+        with record_function("stage"):
+            _stage(bucket.buffers, inputs, seed, self.spec.batch)
         outputs = bucket.run()
         self.last_launches = bucket.launches
         return tuple(x.clone() for x in outputs)

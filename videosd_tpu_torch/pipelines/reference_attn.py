@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.unet import BankReader
@@ -168,9 +169,13 @@ def _reference_body(bundle: ModelBundle, spec: FrameSpec, frame, ref, context, s
     alphas = bundle.alphas_cumprod
 
     # camera frames may arrive packed 4:2:0; the style reference is RGB
-    rgb = i420_to_rgb255(frame) if spec.in_format == "i420" else frame
-    latents0 = _encode_latents(bundle, spec, (_to01(spec, rgb, src_box) * 2.0 - 1.0).to(dtype))
-    ref_lat0 = _encode_latents(bundle, spec, (_to01(spec, ref, ref_box) * 2.0 - 1.0).to(dtype))
+    with record_function("preprocess"):
+        rgb = i420_to_rgb255(frame) if spec.in_format == "i420" else frame
+        img_pm1 = (_to01(spec, rgb, src_box) * 2.0 - 1.0).to(dtype)
+        ref_pm1 = (_to01(spec, ref, ref_box) * 2.0 - 1.0).to(dtype)
+    with record_function("vae_encode"):
+        latents0 = _encode_latents(bundle, spec, img_pm1)
+        ref_lat0 = _encode_latents(bundle, spec, ref_pm1)
 
     ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
     first_idx = valid.to(torch.int32).argmax(dim=1)
@@ -192,12 +197,14 @@ def _reference_body(bundle: ModelBundle, spec: FrameSpec, frame, ref, context, s
         # WRITE pass: bank the self-attention tokens and the statistics
         bank_out: list = []
         adain_w = AdainBank("write")
-        unet(_nchw(ref_xt), t, context, timestep_cond=w_emb, bank_out=bank_out, adain=adain_w)
-        # READ pass on the frame's latents
-        bank = BankReader([b.to(dtype) for b in bank_out], fidelity=sf_attn[:, None, None])
-        adain_r = AdainBank("read", stats=adain_w.stats,
-                            fidelity=sf_adain[:, None, None, None])
-        eps = unet(_nchw(latents), t, context, timestep_cond=w_emb, bank=bank, adain=adain_r)
+        with record_function("unet"):
+            unet(_nchw(ref_xt), t, context, timestep_cond=w_emb, bank_out=bank_out,
+                 adain=adain_w)
+            # READ pass on the frame's latents
+            bank = BankReader([b.to(dtype) for b in bank_out], fidelity=sf_attn[:, None, None])
+            adain_r = AdainBank("read", stats=adain_w.stats,
+                                fidelity=sf_adain[:, None, None, None])
+            eps = unet(_nchw(latents), t, context, timestep_cond=w_emb, bank=bank, adain=adain_r)
         new_lat, new_den = step(
             bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
             noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
@@ -206,7 +213,10 @@ def _reference_body(bundle: ModelBundle, spec: FrameSpec, frame, ref, context, s
         latents = torch.where(m, new_lat, latents)
         denoised = torch.where(m, new_den, denoised)
 
-    return postprocess_image(_decode_latents(bundle, spec, denoised)), denoised
+    with record_function("vae_decode"):
+        out = _decode_latents(bundle, spec, denoised)
+    with record_function("postprocess"):
+        return postprocess_image(out), denoised
 
 
 @torch.inference_mode()

@@ -128,6 +128,9 @@ class Engine(
                 "mesh and mesh_pipe serving (gpus > 1) is not ported yet: one card per engine")
         self._bundle = bundle
         self.device = torch.device(bundle.device if bundle is not None else device)
+        # batch multiple of the data axis (the JAX engine's mesh size): one
+        # engine drives one card
+        self.data_axis = 1
         # provenance of the serving weights (None = random init); set by
         # the bundle resolver and swap_params, surfaced via stats()
         self.weights_source: dict | str | None = None
@@ -208,6 +211,11 @@ class Engine(
         self._weights_in_modules = ""
         self._default_weights: dict | None = None
         self._weights_lock = threading.Lock()
+        # held by every thread but the dispatch thread while it launches on
+        # the card (warm-ups and their captures, model loads), and by the
+        # dispatch thread to start or stop a profiler session, which must
+        # not overlap another thread's launches (_between_launches)
+        self._launch_lock = threading.RLock()
         self._encoder = None
         self._loop_task: asyncio.Task | None = None
         # all hot-path program executions go through ONE dispatch thread

@@ -14,6 +14,90 @@ __all__ = ["ProgramCacheMixin"]
 
 class ProgramCacheMixin:
 
+    async def _between_launches(self, fn, *args):
+        """``fn(*args)`` on the dispatch thread, between two batches, holding
+        the launch lock and the weight lock: no other thread of the engine
+        launches on the card meanwhile (background warm-ups and captures,
+        model loads and weight swaps wait for it).  A profiler session
+        starts and stops only so: on an H100 the profiler's stop on the
+        event loop and a graph replay on the dispatch thread once waited
+        on each other for good."""
+        import asyncio
+
+        def call():
+            with self._launch_lock, self._weights_lock:
+                return fn(*args)
+
+        return await self._get_dispatcher().run(
+            asyncio.get_running_loop(), call, lambda res: res
+        )
+
+    async def start_trace(self, log_dir: str) -> None:
+        """``telemetry.start_trace(log_dir)`` between two batches
+        (:meth:`_between_launches`)."""
+        await self._between_launches(self.telemetry.start_trace, log_dir)
+
+    async def stop_trace(self) -> None:
+        """``telemetry.stop_trace()``: the profiler ends between two batches
+        (:meth:`_between_launches`) and its trace, many MB, is written off
+        the dispatch thread."""
+        import asyncio
+
+        await self._between_launches(self.telemetry.end_trace)
+        await asyncio.get_running_loop().run_in_executor(None, self.telemetry.write_trace)
+
+    async def kernel_symbols(self) -> dict:
+        """``{program signature: [(kernel name, scope), ...]}`` over every
+        call signature of every cached program: the counterpart of the JAX
+        engine's ``hlo_symbols()``, for ``summarize_trace(symbols=...)``.
+
+        A CUDA graph's replay carries no profiler ranges, so each
+        signature's body runs once more, eagerly, under the profiler, and
+        the device events it launches are listed in the order they ran,
+        each with the ``record_function`` scopes around its launch
+        (``unet/down0/tf1``); on the CPU, its outermost operators.  Each
+        signature runs between two batches (:meth:`_between_launches`):
+        its profiler session must not start or stop beside another
+        thread's launches.  Not while a trace is being taken."""
+        import asyncio
+        import os
+        import tempfile
+
+        from videosd_tpu_torch.runtime.telemetry import scoped_events
+
+        loop = asyncio.get_running_loop()
+        symbols: dict = {}
+        # list() snapshots: background warm-ups insert programs and buckets
+        for (spec, ref_mode), prog in list(self._programs.items()):
+            for key, bucket in list(prog.buckets.items()):
+                if self.device.type == "cuda" and bucket.graph is None:
+                    continue  # not captured yet: nothing replays it
+                inputs = ",".join(f"{n}{list(shape)}" for n, shape, _ in key)
+                name = (f"b{spec.batch} {spec.height}x{spec.width} s{spec.steps}"
+                        f"{' ref' if ref_mode else ''} {inputs}")
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "trace.json")
+                    await self._between_launches(self._profile_body, bucket, path)
+                    symbols[name] = await loop.run_in_executor(
+                        None, scoped_events, path, "kernel_symbols"
+                    )
+        return symbols
+
+    def _profile_body(self, bucket, path: str) -> None:
+        """Run one bucket's body eagerly under the profiler, inside a
+        ``kernel_symbols`` range, and write the trace to ``path``."""
+        import torch
+
+        from videosd_tpu_torch.runtime.telemetry import profiler
+
+        with torch.inference_mode():
+            with profiler() as prof:
+                with torch.profiler.record_function("kernel_symbols"):
+                    bucket.body(**bucket.buffers)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(path)
+
     def _get_program(self, spec, *, ref_mode: bool = False):
         key = (spec, ref_mode)
         prog = self._programs.get(key)

@@ -190,7 +190,8 @@ class ModelRegistryMixin:
 
         def work():
             try:
-                self._extra_bundle(name)
+                with self._launch_lock:
+                    self._extra_bundle(name)
             except Exception:
                 logging.getLogger("videosd_tpu_torch.engine").exception(
                     "background model load failed for %r", name

@@ -90,36 +90,37 @@ class WarmupMixin:
         and background bucket warm-ups."""
         from videosd_tpu_torch.pipelines.lcm_img2img import _latent_hw
 
-        frames, embeds, strength, guidance, cn, seed, pooled = self._dummy_batch(spec)
-        warm_lat = np.zeros((spec.batch, *_latent_hw(self.bundle, spec), 4), np.float32)
-        warm_alpha = np.zeros((spec.batch,), np.float32)
-        box = np.tile(
-            np.asarray(self._src_box(None, spec.height, spec.width), np.int32),
-            (spec.batch, 1),
-        )
-        ref_frames = np.zeros((spec.batch, *self.frame_hw, 3), np.uint8)
-        if ref_mode:
-            # serving packs a [B, 2] (attn, adain) fidelity pair in ref
-            # mode — warm with the same signature
-            cn = np.ones((spec.batch, 2), np.float32)
-        res = self._run_bucket_sync(
-            spec, ref_mode, frames, ref_frames, embeds, strength, guidance, cn, seed,
-            None if ref_mode else warm_lat,
-            None if ref_mode else warm_alpha,
-            pooled,
-            box,
-            box if ref_mode else None,
-            warm=True,
-        )
-        if not ref_mode and spec.deepcache_temporal and len(res) > 2:
-            # temporal buckets serve TWO call signatures (produce / reuse);
-            # warm the reuse one with the rows the produce run just made,
-            # or the first reuse batch would capture on the dispatch worker
-            self._run_bucket_sync(
-                spec, ref_mode, frames, ref_frames, embeds, strength, guidance,
-                cn, seed, warm_lat, warm_alpha, pooled, box, None,
-                deep_caches=res[2], warm=True,
+        with self._launch_lock:  # no profiler session starts or stops meanwhile
+            frames, embeds, strength, guidance, cn, seed, pooled = self._dummy_batch(spec)
+            warm_lat = np.zeros((spec.batch, *_latent_hw(self.bundle, spec), 4), np.float32)
+            warm_alpha = np.zeros((spec.batch,), np.float32)
+            box = np.tile(
+                np.asarray(self._src_box(None, spec.height, spec.width), np.int32),
+                (spec.batch, 1),
             )
+            ref_frames = np.zeros((spec.batch, *self.frame_hw, 3), np.uint8)
+            if ref_mode:
+                # serving packs a [B, 2] (attn, adain) fidelity pair in ref
+                # mode — warm with the same signature
+                cn = np.ones((spec.batch, 2), np.float32)
+            res = self._run_bucket_sync(
+                spec, ref_mode, frames, ref_frames, embeds, strength, guidance, cn, seed,
+                None if ref_mode else warm_lat,
+                None if ref_mode else warm_alpha,
+                pooled,
+                box,
+                box if ref_mode else None,
+                warm=True,
+            )
+            if not ref_mode and spec.deepcache_temporal and len(res) > 2:
+                # temporal buckets serve TWO call signatures (produce / reuse);
+                # warm the reuse one with the rows the produce run just made,
+                # or the first reuse batch would capture on the dispatch worker
+                self._run_bucket_sync(
+                    spec, ref_mode, frames, ref_frames, embeds, strength, guidance,
+                    cn, seed, warm_lat, warm_alpha, pooled, box, None,
+                    deep_caches=res[2], warm=True,
+                )
 
     def _nearest_ready_spec(self, spec, ref_mode: bool):
         """A ready program differing from ``spec`` only in steps, output
