@@ -103,11 +103,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``kernel_symbols()`` (unet/... and controlnet present, at most 10 %
    unmapped, no K1 outside attention blocks); where aiohttp imports,
    ``create_app`` on 127.0.0.1 driven over ``/healthz``, ``/stats``,
-   ``/ws`` and ``/profile``; a ``{"server": ...}`` JSON line;
+   ``/ws`` and ``/profile``; a ``{"server": ...}`` JSON line; then CUDA-only
+   profiler sessions around 256 K1 launches each, which may lose at most
+   16 of them (fault F7, measured: after a session of ~100k device events
+   later sessions lose their last few);
 6d. the sd21 frame (stabilityai/sd-turbo topology at full widths, OpenCLIP
    ViT-H text, its ControlNet, TAESD, 512x512, 4 steps, bf16, random
    weights): replay equal to eager bit for bit, 84 K1 launches per frame at
    d = 64, replayed ms/frame, peak memory and FLOPs; its profile last;
+6e. training: the sd15 UNet train step (``train/step.py``, fp32, 512x512
+   frames, batch 2, AdamW) and the ControlNet train step against the frozen
+   UNet (Adafactor), three steps each on random weights: finite losses, a
+   finite gradient for every parameter, a nonzero one for each projection
+   of a routed self-attention, exactly 15 and 21 fp32 K1 launches a step
+   (K1' forward: ``models/layers.py::FlashAttentionRecompute``), the first
+   step's gradients within 1e-3 per tensor of the same step with every
+   attention on the plain math, step ms and peak memory; then
+   ``tools/train_toy.py`` (tiny, 64x64) and ``tools/turbo_ladder.py`` on
+   its checkpoint, each a process of its own; after the K1 timings below,
+   K1' at the main path's three shapes in bf16 and fp32 (its output held to
+   K1's bars, dq/dk/dv to autograd through the plain version), its forward
+   + backward timed beside its bound, the plain version's and SDPA's;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
@@ -158,6 +174,7 @@ card's maximum SM clock, read from nvidia-smi); the last line is
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -192,6 +209,7 @@ from videosd_tpu_torch.ops.preprocess import (  # noqa: E402
     i420_to_rgb255,
     rgb_to_i420_host,
 )
+from videosd_tpu_torch.ops.sobel import sobel_control_image  # noqa: E402
 from videosd_tpu_torch.ops.tiling import tiled_decode  # noqa: E402
 from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     FrameSpec,
@@ -205,6 +223,9 @@ from videosd_tpu_torch.pipelines.reference_attn import (  # noqa: E402
     build_reference_program,
     reference_frame_program,
 )
+from videosd_tpu_torch.tools.turbo_ladder import structured_frame  # noqa: E402
+from videosd_tpu_torch.train import optim  # noqa: E402
+from videosd_tpu_torch.train import step as train_step  # noqa: E402
 
 # K1's shapes on the main path, [B*H, S, d_head]: sd15 at 512x512 has 8 heads
 # over 64^2, 32^2 and 16^2 latents
@@ -320,6 +341,11 @@ ENGINE_SIDE = 512
 SERVER_FRAMES, SERVER_IN_FLIGHT, SERVER_TRACE_S, SERVER_UNMAPPED_PCT = 30, 2, 2.0, 10.0
 # the server phase's process is killed after this many seconds (it takes ~90)
 SERVER_CHILD_S = 300
+# CUDA-only profiler sessions taken after the server phase's traced ones (F7),
+# the K1 launches each spans, and the events each may lose
+# (_profiler_after_server; videosd_tpu_torch/profiler_probe.py measured 0-5
+# lost a session after one of 100k-300k events, the server's traces 4)
+F7_SESSIONS, F7_LAUNCHES, F7_LOST = 5, 256, 16
 # blocks of the frame that hold no attention: K1 placed there is misplaced
 NO_ATTENTION_BLOCKS = ("preprocess", "vae_encode", "vae_decode", "postprocess", "stage")
 # K1 launches per sd21 512^2 4-step CN frame: the sd15 topology's 15 routed
@@ -414,6 +440,36 @@ CROP_ATOL = 1e-5
 # the eager and the replayed parity frame, timed in alternating turns of
 # GRAPH_TURN_FRAMES blocking frames each
 GRAPH_TURNS, GRAPH_TURN_FRAMES = 4, 5
+
+
+# the training phase (6e).  K1' (models/layers.py::FlashAttentionRecompute, K1
+# forward, the plain math recomputed backward) at the main path's three shapes
+# in bf16 and fp32: its output held to K1's bars, dq/dk/dv to the plain
+# version's by autograd (fp32: within 1e-3 of each one's largest |value|;
+# bf16: K1's own bar).  The backward is the plain version's own, recomputed on
+# the same q, k and v, so the gradients differ only where the kernels do
+K1P_GRAD_REL_FP32 = 1e-3
+# the sd15 train steps: 512^2 frames (64^2 latents), batch 2, fp32, AdamW (the
+# UNet) and Adafactor (the ControlNet against the frozen UNet) at lr 2e-4,
+# three steps each (the first, the warm-up, on explicit t and noise, its
+# gradients held to the same step with every attention on the plain math:
+# |g - g_plain| <= 1e-3 |g_plain| in L2 per tensor; the kernels' fp32 forward
+# is ~1e-6 relative off the plain one, which the backward carries through)
+TRAIN_SIDE, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_T_MAX = 512, 2, 3, 2e-4, 600
+TRAIN_GRAD_REL = 1e-3
+# K1 launches per train step: the UNet's 15 routed self-attentions; with the
+# ControlNet, its 6 beside them (the backward launches none)
+K1_PER_UNET_STEP, K1_PER_CN_STEP = 15, 21
+# the routed self-attentions' projections, by block: down 0-2 x 2 and up 1-3 x
+# 3 transformer blocks in the UNet, down 0-2 x 2 in the ControlNet (the mid
+# block's 64 tokens stay on the plain route)
+ROUTED_QKV = re.compile(r"^(down_blocks\.[012]|up_blocks\.[123])\.attentions\.\d+\."
+                        r"transformer_blocks\.0\.attn1\.to_[qkv]\.weight$")
+# train_toy on the card (tiny, 64^2, a few hundred steps a stage), then the
+# turbo ladder on its checkpoint at 64^2
+TOY_ARGS = ["--family", "tiny", "--size", "64", "--ae-steps", "300", "--unet-steps", "300",
+            "--cn-steps", "200", "--batch", "16"]
+TOY_CHILD_S = 300
 
 
 _T0 = time.perf_counter()
@@ -1774,8 +1830,39 @@ def server_main(arg: str) -> None:
     card = engine_res.pop("card")
     bundle = ModelBundle.random("sd15", dtype=torch.bfloat16, device="cuda")
     launches = phase_server(card, (bundle,), engine_res)
+    _profiler_after_server(card)
     print(json.dumps({"server_launches": launches}), flush=True)
     _note("server process: result printed, exiting")
+
+
+def _profiler_after_server(card: str) -> None:
+    """Fault F7's check, in the server phase's process after its traced
+    sessions (the engine's start_trace/stop_trace and kernel_symbols, and
+    ``/profile`` where aiohttp imports): F7_SESSIONS CUDA-only
+    torch.profiler sessions, each around F7_LAUNCHES K1 launches, must each
+    see all but at most F7_LOST of them.  F7, measured on an H100 (torch
+    2.11, ``videosd_tpu_torch/profiler_probe.py``): after one session of
+    about 100k device events or more, later sessions of the process lose
+    their last few device events (one around a single kernel mostly sees
+    none; sessions of 60k leave the later ones whole).  A session around
+    one launch is printed beside, not held."""
+    q = torch.randn(1, 4096, 320, device="cuda", dtype=torch.bfloat16)
+
+    def session(launches: int) -> int:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fa.flash_attention(q, q, q, num_heads=8)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0)
+
+    seen = [session(F7_LAUNCHES) for _ in range(F7_SESSIONS)]
+    single = [session(1) for _ in range(F7_SESSIONS)]
+    print(f"F7: after this process's traced server sessions ({card}), {F7_SESSIONS} CUDA-only "
+          f"profiler sessions around {F7_LAUNCHES} K1 launches saw {seen} (at most {F7_LOST} "
+          f"lost is held); sessions around one launch saw {single}")
+    if min(seen) < F7_LAUNCHES - F7_LOST:
+        fail(f"F7: a CUDA-only profiler session after the server's traced sessions lost more "
+             f"than {F7_LOST} of {F7_LAUNCHES} K1 launches: {seen}")
 
 
 def phase_server(card: str, main, engine_res: dict) -> int:
@@ -2654,6 +2741,280 @@ def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -
         fail(f"the profiler saw {seen} K1 kernels per {label} frame, expected {want}")
 
 
+def _k1p_case(gen, h: int, s: int, d: int, dtype, clock: float) -> dict:
+    """K1' at [h, s, d] (batch 1, keys = queries) in ``dtype``: autograd
+    through ``layers.attention`` (the Function, one K1 launch a forward)
+    against autograd through the plain version, then both and one
+    ``scaled_dot_product_attention`` forward + backward timed (SDPA: the
+    library call for the same function, used nowhere in the port)."""
+    q0, k0, v0, do = (torch.randn(1, s, h * d, generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+    name, kind = f"[{h},{s},{d}]", "bf16" if dtype == torch.bfloat16 else "fp32"
+
+    def k1p(q, k, v):
+        return layers.attention(q, k, v, num_heads=h)
+
+    def plain(q, k, v):
+        return layers._attention_plain(q, k, v, h)
+
+    def grads(fn):
+        q, k, v = (x.detach().clone().requires_grad_(True) for x in (q0, k0, v0))
+        out = fn(q, k, v)
+        return out, out.grad_fn, torch.autograd.grad(out, (q, k, v), do)
+
+    _zero_counts()
+    out, grad_fn, got = grads(k1p)
+    torch.cuda.synchronize()
+    launched = fa.launches + fa.launches_fp32
+    if type(grad_fn) is not layers.FlashAttentionRecompute._backward_cls or launched != 1:
+        fail(f"K1' at {name} {kind}: grad_fn {grad_fn}, {launched} K1 launches (want the "
+             f"Function's and 1)")
+    ref_out, _, want = grads(plain)
+    if dtype == torch.float32:
+        fold = [x.reshape(1, s, h, d).transpose(1, 2)[0] for x in (q0, k0, v0)]
+        exact = _attention_fp64(*fold, d ** -0.5).transpose(0, 1).reshape(1, s, h * d)
+        ok_out = fp32_within_bar(out, exact)
+    else:
+        ok_out = k1_within_bar(out, ref_out)
+    errs = []
+    for label, g, w in zip("qkv", got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        if dtype == torch.float32:
+            bar = K1P_GRAD_REL_FP32 * w.abs().max().item()
+            ok = bool(torch.isfinite(g).all()) and err <= bar
+        else:
+            ok, err, _, bar, _ = k1_within_bar(g, w)
+        errs.append((label, err, bar, ok, torch.equal(g, w)))
+    print(f"K1' {name} {kind}: output max|d| {ok_out[1]:.3e} (bar {ok_out[3]:.3e}); "
+          + "; ".join(f"d{lb} max|d| {e:.3e} (bar {b:.3e}, bit-equal {eq})"
+                      for lb, e, b, _, eq in errs))
+    if not ok_out[0] or not all(ok for _, _, _, ok, _ in errs):
+        fail(f"K1' at {name} {kind} misses a bar against autograd through the plain version")
+
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q0, k0, v0))
+    q4, k4, v4, do4 = (x.reshape(1, s, h, d).transpose(1, 2) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_k = timed(lambda: torch.autograd.grad(k1p(q, k, v), (q, k, v), do))
+    t_p = cuda_ms(lambda: torch.autograd.grad(plain(q, k, v), (q, k, v), do), iters=5)
+    t_l = timed(lambda: torch.autograd.grad(sdpa(q4, k4, v4), (q, k, v), do4))
+    elem = 2.0 if dtype == torch.bfloat16 else 4.0
+    # q, k, v, o and dO read, dq, dk and dv written; 2 products forward and 5
+    # backward (the recompute's 2, dV, dP, dQ/dK's 2 ... as 14 Sq Sk d a head)
+    bound, by, term = bound_ms(elem * h * d * 8 * s, 14.0 * h * s * s * d, kind, clock)
+    print(f"   forward + backward: device {t_k[1]:.4f} ms (CUDA events {t_k[0]:.4f}), bound "
+          f"{bound * 1e3:.2f} us by {term} (reached {bound / t_k[1]:.1%}), plain {t_p:.4f} ms, "
+          f"SDPA device {t_l[1]:.4f} ms (events {t_l[0]:.4f})")
+    return {"shape": [h, s, d], "ms": t_k[0], "device_ms": t_k[1], "plain_ms": t_p,
+            "library_ms": t_l[1], "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "max_abs_err": max([ok_out[1]] + [e for _, e, _, _, _ in errs])}
+
+
+def phase_k1_prime(card: str, clock: float) -> dict:
+    """6e (a): K1' at the main path's shapes in bf16 and fp32, held and timed
+    (forward + backward; after the first profiler sessions of the run).
+    Returns the fp32 rows' totals (the train steps' dtype) with every row."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = {kind: [_k1p_case(gen, h, s, d, dtype, clock) for h, s, d in K1_SHAPES]
+            for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    total = _k1_totals(rows["fp32"])
+    print(f"K1' fp32 forward + backward, one call at each main shape ({card}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
+    return {**total, "max_abs_err": max(r["max_abs_err"] for r in rows["fp32"]),
+            "per_shape": rows["fp32"], "bf16_per_shape": rows["bf16"]}
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Every attention on the plain math (no route to K1): the train steps'
+    comparison."""
+    routes = layers.routes_to_flash
+    layers.routes_to_flash = lambda *a: False
+    try:
+        yield
+    finally:
+        layers.routes_to_flash = routes
+
+
+def _plain_grads(model, run) -> dict:
+    """``run(state)`` (one train step on explicit t and noise) with every
+    attention on the plain math and an optimizer that leaves the weights as
+    they are: each parameter's gradient."""
+    model.requires_grad_(True)
+    state = {"model": model, "optimizer": torch.optim.SGD(model.parameters(), lr=0.0)}
+    _zero_counts()
+    with _plain_attention():
+        loss = run(state)["loss"]
+    torch.cuda.synchronize()
+    if fa.launches + fa.launches_fp32:
+        fail("the plain-attention train step launched K1")
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {"loss": loss.item(), "grads": grads}
+
+
+def _train_steps(label: str, card: str, model, run, plain: dict, per_step: int,
+                 routed: int) -> dict:
+    """``TRAIN_STEPS`` calls of ``run(state, **draws)``: the first on the
+    plain pass's t and noise (the warm-up), its gradients held to the plain
+    pass's; then on a generator's draws, each timed by CUDA events.  Every
+    step: a finite loss and ``per_step`` fp32 K1 launches; after the first,
+    a finite gradient for every parameter and a nonzero one for each of the
+    ``routed`` projections of routed self-attentions (ROUTED_QKV)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    losses, ms, launches = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        kw = plain["draws"] if i == 0 else {"generator": gen}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _zero_counts()
+        start.record()
+        loss = run(**kw)["loss"]
+        end.record()
+        torch.cuda.synchronize()
+        launches += fa.launches_fp32
+        if fa.launches_fp32 != per_step or fa.launches:
+            fail(f"{label} train step {i}: {fa.launches_fp32} fp32 K1 launches (want "
+                 f"{per_step}) and {fa.launches} bf16")
+        losses.append(loss.item())
+        if i:
+            ms.append(start.elapsed_time(end))
+        if i == 0:
+            worst, zero, bad = (0.0, ""), [], []
+            for n, p in model.named_parameters():
+                g = p.grad
+                if g is None or not torch.isfinite(g).all():
+                    bad.append(n)
+                    continue
+                ref = plain["grads"][n]
+                rel = ((g - ref).norm() / ref.norm()).item() if ref.norm() > 0 else (
+                    0.0 if g.norm() == 0 else math.inf)
+                worst = max(worst, (rel, n))
+                if ROUTED_QKV.match(n) and not g.abs().max() > 0:
+                    zero.append(n)
+            n_routed = sum(bool(ROUTED_QKV.match(n)) for n, _ in model.named_parameters())
+            print(f"{label} train step 1 against the plain-attention step: loss {losses[0]:.6f} "
+                  f"vs {plain['loss']:.6f}; largest per-tensor |g - g_plain| / |g_plain| "
+                  f"{worst[0]:.3e} ({worst[1]}; bar {TRAIN_GRAD_REL:g}); {n_routed} routed "
+                  f"q/k/v projections, {len(zero)} with a zero gradient; {len(bad)} tensors "
+                  f"without a finite gradient")
+            if bad or zero or n_routed != routed or worst[0] > TRAIN_GRAD_REL:
+                fail(f"{label} train step: gradients missing {bad[:3]}, zero {zero[:3]}, "
+                     f"{n_routed} routed projections (want {routed}), or off the plain step's "
+                     f"by {worst[0]:.3e}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} train step, sd15 fp32 {TRAIN_SIDE}x{TRAIN_SIDE} batch {TRAIN_BATCH} "
+          f"({card}): losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; {per_step} fp32 K1 launches a step; step ms after the warm-up (CUDA events) "
+          + ", ".join(f"{x:.2f}" for x in ms) + f"; peak memory {peak:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label} train step: a loss is not finite")
+    return {"losses": losses, "step_ms": ms, "peak_gib": peak, "launches": launches}
+
+
+def phase_train(card: str) -> dict:
+    """6e (b, c): the sd15 UNet train step (AdamW) and the ControlNet train
+    step against the frozen UNet (Adafactor; its zero-initialized output
+    convs drawn small and nonzero first, as after some training, so
+    gradients reach its trunk) at full width, fp32, 512x512, batch 2, each
+    held by :func:`_train_steps`.  Returns their numbers and the K1 launches
+    of the steps (the training path's)."""
+    torch.cuda.empty_cache()
+    bundle = ModelBundle.random("sd15", dtype=torch.float32, device="cuda")
+    unet, cn = bundle.models["unet"], bundle.models["controlnet"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, lat = TRAIN_BATCH, TRAIN_SIDE // 8
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    batch = {"latents": torch.randn(b, lat, lat, 4, generator=gen, device="cuda"),
+             "context": embeds.float().repeat(b, 1, 1),
+             "w_cond": layers.guidance_embedding(torch.full((b,), 5.0, device="cuda"),
+                                                 bundle.unet_cfg.time_cond_proj_dim)}
+    noise = torch.randn(batch["latents"].shape, generator=gen, device="cuda")
+
+    step = train_step.make_train_step(bundle.sched_cfg)
+    draws = {"t": torch.randint(0, 1000, (b,), generator=gen, device="cuda"), "noise": noise}
+    plain = _plain_grads(unet, lambda st: step(st, batch, **draws))
+    plain["draws"] = draws
+    state = train_step.init_train_state(unet, optim.adamw(TRAIN_LR))
+    res = {"unet": _train_steps("UNet", card, unet, lambda **kw: step(state, batch, **kw),
+                                plain, K1_PER_UNET_STEP, 45)}
+    del state, plain
+    unet.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        for n, p in cn.named_parameters():
+            if n.startswith(cn.ZERO_INIT) and p.ndim == 4:
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    frames = np.stack([structured_frame(i, TRAIN_SIDE, TRAIN_SIDE) for i in range(b)])
+    img01 = torch.from_numpy(frames).to("cuda").float() / 255.0
+    cn_batch = {**batch, "control": sobel_control_image(img01)}
+    cn_step = train_step.make_controlnet_train_step(bundle.sched_cfg, t_max=TRAIN_T_MAX)
+    draws = {"t": torch.randint(0, TRAIN_T_MAX, (b,), generator=gen, device="cuda"),
+             "noise": noise}
+    plain = _plain_grads(cn, lambda st: cn_step(st, unet, cn_batch, **draws))
+    plain["draws"] = draws
+    state = train_step.init_train_state(cn, optim.adafactor(TRAIN_LR))
+    res["controlnet"] = _train_steps(
+        "ControlNet", card, cn, lambda **kw: cn_step(state, unet, cn_batch, **kw), plain,
+        K1_PER_CN_STEP, 18)
+    if any(p.requires_grad or p.grad is not None for p in unet.parameters()):
+        fail("the ControlNet step left the UNet trainable or with gradients")
+    del state, plain, bundle
+    torch.cuda.empty_cache()
+    res["launches"] = res["unet"]["launches"] + res["controlnet"]["launches"]
+    return res
+
+
+def _run_tool(args: list, label: str) -> None:
+    """``python -m`` one of the port's tools in a process of its own; its
+    output is passed on, and a nonzero exit or a run past TOY_CHILD_S fails."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                              timeout=TOY_CHILD_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired:
+        fail(f"{label} ran past {TOY_CHILD_S} s")
+    lines = proc.stdout.splitlines()
+    print("\n".join(f"   {ln}" for ln in lines[-14:]))
+    print(f"{label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode:
+        print(proc.stderr[-4000:])
+        fail(f"{label} exited {proc.returncode}")
+
+
+def phase_toy(card: str) -> dict:
+    """6e (d): ``tools/train_toy.py`` on the card (TOY_ARGS), then
+    ``tools/turbo_ladder.py --weights`` on its checkpoint at 64x64
+    (``--skip-fps``): the TAESD stage learns, every loss is finite, every
+    ladder row has a PSNR."""
+    with tempfile.TemporaryDirectory() as tmp:
+        report_path, ladder_path = os.path.join(tmp, "toy.json"), os.path.join(tmp, "ladder.json")
+        _run_tool(["videosd_tpu_torch.tools.train_toy", "--out", os.path.join(tmp, "ckpt"),
+                   *TOY_ARGS, "--json", report_path], "train_toy")
+        _run_tool(["videosd_tpu_torch.tools.turbo_ladder", "--weights",
+                   os.path.join(tmp, "ckpt"), "--size", "64", "--skip-fps", "--json",
+                   ladder_path], "turbo_ladder")
+        with open(report_path) as f:
+            report = json.load(f)
+        with open(ladder_path) as f:
+            ladder = json.load(f)
+    keys = ("ae_first_mse", "ae_final_mse", "ae_holdout_psnr_db", "unet_final_loss",
+            "cn_first_loss", "cn_final_loss", "cn_holdout_base_loss", "cn_holdout_cn_loss",
+            "cn_holdout_gain_pct", "ae_seconds", "unet_seconds", "cn_seconds")
+    print(f"train_toy on {card} ({' '.join(TOY_ARGS)}): "
+          + ", ".join(f"{k} {report[k]}" for k in keys) + f"; device {report['device']}")
+    print("turbo_ladder on its checkpoint, 64x64, 4 steps: "
+          + "; ".join(f"cn {r['cn_interval']} dc {r['dc_interval']}"
+                      f"{' +last' if r['refresh_last'] else ''} PSNR {r['psnr_mean']}/"
+                      f"{r['psnr_min']} SSIM {r['ssim_mean']}/{r['ssim_min']}" for r in ladder))
+    if not (report["ae_final_mse"] < 0.8 * report["ae_first_mse"]
+            and all(math.isfinite(report[k]) for k in keys)):
+        fail("train_toy on the card: the TAESD stage did not learn, or a number is not finite")
+    if len(ladder) < 12 or not all(r["psnr_min"] > 0 and r["ssim_min"] > 0 for r in ladder):
+        fail("turbo_ladder on the trained checkpoint gave a row without a PSNR or SSIM")
+    return {"report": report, "ladder": ladder}
+
+
 def main() -> None:
     import faulthandler
 
@@ -2680,7 +3041,10 @@ def main() -> None:
     fp32_frame = phase_fp32_frame(card)
     sd21 = phase_sd21(card)
     phase_bench(main[0])
+    train = phase_train(card)
+    phase_toy(card)
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
+    k1_prime = phase_k1_prime(card, clock)
     k2_res = phase_k2(card, clock)
     k3_res = phase_k3(card, clock)
     k3_fp32_res = phase_k3_fp32(card, clock)
@@ -2706,6 +3070,11 @@ def main() -> None:
         {"name": "flash_attention_wide_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_wide_fp32.cu", "replaces": k1_src,
          "launches": kl["fp32_launches"], "max_abs_err": k1_wide_fp32_err, **k1_wide_fp32_times},
+        {"name": "flash_attention_recompute", "route": "cuda",
+         "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu",
+         "function": "videosd_tpu_torch/models/layers.py::FlashAttentionRecompute",
+         "replaces": "videosd_tpu/models/layers.py:283", "launches": train["launches"],
+         **k1_prime},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",
          "replaces": "videosd_tpu/ops/pallas/preprocess_kernel.py:64",

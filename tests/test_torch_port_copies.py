@@ -36,6 +36,7 @@ from videosd_tpu.models.taesd import TAESDConfig as JTAESDConfig
 from videosd_tpu.models.unet import UNET_PRESETS as J_UNET
 from videosd_tpu.models.vae import VAEConfig as JVAEConfig
 from videosd_tpu.models.vae import vae_init
+from videosd_tpu.ops import metrics as JMET
 from videosd_tpu.ops import preprocess as JP
 from videosd_tpu.schedulers.lcm import LCMSchedulerConfig as JSched
 from videosd_tpu.schedulers.lcm import make_alphas_cumprod as j_alphas
@@ -44,10 +45,13 @@ from videosd_tpu.runtime import framequeue as JFQ
 from videosd_tpu.runtime import jpegcodec as JJPEG
 from videosd_tpu.runtime import telemetry as JTEL
 from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
+from videosd_tpu.tools import train_toy as JTT
+from videosd_tpu.tools import turbo_ladder as JTL
 from videosd_tpu_torch import config as PCFG
 from videosd_tpu_torch.io import discovery as PD
 from videosd_tpu_torch.io import safetensors as PS
 from videosd_tpu_torch.io import weights as PW
+from videosd_tpu_torch.ops import metrics as PMET
 from videosd_tpu_torch.ops import preprocess as PP
 from videosd_tpu_torch.models import (
     CLIP_PRESETS,
@@ -66,6 +70,8 @@ from videosd_tpu_torch.runtime import jpegcodec as PJPEG
 from videosd_tpu_torch.runtime import telemetry as PTEL
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
+from videosd_tpu_torch.tools import train_toy as PTT
+from videosd_tpu_torch.tools import turbo_ladder as PTL
 
 # One torch thread per process, set at import: every xdist worker imports
 # every test module, and torch threads on every core of every worker stall
@@ -440,3 +446,68 @@ def test_dispatch_worker_orders_and_propagates():
         w.stop()
 
     asyncio.run(run())
+
+
+# ------------------------------------------------------------ the tools' copies
+
+
+def test_training_modules_import_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['optax'] = None\n"
+        "sys.modules['videosd_tpu'] = None\n"
+        "import videosd_tpu_torch.train.step, videosd_tpu_torch.train.optim\n"
+        "import videosd_tpu_torch.io.checkpoint, videosd_tpu_torch.ops.metrics\n"
+        "import videosd_tpu_torch.tools.train_toy, videosd_tpu_torch.tools.turbo_ladder\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax',"
+        " 'videosd_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env, check=True, timeout=120)
+
+
+# (port module, original, names that must be equal in code)
+_TOOL_COPIES = {
+    "turbo_ladder": (PTL, JTL, ["structured_frame", "parse_ladder"]),
+    "train_toy": (PTT, JTT, ["make_batch"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TOOL_COPIES))
+def test_tool_copy_code_equals_original(name):
+    ours, theirs, names = _TOOL_COPIES[name]
+    mine, orig = _defs(ours), _defs(theirs)
+    for n in names:
+        assert mine[n] == orig[n], f"{name}.{n} differs from its original"
+
+
+def test_ladder_table_equals_original():
+    assert PTL.LADDER == JTL.LADDER
+    text = "1:1, 4:2,4:2+last,2:3+last"
+    assert PTL.parse_ladder(text) == JTL.parse_ladder(text)
+
+
+@pytest.mark.parametrize("idx,h,w", [(0, 64, 64), (7, 32, 48), (31, 128, 96)])
+def test_structured_frame_copy_equals_original(idx, h, w):
+    ours = PTL.structured_frame(idx, h, w)
+    assert ours.dtype == np.uint8 and ours.shape == (h, w, 3)
+    np.testing.assert_array_equal(ours, JTL.structured_frame(idx, h, w))
+    a, b = (m.make_batch(np.random.default_rng(idx), 3, h, w) for m in (PTT, JTT))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_metrics_copy_equals_original():
+    """``ops/metrics.py`` is the JAX package's file (numpy only), and its
+    PSNR and SSIM give the original's numbers."""
+    with open(PMET.__file__, encoding="utf-8") as f:
+        ours = f.read()
+    with open(JMET.__file__, encoding="utf-8") as f:
+        assert ours == f.read()
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 256, (40, 36, 3), dtype=np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 10, a.shape), 0, 255).astype(np.uint8)
+    for x, y in ((a, b), (a[..., 0], b[..., 0]), (a, a)):
+        assert PMET.psnr(x, y) == JMET.psnr(x, y)
+        assert PMET.ssim(x, y) == JMET.ssim(x, y)
+    with pytest.raises(ValueError, match="smaller than window"):
+        PMET.ssim(a[:8, :8], b[:8, :8])

@@ -10,7 +10,9 @@ reference's precision points:
 * layer_norm and softmax in fp32,
 * attention routes exactly the shapes the JAX package sends to its Pallas
   flash kernel to kernel K1 (``ops/cuda/flash_attention.py``); the rest is
-  the plain ``_attention_xla`` math.
+  the plain ``_attention_xla`` math.  Under autograd a routed attention
+  goes through :class:`FlashAttentionRecompute` (K1 forward, a backward
+  that recomputes the plain math: the JAX ``_attention_pallas_diff``).
 
 ``GroupNorm`` and ``LayerNorm`` are torch's modules with these forwards, so
 state-dict keys stay diffusers' own.
@@ -30,6 +32,7 @@ from videosd_tpu_torch.ops.cuda.flash_attention import (
 )
 
 __all__ = [
+    "FlashAttentionRecompute",
     "GroupNorm",
     "LayerNorm",
     "attention",
@@ -91,11 +94,47 @@ def attention(q, k, v, *, num_heads: int, mask=None):
 
     Routed shapes (:func:`routes_to_flash`) go to kernel K1; the 77-token
     cross-attention, CLIP's causal attention and short self-attention use
-    the plain math, as XLA ran them in the JAX package.
+    the plain math, as XLA ran them in the JAX package.  Where a gradient
+    is wanted (grad mode on and q, k or v requiring grad), a routed shape
+    goes through :class:`FlashAttentionRecompute`, since the kernel's
+    output carries no autograd history; otherwise (inference, graph
+    capture) the wrapper is called as it is.
     """
     if routes_to_flash(q.shape[1], k.shape[1], mask is not None):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionRecompute.apply(q, k, v, num_heads)
         return flash_attention(q, k, v, num_heads=num_heads)
     return _attention_plain(q, k, v, num_heads, mask)
+
+
+class FlashAttentionRecompute(torch.autograd.Function):
+    """K1 forward with a backward that recomputes the plain attention.
+
+    The port's counterpart of ``videosd_tpu/models/layers.py::
+    _attention_pallas_diff`` (a ``jax.custom_vjp``): the forward is
+    :func:`flash_attention` (the kernel on CUDA, the plain version on the
+    CPU), only q, k and v are saved, and the backward differentiates
+    :func:`_attention_plain` on detached copies of them, recomputing its
+    forward, as JAX's backward runs ``jax.vjp`` of ``_attention_xla``.
+    The gradients are those of the plain function; the forward differs
+    from it only by the kernel's order of sums.  No kernel runs in the
+    backward: the JAX package has no backward kernel either.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+            out = _attention_plain(*qkv, ctx.num_heads)
+            grads = iter(torch.autograd.grad(out, [x for x in qkv if x.requires_grad], grad_out))
+        return (*(next(grads) if n else None for n in need), None)
 
 
 def _attention_plain(q, k, v, num_heads: int, mask=None):

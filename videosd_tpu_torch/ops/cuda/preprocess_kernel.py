@@ -110,6 +110,7 @@ def launch_plan(h: int, w: int, device, out_dtype=torch.bfloat16) -> tuple[int, 
 
 def fused_preprocess(frame_u8, low=0.11, high=0.8, *, out_dtype=torch.bfloat16):
     """Kernel K2's wrapper; see :func:`fused_preprocess_reference`."""
+    _refuse_grad(frame_u8)
     if frame_u8.device.type == "cpu":
         return fused_preprocess_reference(frame_u8, low, high, out_dtype=out_dtype)
     if frame_u8.dtype != torch.uint8 or frame_u8.ndim != 3 or frame_u8.shape[-1] != 3:
@@ -138,6 +139,7 @@ def _sms(device) -> int:
 def sobel_magnitude(gray):
     """``[H, W]`` fp32 luma -> ``[H, W]`` fp32 zero-padded 3x3 Sobel
     magnitude (the TPU kernel's own output)."""
+    _refuse_grad(gray)
     if gray.device.type == "cpu":
         return sobel_magnitude_reference(gray)
     if gray.dtype != torch.float32 or gray.ndim != 2:
@@ -146,6 +148,14 @@ def sobel_magnitude(gray):
     mag = torch.empty_like(gray)
     _call(gray, "videosd_sobel_magnitude", gray.data_ptr(), mag.data_ptr(), *gray.shape)
     return mag
+
+
+def _refuse_grad(x):
+    """K2 has no backward: under grad mode an input that requires grad raises,
+    on the CPU as on the card."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("the preprocess kernel (K2) has no backward, as the TPU kernel's "
+                           "pallas_call has no autodiff rule: call it under torch.no_grad()")
 
 
 def _cuda_contiguous(x, name: str):

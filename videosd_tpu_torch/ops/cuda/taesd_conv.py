@@ -120,7 +120,14 @@ def packed_conv3x3_reference(weight, bias, xp, *, relu: bool, skip=None):
 
 
 def packed_conv3x3(weight, bias, xp, *, relu: bool, skip=None):
-    """Kernel K3's wrapper; see :func:`packed_conv3x3_reference`."""
+    """Kernel K3's wrapper; see :func:`packed_conv3x3_reference`.  The kernel
+    has no backward: under grad mode, an input or weight that requires grad
+    raises, on the CPU as on the card."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (weight, bias, xp, skip)):
+        raise RuntimeError("the TAESD conv kernel (K3) has no backward, as the TPU kernel's "
+                           "pallas_call has no autodiff rule: call it under torch.no_grad(), "
+                           "or train through the default TAESD route")
     if xp.device.type == "cpu":
         return packed_conv3x3_reference(weight, bias, xp, relu=relu, skip=skip)
     return _launch(weight, bias, xp, relu, skip)

@@ -1,0 +1,173 @@
+"""Train steps for the UNet and the ControlNet (noise-prediction objective).
+
+Counterpart of ``videosd_tpu/train/step.py``: eps-prediction MSE over
+random timesteps, ``mean((pred.float() - noise)^2)`` on latents forward-noised
+by the scheduler's ``add_noise``.  In PyTorch's idiom a step updates the
+trained ``nn.Module`` in place through its optimizer and returns
+``{"loss": ...}``; the state is ``{"model": module, "optimizer": optimizer}``
+(:func:`init_train_state`).
+
+Random numbers: threefry is not ported, so each step draws its timesteps
+and noise from an explicit ``torch.Generator`` on the latents' device
+(``generator=``), or takes them as tensors (``t=`` [B] and ``noise=``, the
+latents' shape): the seam the tests pass JAX's own draws through.
+
+Routed self-attentions run kernel K1 forward and the plain math backward
+(``models/layers.py::FlashAttentionRecompute``), as the JAX step runs its
+Pallas forward under ``_attention_pallas_diff``.  Inputs made under
+``torch.inference_mode()`` (the prompt encoder's embeddings) cannot be saved
+for backward; the steps take a plain copy of such a tensor.
+
+Only one device: ``mesh`` (the JAX step's tensor-sharded variant) raises
+until the port runs on several (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from videosd_tpu_torch.models.controlnet import controlnet_apply
+from videosd_tpu_torch.models.unet import unet_apply
+from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, add_noise, make_alphas_cumprod
+
+__all__ = [
+    "init_train_state",
+    "make_controlnet_eval",
+    "make_controlnet_train_step",
+    "make_train_step",
+]
+
+
+def init_train_state(model: torch.nn.Module, optimizer) -> dict:
+    """Switch gradients on for ``model`` and bind ``optimizer`` (a callable
+    that takes the module: ``train/optim.py``'s ``adam``, ``adamw`` or
+    ``adafactor``) to it: ``{"model": model, "optimizer": ...}``."""
+    model.requires_grad_(True)
+    return {"model": model, "optimizer": optimizer(model)}
+
+
+def _plain(x):
+    """``x``, or a copy of it made outside inference mode, so autograd can
+    save it."""
+    return x.clone() if x is not None and x.is_inference() else x
+
+
+def _draws(latents, t_hi: int, generator, t, noise):
+    """(t [B] int64, noise fp32 of the latents' shape) on the latents'
+    device: the given tensors, else drawn from ``generator``."""
+    if (t is None) != (noise is None):
+        raise ValueError("pass t= and noise= together, or neither")
+    if t is None:
+        if generator is None:
+            raise ValueError("a step needs generator= (a torch.Generator on the latents' "
+                             "device) or explicit t= and noise=")
+        t = torch.randint(0, t_hi, (latents.shape[0],), generator=generator,
+                          device=latents.device)
+        noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+                            dtype=torch.float32)
+    return (torch.as_tensor(t, device=latents.device).long(),
+            torch.as_tensor(noise, device=latents.device, dtype=torch.float32))
+
+
+def _eps_mse(pred, noise):
+    err = pred.float() - noise
+    return torch.mean(err * err)
+
+
+def make_train_step(sched_cfg: LCMSchedulerConfig, mesh=None):
+    """The UNet's train step.
+
+    ``step(state, batch, *, generator=None, t=None, noise=None) ->
+    {"loss": fp32 scalar tensor}``; ``batch`` holds ``latents`` [B,h,w,4]
+    (NHWC, the JAX layout), ``context`` [B,S,D] and, when the config has LCM
+    guidance conditioning, ``w_cond`` [B, time_cond_proj_dim].  Timesteps
+    are drawn over the full schedule.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the port trains on one device: a sharded train step "
+                                  "comes with ROADMAP queue 1, item 5 (parallel/mesh.py)")
+    alphas = torch.from_numpy(make_alphas_cumprod(sched_cfg))
+
+    def train_step(state, batch, *, generator=None, t=None, noise=None):
+        unet, opt = state["model"], state["optimizer"]
+        latents = _plain(batch["latents"])
+        t, noise = _draws(latents, sched_cfg.num_train_timesteps, generator, t, noise)
+        opt.zero_grad(set_to_none=True)
+        noisy = add_noise(alphas.to(latents.device), latents, noise, t)
+        pred = unet_apply(unet, noisy, t, _plain(batch["context"]),
+                          timestep_cond=_plain(batch.get("w_cond")))
+        loss = _eps_mse(pred, noise)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach()}
+
+    return train_step
+
+
+def make_controlnet_train_step(sched_cfg: LCMSchedulerConfig, t_max: int | None = None):
+    """The ControlNet's train step against a frozen UNet (the ControlNet
+    paper's recipe; JAX ``make_controlnet_train_step``).
+
+    ``step(state, unet, batch, *, generator=None, t=None, noise=None) ->
+    {"loss": ...}``; ``state`` holds the ControlNet, ``batch`` adds
+    ``control`` [B,H,W,3] (the canny map in [0, 1] at pixel resolution) to
+    the UNet step's.  The UNet's parameters are set not to require grad;
+    gradients still flow through its activations to the ControlNet's
+    residuals, wired into its skip stack as the frame program wires them.
+    ``t_max``: timesteps are drawn below it (default: the full schedule).
+    """
+    alphas = torch.from_numpy(make_alphas_cumprod(sched_cfg))
+    t_hi = int(t_max or sched_cfg.num_train_timesteps)
+
+    def train_step(state, unet, batch, *, generator=None, t=None, noise=None):
+        cn, opt = state["model"], state["optimizer"]
+        unet.requires_grad_(False)
+        latents = _plain(batch["latents"])
+        t, noise = _draws(latents, t_hi, generator, t, noise)
+        context, w_cond = _plain(batch["context"]), _plain(batch.get("w_cond"))
+        opt.zero_grad(set_to_none=True)
+        noisy = add_noise(alphas.to(latents.device), latents, noise, t)
+        down, mid = controlnet_apply(cn, noisy, t, context, _plain(batch["control"]),
+                                     conditioning_scale=1.0, timestep_cond=w_cond)
+        pred = unet_apply(unet, noisy, t, context, timestep_cond=w_cond,
+                          down_block_additional_residuals=down,
+                          mid_block_additional_residual=mid)
+        loss = _eps_mse(pred, noise)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach()}
+
+    return train_step
+
+
+def make_controlnet_eval(sched_cfg: LCMSchedulerConfig):
+    """The paired eval of the ControlNet stage: eps-prediction MSE without
+    and with the ControlNet's residuals, on the same noise and explicit
+    timesteps (``base - cn`` says whether the ControlNet learned anything).
+
+    ``evaluate(controlnet, unet, batch, t, *, generator=None, noise=None) ->
+    (base_loss, cn_loss)``, fp32 scalar tensors; ``t`` [B] ints.
+    """
+    alphas = torch.from_numpy(make_alphas_cumprod(sched_cfg))
+
+    @torch.no_grad()
+    def evaluate(controlnet, unet, batch, t, *, generator=None, noise=None):
+        latents = batch["latents"]
+        if noise is None:
+            if generator is None:
+                raise ValueError("evaluate needs generator= or noise=")
+            noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+                                dtype=torch.float32)
+        t = torch.as_tensor(t, device=latents.device).long()
+        noise = torch.as_tensor(noise, device=latents.device, dtype=torch.float32)
+        noisy = add_noise(alphas.to(latents.device), latents, noise, t)
+        w_cond = batch.get("w_cond")
+        base = unet_apply(unet, noisy, t, batch["context"], timestep_cond=w_cond)
+        down, mid = controlnet_apply(controlnet, noisy, t, batch["context"], batch["control"],
+                                     conditioning_scale=1.0, timestep_cond=w_cond)
+        with_cn = unet_apply(unet, noisy, t, batch["context"], timestep_cond=w_cond,
+                             down_block_additional_residuals=down,
+                             mid_block_additional_residual=mid)
+        return _eps_mse(base, noise), _eps_mse(with_cn, noise)
+
+    return evaluate
