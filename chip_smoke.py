@@ -9,7 +9,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: compile the package's CUDA kernels from ``videosd_tpu_torch/csrc``;
 3. kernel K1 (flash attention) against its plain PyTorch version in bf16 at
    the main path's shapes and at further ones (keys != queries, batch 2,
-   d = 64, the sd21 frame's three shapes of heads of 64), at every kind of head dim up to 256 (the tiny family's 8 and
+   d = 64, the sd21 frame's three shapes of heads of 64 and the SDXL frame's
+   two), at every kind of head dim up to 256 (the tiny family's 8 and
    16, d below its instance's width, d off the 16-byte rows, the widest),
    with the heads read in place beside heads of large values, and the
    in-place ``[B, S, H*D]`` entry against the folded one; then its fp32
@@ -111,6 +112,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ViT-H text, its ControlNet, TAESD, 512x512, 4 steps, bf16, random
    weights): replay equal to eager bit for bit, 84 K1 launches per frame at
    d = 64, replayed ms/frame, peak memory and FLOPs; its profile last;
+6f. the SDXL frame (stabilityai/stable-diffusion-xl-base-1.0 at full widths:
+   UNet 320/640/1280 with transformer depth 0/2/10 and heads of 64, CLIP
+   ViT-L/14 and OpenCLIP bigG, text_time, its ControlNet, TAESD; 1024x1024,
+   4 steps, bf16, random weights): the prompt's [1, 77, 2048] context and
+   [1, 1280] pooled embedding; the frame of ``tools/sdxl_prod.py`` (no
+   ControlNet) and the ControlNet frame, each replayed equal to eager bit
+   for bit with exactly 280 and 416 K1 launches per frame at capture,
+   ms/frame, peak memory and FLOPs; one stream through an ``Engine`` of
+   ``family: sdxl`` equal to a direct ``build_frame_program`` call; then
+   ``python -m videosd_tpu_torch.tools.sdxl_prod`` in a process of its own;
+   its profile last of all;
 6e. training: the sd15 UNet train step (``train/step.py``, fp32, 512x512
    frames, batch 2, AdamW) and the ControlNet train step against the frozen
    UNet (Adafactor), three steps each on random weights: finite losses, a
@@ -154,7 +166,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     GEMMs, convolutions, layout transposes, copies and casts, elementwise,
     reductions, norms, softmax); then the same over two replayed KL
     frames, over two replayed fp32 parity frames (K1's fp32 device ms
-    per frame), and over two replayed reference frames.
+    per frame), over two replayed reference frames, sd21 frames and SDXL
+    frames (K1's 280).
 
 Each kernel's launch count is set to 0 just before the path that runs it
 and read just after; launches that compare a kernel with its plain version
@@ -248,6 +261,10 @@ K1_EXTRA = K1_BANKED + [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
 # of 64 (5, 10 and 20 of them at 320, 640 and 1280 channels) over 64^2, 32^2
 # and 16^2 latents
 K1_SD21 = [(1, 5, 4096, 4096, 64), (1, 10, 1024, 1024, 64), (1, 20, 256, 256, 64)]
+# K1's shapes on the SDXL frame's path at 1024x1024, as (B, H, Sq, Sk, d): heads
+# of 64 (10 and 20 at 640 and 1280 channels) over 64^2 and 32^2 latents (the
+# 320-channel stage holds no attention)
+K1_SDXL = [(1, 10, 4096, 4096, 64), (1, 20, 1024, 1024, 64)]
 K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
                 (1, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
                 (1, 2, 256, 256, 256)]
@@ -260,6 +277,7 @@ K1_FP32 = [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160)
 # family's two at 256^2 (d = 8 and 16), in each dtype
 K1_TIMED = {kind: [(1, 8, 4096, 4096, 40), (1, 8, 1024, 1024, 80), (1, 8, 256, 256, 160),
                    (1, 4, 1024, 1024, 8), (1, 4, 256, 256, 16)] for kind in ("bf16", "fp32")}
+K1_TIMED["bf16"] += K1_SDXL  # the SDXL frame's two shapes, in the kernels line too
 # K1 above d = 256 (the wide kernels), as (B, H, Sq, Sk, d), in bf16 and fp32
 # with loud neighbours where H = 2: in bf16 a cluster of two column slices
 # (264, 320, 512), three (640) and eight (2048, the widest one cluster
@@ -347,11 +365,23 @@ SERVER_CHILD_S = 300
 # lost a session after one of 100k-300k events, the server's traces 4)
 F7_SESSIONS, F7_LAUNCHES, F7_LOST = 5, 256, 16
 # blocks of the frame that hold no attention: K1 placed there is misplaced
-NO_ATTENTION_BLOCKS = ("preprocess", "vae_encode", "vae_decode", "postprocess", "stage")
+NO_ATTENTION_BLOCKS = ("preprocess", "vae_encode", "vae_decode", "postprocess", "stage",
+                       "scheduler", "outputs")
 # K1 launches per sd21 512^2 4-step CN frame: the sd15 topology's 15 routed
 # attentions a UNet pass and 6 a ControlNet call, at d = 64
 K1_SD21_PER_FRAME = 84
 SD21_FRAMES = 10
+# K1 launches per SDXL 1024^2 4-step frame, without and with the ControlNet:
+# per UNet pass 10 at [10, 4096, 64] (down1 and up1: 2 and 3 transformers of
+# depth 2) and 60 at [20, 1024, 64] (down2 2 x 10, mid 10, up0 3 x 10); per
+# ControlNet call 4 and 30
+K1_SDXL_PER_FRAME = {False: 4 * 70, True: 4 * 104}
+K1_SDXL_SHAPE_LAUNCHES = {False: (40, 240), True: (56, 360)}
+SDXL_FRAMES, SDXL_SIDE = 8, 1024
+# tools/sdxl_prod.py in a process of its own: its arguments and time limit
+SDXL_PROD_ARGS = ["videosd_tpu_torch.tools.sdxl_prod", "--size", "1024", "--steps", "4",
+                  "--frames", "4"]
+SDXL_PROD_S = 300
 # K1 launches per sd15 512^2 4-step CN + KL frame: the 84 routed attentions of
 # the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
 # decode on the wide kernel
@@ -720,7 +750,7 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
 
 
 def _k1_cases():
-    return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA + K1_SD21
+    return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA + K1_SD21 + K1_SDXL
 
 
 def phase_k1() -> tuple[float, float, float, float]:
@@ -804,9 +834,10 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
     first profiler sessions of the process."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     result = {}
-    for kind, dtype, cases in (("bf16", torch.bfloat16, _k1_cases() + K1_TIMED["bf16"][3:]),
+    bf16_cases = _k1_cases() + [c for c in K1_TIMED["bf16"] if c not in _k1_cases()]
+    for kind, dtype, cases in (("bf16", torch.bfloat16, bf16_cases),
                                ("fp32", torch.float32, K1_TIMED["fp32"])):
-        main_rows, per_shape, banked, sd21 = [], [], [], []
+        main_rows, per_shape, banked, sd21, sdxl = [], [], [], [], []
         for b, h, sq, sk, d in cases:
             row = _k1_time(gen, b, h, sq, sk, d, dtype, card, clock)
             tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
@@ -816,6 +847,8 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
                 banked.append(row)
             if kind == "bf16" and (b, h, sq, sk, d) in K1_SD21:
                 sd21.append(row)
+            if kind == "bf16" and (b, h, sq, sk, d) in K1_SDXL:
+                sdxl.append(row)
             if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:
                 main_rows.append(row)
             if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
@@ -849,6 +882,16 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
                   + ", ".join(f"{r['shape']} {r['device_ms']:.4f} (bound {r['bound_ms']:.4f}, "
                               f"SDPA {r['library_ms']:.4f})" for r in sd21)
                   + f"; slower than SDPA at {slower or 'none'}")
+        if sdxl:  # the SDXL 1024^2 frame's shapes: K1's device time per frame
+            result[kind]["sdxl_per_shape"] = sdxl
+            for cn, counts in K1_SDXL_SHAPE_LAUNCHES.items():
+                per = {key: sum(n * r[key] for n, r in zip(counts, sdxl))
+                       for key in ("device_ms", "bound_ms", "library_ms", "plain_ms")}
+                print(f"K1 per SDXL 1024x1024 4-step frame {'with' if cn else 'without'} the "
+                      f"ControlNet ({counts[0]} + {counts[1]} launches): device "
+                      f"{per['device_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms "
+                      f"({per['bound_ms'] / per['device_ms']:.1%}), SDPA "
+                      f"{per['library_ms']:.3f} ms, plain {per['plain_ms']:.3f} ms ({card})")
         # the wide kernel: the KL VAE's [1, 4096, 512] (its main-path shape, twice
         # per KL frame) carries the entry's numbers
         rows = []
@@ -1346,11 +1389,12 @@ def _timed_frame(program, *a, **kw):
     return out, (time.perf_counter() - t0) * 1e3, program.last_launches["flash_attention"]
 
 
-def _check_frame(name: str, out) -> None:
+def _check_frame(name: str, out, side: int = 512) -> None:
     img, lat = out[0], out[1]
-    if img.shape != (1, 512, 512, 3) or img.dtype != torch.uint8:
+    if img.shape != (1, side, side, 3) or img.dtype != torch.uint8:
         fail(f"{name}: image {tuple(img.shape)} {img.dtype}")
-    if lat.shape != (1, 64, 64, 4) or not all(torch.isfinite(t).all() for t in out[1:]):
+    if (lat.shape != (1, side // 8, side // 8, 4)
+            or not all(torch.isfinite(t).all() for t in out[1:])):
         fail(f"{name}: latents {tuple(lat.shape)} or caches not finite")
 
 
@@ -2219,6 +2263,151 @@ def _sd21_engine(card: str) -> int:
     return launches
 
 
+def phase_sdxl(card: str) -> dict:
+    """6f: the SDXL frame at full published widths (stabilityai/
+    stable-diffusion-xl-base-1.0 unet/config.json: 320/640/1280, transformer
+    depth 0/2/10, heads of 64, linear projections, 2048-wide context,
+    text_time 256/2816; CLIP ViT-L/14 and OpenCLIP bigG; its ControlNet;
+    TAESD), 1024x1024, 4 steps, bf16, random weights (seed 0), depth not
+    cut.  The prompt ([1, 77, 2048] and a pooled [1, 1280]); the sdxl_prod
+    frame (no ControlNet) and the ControlNet frame, each two replayed calls
+    equal to the eager ``frame_program`` bit for bit with exactly
+    K1_SDXL_PER_FRAME K1 launches per frame at capture (counted from 0
+    just before), replayed ms/frame (median of SDXL_FRAMES, before any
+    profiler session); peak memory and FLOPs; one stream through an
+    ``Engine`` of ``family: sdxl``; ``tools/sdxl_prod.py`` in a process of
+    its own.  Returns the no-ControlNet program for the profile, and the
+    phase's K1 launches; the ControlNet program and the engine are freed."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = ModelBundle.random("sdxl", dtype=torch.bfloat16, device="cuda")
+    embeds, pooled = build_prompt_encoder(bundle)(bundle.tokenizer(["cinematic photo, city"]))
+    torch.cuda.synchronize()
+    params = {name: sum(p.numel() for p in m.parameters()) for name, m in bundle.models.items()}
+    print(f"sdxl bf16 bundle ({', '.join(f'{n} {c / 1e9:.3f} B' for n, c in params.items())} "
+          f"parameters) + prompt: {time.perf_counter() - t0:.1f} s; context "
+          f"{tuple(embeds.shape)}, pooled {tuple(pooled.shape)}")
+    if tuple(embeds.shape) != (1, 77, 2048) or tuple(pooled.shape) != (1, 1280):
+        fail(f"the SDXL prompt gave {tuple(embeds.shape)} and {tuple(pooled.shape)}, not "
+             f"[1, 77, 2048] and [1, 1280]")
+    if not (torch.isfinite(embeds).all() and torch.isfinite(pooled).all()):
+        fail("the SDXL prompt embedding is not finite")
+    rng = np.random.default_rng(17)
+    frames = [torch.from_numpy(rng.integers(0, 256, (1, SDXL_SIDE, SDXL_SIDE, 3),
+                                            dtype=np.uint8)).cuda() for _ in range(2)]
+    args = ([0.7], [5.0], [1.0])
+    kw = {"pooled_embeds": pooled}
+    launches, res = 0, {}
+    for cn in (False, True):
+        spec = FrameSpec(batch=1, height=SDXL_SIDE, width=SDXL_SIDE, steps=4, use_controlnet=cn)
+        name = f"sdxl {SDXL_SIDE}x{SDXL_SIDE} 4-step {'CN+' if cn else ''}TAESD bf16"
+        program = build_frame_program(bundle, spec)
+        _zero_counts()
+        counted = {}
+        got = _replay_vs_eager(name, program,
+                               [((frames[i], embeds, *args, [23 + i]), dict(kw)) for i in range(2)],
+                               {"flash_attention": K1_SDXL_PER_FRAME[cn]}, counted)
+        _check_frame(name, got[-1], SDXL_SIDE)
+        want = {"flash_attention": 2 * K1_SDXL_PER_FRAME[cn]}  # warm-up and capture
+        if {k: n for k, n in counted.items() if n} != want:
+            fail(f"the {name} frame launched {counted} in its warm-up and capture, expected "
+                 f"{want}")
+        launches += counted["flash_attention"]
+        ms = []
+        for i in range(SDXL_FRAMES):
+            t0 = time.perf_counter()
+            program(frames[i % 2], embeds, *args, [30 + i], **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        (bucket,) = program.buckets.values()
+        res[cn] = {"program": program, "replay_ms": statistics.median(ms)}
+        print(f"{name} batch 1 on {card}, CUDA graph replays: median "
+              f"{res[cn]['replay_ms']:.2f} ms/frame over {SDXL_FRAMES} frames (min "
+              f"{min(ms):.2f}, max {max(ms):.2f}); K1 {program.last_launches['flash_attention']} "
+              f"launches/frame at capture (d = 64); warm-up + capture {bucket.capture_s:.2f} s")
+    flops = frame_flops(bundle, res[False]["program"].spec)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"sdxl {SDXL_SIDE}x{SDXL_SIDE} 4-step TAESD frame (no ControlNet): "
+          f"{flops['logical'] / 1e12:.3f} TFLOP/frame logical, {flops['padded'] / 1e12:.3f} "
+          f"padded, {flops['logical'] / res[False]['replay_ms'] / 1e9:.1f} TFLOP/s replayed; "
+          f"peak allocated {peak:.2f} GiB over both frames ({peak - held:.2f} above the "
+          f"{held:.2f} GiB the earlier phases hold) ({card})")
+    del res[True], program, got, bucket
+    launches += _sdxl_engine(card)
+    lines = _run_tool(SDXL_PROD_ARGS, "tools/sdxl_prod.py", timeout=SDXL_PROD_S)
+    report = json.loads(lines[-1])
+    if not (report.get("fps_parity", 0) > 0 and report.get("flops_per_frame_tflop_logical", 0) > 0
+            and report.get("device") == "cuda"):
+        fail(f"tools/sdxl_prod.py reported {report}")
+    print(f"sdxl_prod report: {json.dumps(report)}")
+    print(f"phase 6f took {time.perf_counter() - t_phase:.1f} s")
+    return {"program": res[False]["program"], "embeds": embeds, "pooled": pooled,
+            "frame": frames[0], "args": (*args, [23]), "launches": launches,
+            "replay_ms": res[False]["replay_ms"]}
+
+
+def _sdxl_engine(card: str) -> int:
+    """The engine serving ``family: sdxl`` from a config file (random
+    weights) at 1024x1024, max_batch 1: one stream's frames through its
+    batch-1 graph (with the ControlNet, the engine's default), the reply
+    equal bit for bit to a direct ``build_frame_program`` call of the same
+    frame.  Returns its K1 launches (warm-up and capture, counted from 0
+    just before; the direct call's are not counted)."""
+    import asyncio
+    import gc
+
+    from videosd_tpu_torch.config import load_config
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    _zero_counts()
+    side = SDXL_SIDE
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "config.yaml")
+        with open(path, "w") as f:
+            f.write(f"family: sdxl\ndtype: bfloat16\nweights: random\n"
+                    f"frame_hw: [{side}, {side}]\n")
+        eng = Engine(load_config(path), max_streams=1, max_batch=1)
+    eng.warmup(batch_sizes=(1,), steps=(4,), height=side, width=side)
+    frame = np.random.default_rng(18).integers(0, 256, (side, side, 3), dtype=np.uint8)
+
+    async def run():
+        eng.start()
+        try:
+            st = eng.open_stream({"height": side, "width": side, "prompt": "a fox"})
+            outs = [await asyncio.wait_for(eng.submit_frame(st.stream_id, frame), 120)
+                    for _ in range(3)]
+            return st, outs
+        finally:
+            await eng.stop()
+
+    st, outs = asyncio.run(run())
+    launches = fa.launches
+    embeds, pooled = eng._encode_prompt("a fox")
+    spec = FrameSpec(batch=1, height=side, width=side, in_height=side, in_width=side, steps=4)
+    lat = (1, side // 8, side // 8, 4)
+    want = build_frame_program(eng.bundle, spec)(
+        torch.from_numpy(frame[None]).cuda(), embeds, [0.6], [5.0], [2.0],
+        [st.options["seed"]], warm_latents=torch.zeros(lat, device="cuda"), warm_alpha=[0.0],
+        pooled_embeds=pooled, src_box=[[0, 0, side, side]])[0]
+    same = bool(np.array_equal(outs[-1], want[0].cpu().numpy()))
+    print(f"engine from a config of family sdxl on {card}: bundle {eng.bundle.family} "
+          f"(clip2 {eng.bundle.clip2_cfg is not None}), {eng.telemetry.frames_out} frames "
+          f"generated, last {outs[-1].shape} {outs[-1].dtype}, equal to a direct "
+          f"build_frame_program call bit for bit: {same}; K1 {launches} launches (warm-up and "
+          f"capture)")
+    if (eng.bundle.family != "sdxl" or not eng.telemetry.frames_out
+            or outs[-1].shape != (side, side, 3) or not launches or not same):
+        fail("the engine did not serve family sdxl from its config, or its reply is not the "
+             "frame program's")
+    del eng, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _same(a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -2697,6 +2886,15 @@ def phase_sd21_profile(card: str, sd21: dict) -> None:
                     {"flash_fwd_kernel": K1_SD21_PER_FRAME})
 
 
+def phase_sdxl_profile(card: str, sdxl: dict) -> None:
+    """The same over two replayed SDXL 1024x1024 frames (no ControlNet):
+    K1's 280 at d = 64."""
+    program, embeds, frame, args = sdxl["program"], sdxl["embeds"], sdxl["frame"], sdxl["args"]
+    _profile_frames(card, "SDXL 1024x1024",
+                    lambda: program(frame, embeds, *args, pooled_embeds=sdxl["pooled"]),
+                    sdxl["replay_ms"], {"flash_fwd_kernel": K1_SDXL_PER_FRAME[False]})
+
+
 def phase_ref_profile(card: str, ref: dict) -> None:
     """The same over two replayed reference frames: K1's 180 (60 banked)."""
     _profile_frames(card, "reference-mode", ref["call"], ref["replay_ms"],
@@ -2965,21 +3163,23 @@ def phase_train(card: str) -> dict:
     return res
 
 
-def _run_tool(args: list, label: str) -> None:
+def _run_tool(args: list, label: str, timeout: float = TOY_CHILD_S) -> list:
     """``python -m`` one of the port's tools in a process of its own; its
-    output is passed on, and a nonzero exit or a run past TOY_CHILD_S fails."""
+    output is passed on (and its lines returned), and a nonzero exit or a
+    run past ``timeout`` seconds fails."""
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
-                              timeout=TOY_CHILD_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+                              timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
     except subprocess.TimeoutExpired:
-        fail(f"{label} ran past {TOY_CHILD_S} s")
+        fail(f"{label} ran past {timeout} s")
     lines = proc.stdout.splitlines()
     print("\n".join(f"   {ln}" for ln in lines[-14:]))
     print(f"{label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
     if proc.returncode:
         print(proc.stderr[-4000:])
         fail(f"{label} exited {proc.returncode}")
+    return lines
 
 
 def phase_toy(card: str) -> dict:
@@ -3040,6 +3240,7 @@ def main() -> None:
     kl = phase_kl(card)
     fp32_frame = phase_fp32_frame(card)
     sd21 = phase_sd21(card)
+    sdxl = phase_sdxl(card)
     phase_bench(main[0])
     train = phase_train(card)
     phase_toy(card)
@@ -3055,11 +3256,13 @@ def main() -> None:
     phase_fp32_profile(card, fp32_frame)
     phase_ref_profile(card, ref)
     phase_sd21_profile(card, sd21)
+    phase_sdxl_profile(card, sdxl)
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
-         "launches": k1_launches + ref_launches + server_launches + sd21["launches"],
+         "launches": (k1_launches + ref_launches + server_launches + sd21["launches"]
+                      + sdxl["launches"]),
          "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,

@@ -12,8 +12,9 @@ attentions launch K1's fp32 kernel inside the graph; replays are held to
 the eager ``frame_program`` bit for bit, and the reference program's
 (whose banked self-attentions read twice the keys) to the eager
 ``reference_frame_program``.  Also: K1 in bf16 at the reference mode's
-banked shapes and at the sd21 frame's (heads of 64) against its plain
-version, the sd21 topology cut to tiny widths (replay against eager), one
+banked shapes and at the sd21 and SDXL frames' (heads of 64) against its plain
+version, the sd21 topology cut to tiny widths and a random tiny-xl bundle
+(replay against eager), one
 tick of the serving engine over two streams, and two server protocol
 sessions over a card engine.  The last test makes a capture fail on
 purpose, so it runs last.
@@ -166,11 +167,19 @@ def test_engine_tick_of_two_streams_on_card(tiny):
 
 # the sd21 frame's K1 shapes at 512x512 (B, H, Sq, Sk, d): heads of 64
 _K1_SD21 = [(1, 5, 4096, 4096, 64), (1, 10, 1024, 1024, 64), (1, 20, 256, 256, 64)]
+# the SDXL 1024x1024 frame's two shapes (10 and 20 heads of 64)
+_K1_SDXL = [(1, 10, 4096, 4096, 64), (1, 20, 1024, 1024, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", _K1_SD21, ids=lambda s: "x".join(map(str, s)))
 def test_k1_sd21_shapes_on_card(tiny, shape):
+    test_k1_banked_shapes_on_card(tiny, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _K1_SDXL, ids=lambda s: "x".join(map(str, s)))
+def test_k1_sdxl_shapes_on_card(tiny, shape):
     test_k1_banked_shapes_on_card(tiny, shape)
 
 
@@ -214,6 +223,28 @@ def test_sd21_tiny_width_program_replay_equals_eager_on_card(tiny):
     for out, (frame, seeds) in zip(outs, calls):
         want = P.frame_program(bundle, spec, frame, embeds, *ARGS, seeds)
         assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_tiny_xl_program_replay_equals_eager_on_card(tiny):
+    """A random tiny-xl bundle (SDXL's text_time topology, two text towers)
+    in bf16 at 256x256, ControlNet on: its 256-token attentions launch K1
+    (d = 16) inside the graph, the time ids are filled on the device in
+    the capture, and two replays equal the eager frame_program bit for
+    bit."""
+    bundle = P.ModelBundle.random("tiny-xl", dtype=torch.bfloat16, device="cuda")
+    embeds, pooled = P.build_prompt_encoder(bundle)(bundle.tokenizer(["a fox", "a castle"]))
+    spec = P.FrameSpec(batch=2, height=256, width=256, steps=2)
+    program = P.build_frame_program(bundle, spec)
+    rng = np.random.default_rng(17)
+    calls = [(torch.from_numpy(rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)).cuda(),
+              [seed, seed + 1]) for seed in (1, 2)]
+    outs = [program(frame, embeds, *ARGS, seeds, pooled_embeds=pooled) for frame, seeds in calls]
+    assert program.last_launches["flash_attention"] > 0
+    for out, (frame, seeds) in zip(outs, calls):
+        want = P.frame_program(bundle, spec, frame, embeds, *ARGS, seeds, pooled_embeds=pooled)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert not torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.cuda

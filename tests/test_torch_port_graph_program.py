@@ -298,11 +298,14 @@ def _meta_call(name):
         frame = _frames(hw=(48, 64))
     elif name == "safety_hook":
         meta = dataclasses.replace(meta, safety_hook=PS.default_safety_hook(0.5))
+    elif name == "tiny_xl":  # SDXL's text_time: the time ids filled on the device
+        meta = P.ModelBundle.random("tiny-xl", dtype=torch.float32, device="meta")
+        kw = {"pooled_embeds": np.zeros((B, 32), np.float32)}
     return meta, P.FrameSpec(batch=B, height=32, width=32, **spec), frame, kw
 
 
 META_CALLS = ["parity", "interval", "temporal_produce", "temporal_reuse",
-              "warm_start_src_box_i420", "resize", "safety_hook"]
+              "warm_start_src_box_i420", "resize", "safety_hook", "tiny_xl"]
 
 
 @pytest.mark.parametrize("name", META_CALLS)
@@ -312,9 +315,10 @@ def test_body_makes_no_host_copy_or_sync(name):
     fills the caches built at first use (the resize matrices on the
     device)."""
     meta, spec, frame, kw = _meta_call(name)
-    inputs = P._call_inputs(meta, spec, frame, np.zeros((B, 77, 32), np.float32), *ARGS[:3],
-                            None, kw.get("warm_latents"), kw.get("warm_alpha"), None,
-                            kw.get("src_box"), kw.get("deep_caches"))
+    context = np.zeros((B, 77, meta.unet_cfg.cross_attention_dim), np.float32)
+    inputs = P._call_inputs(meta, spec, frame, context, *ARGS[:3],
+                            None, kw.get("warm_latents"), kw.get("warm_alpha"),
+                            kw.get("pooled_embeds"), kw.get("src_box"), kw.get("deep_caches"))
     bufs = P._new_buffers(meta, spec, inputs)
     assert all(b is None or b.device.type == "meta" for b in bufs.values())
     with torch.inference_mode():

@@ -133,5 +133,9 @@ def test_port_program_rejects_unported_spec_fields(bundles):
     prog = P.build_frame_program(pb, P.FrameSpec(height=32, width=32, steps=2))
     frame = np.zeros((1, 32, 32, 3), np.uint8)
     emb = torch.zeros(1, 77, 32)
-    with pytest.raises(NotImplementedError, match="pooled_embeds"):
-        prog(frame, emb, [0.5], [1.0], [1.0], [0], pooled_embeds=torch.zeros(1, 32))
+    # SDXL's pooled_embeds is ignored by a bundle without text_time, as in JAX:
+    # the same signature, the same result
+    plain = prog(frame, emb, [0.5], [1.0], [1.0], [0])
+    pooled = prog(frame, emb, [0.5], [1.0], [1.0], [0], pooled_embeds=torch.zeros(1, 32))
+    assert len(prog.buckets) == 1
+    assert all(torch.equal(a, b) for a, b in zip(plain, pooled))

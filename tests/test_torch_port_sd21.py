@@ -102,10 +102,17 @@ def test_sd21_presets_follow_jax():
         assert getattr(SD21, field) == getattr(JU.UNET_PRESETS["sd21"], field), field
     assert [SD21.num_heads(c) for c in (320, 640, 1280)] == [5, 10, 20]  # d = 64
     assert dataclasses.asdict(CLIP_PRESETS["sd21"]) == dataclasses.asdict(JC.CLIP_PRESETS["sd21"])
-    with pytest.raises(NotImplementedError, match="text_time"):
-        UNet2DConditionModel(dataclasses.replace(SD21, addition_embed_type="text_time"))
-    with pytest.raises(NotImplementedError, match="penultimate"):
-        CLIPTextModel(dataclasses.replace(CLIP_PRESETS["sd21"], output_hidden_state=-2))
+    # the sd21 topology with SDXL's text_time embedder and a penultimate-state
+    # tower: both build (on meta), with the embedder's and the projection's keys
+    with torch.device("meta"):
+        xl = UNet2DConditionModel(dataclasses.replace(
+            SD21, addition_embed_type="text_time", addition_time_embed_dim=256,
+            projection_class_embeddings_input_dim=1024 + 6 * 256))
+        tower = CLIPTextModel(dataclasses.replace(CLIP_PRESETS["sd21"], output_hidden_state=-2,
+                                                  projection_dim=1024))
+    assert xl.add_embedding.linear_1.weight.shape == (1280, 2560)
+    assert tower.text_projection.weight.shape == (1024, 1024)
+    assert {k for _, k, _ in PW.clip_plan(tower.cfg)} == set(tower.state_dict())
 
 
 def test_transformer2d_linear_projection_five_heads_of_64():

@@ -25,12 +25,13 @@ from videosd_tpu_torch.io.weights import (
 
 __all__ = ["save_bundle"]
 
-# the JAX package's models in its order (it also writes an SDXL "clip2",
-# which no port family has)
+# the JAX package's models in its order (an SDXL bundle's second text tower
+# is "clip2")
 _PLANS = {
     "unet": lambda b: unet_plan(b.unet_cfg),
     "controlnet": lambda b: controlnet_plan(b.unet_cfg),
     "clip": lambda b: clip_plan(b.clip_cfg),
+    "clip2": lambda b: clip_plan(b.clip2_cfg),
     "taesd": lambda b: taesd_plan(b.taesd_cfg),
     "vae": lambda b: vae_plan(b.vae_cfg),
 }

@@ -15,8 +15,9 @@ kernel and memset a call issues, median of three sessions of 20 calls):
   configuration of ``videosd_tpu/tools/parity.py``, TF32 off) and in bf16
   (the production dtype), random weights from seed 0, replayed from its
   CUDA graph: the median ms of FRAMES blocking frames (host clock);
-* K1, ``flash_attention`` on ``[1, S, 8*d]`` tensors at the sd15 512x512
-  main path's three shapes in bf16 and in fp32 (the d <= 256 fp32 kernel),
+* K1, ``flash_attention`` on ``[1, S, H*d]`` tensors at the sd15 512x512
+  main path's three shapes and at the d = 64 shapes of the sd21 512x512 and
+  SDXL 1024x1024 frames, in bf16 and in fp32 (the d <= 256 fp32 kernel),
   and on one head of d = 512 at the KL VAE's [1, 4096, 512] and
   [4, 4096, 512] in bf16 and in fp32 (the wide kernels);
 * the sd15 KL VAE (``models/vae.py``, published widths, weights from torch's
@@ -46,7 +47,11 @@ import statistics
 import subprocess
 import sys
 
-K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160)]
+# (heads, S, d): sd15 512x512's three; at d = 64, sd21 512x512's three
+# (5/10/20 heads) and SDXL 1024x1024's two (10/20 heads)
+K1_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160),
+             (5, 4096, 64), (10, 1024, 64), (20, 256, 64),
+             (10, 4096, 64), (20, 1024, 64)]
 K1_WIDE = [(1, 4096, 512), (4, 4096, 512)]  # (batch, S, d), one head
 K2_SHAPES = [(512, 512), (768, 768), (480, 640), (1080, 1920)]
 K3_SHAPES = [(1, 512, 256, 128), (1, 256, 128, 128), (1, 128, 64, 128), (1, 64, 32, 128)]

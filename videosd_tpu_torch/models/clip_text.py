@@ -1,12 +1,16 @@
-"""CLIP text encoders (SD1.5's CLIP ViT-L/14 and SD2.1's OpenCLIP ViT-H
-text towers) as torch modules.
+"""CLIP text encoders (SD1.5's CLIP ViT-L/14, SD2.1's OpenCLIP ViT-H and
+SDXL's two towers) as torch modules.
 
 Counterpart of ``videosd_tpu/models/clip_text.py`` with transformers'
-``CLIPTextModel`` parameter names (``text_model.*``).  Pre-LN blocks,
+``CLIPTextModel`` parameter names (``text_model.*``, and
+``text_projection`` for ``CLIPTextModelWithProjection``).  Pre-LN blocks,
 causal mask, quick_gelu (CLIP) or gelu (OpenCLIP), final LN; the pooled
-output is the final hidden state at the EOT token (argmax of the ids).  Its
-attention is masked, so it stays on the plain route, as it did under XLA.
-Not covered yet: SDXL's penultimate-state and projected towers.
+output is the final hidden state at the EOT token (argmax of the ids),
+passed through ``text_projection`` where the tower has one.  SDXL's towers
+give the penultimate layer's state as the context, without the final LN
+(``output_hidden_state=-2``); their pooled output still comes from the
+whole tower.  The attention is masked, so it stays on the plain route, as
+it did under XLA.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from torch import nn
 
 from videosd_tpu_torch.models.layers import LayerNorm, attention
 
-__all__ = ["CLIP_PRESETS", "CLIPTextConfig", "CLIPTextModel"]
+__all__ = ["CLIP_PRESETS", "CLIPTextConfig", "CLIPTextModel", "second_tower_for", "tower_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,8 @@ class CLIPTextConfig:
     projection_dim: int | None = None  # text_projection for SDXL tower 2
 
 
+# by tower, with the JAX package's names; ``tower_for`` maps a family to its
+# first tower
 CLIP_PRESETS = {
     "sd15": CLIPTextConfig(),
     # SD2.1 / SD-Turbo: OpenCLIP ViT-H/14's text tower (its 24th layer dropped)
@@ -46,6 +52,18 @@ CLIP_PRESETS = {
         intermediate_size=4096,
         hidden_act="gelu",
     ),
+    # SDXL tower 1: CLIP ViT-L/14, the penultimate state as the context
+    "sdxl-1": CLIPTextConfig(output_hidden_state=-2),
+    # SDXL tower 2: OpenCLIP ViT-bigG/14, penultimate state, projected pooled
+    "sdxl-2": CLIPTextConfig(
+        hidden_size=1280,
+        num_layers=32,
+        num_heads=20,
+        intermediate_size=5120,
+        hidden_act="gelu",
+        output_hidden_state=-2,
+        projection_dim=1280,
+    ),
     "tiny": CLIPTextConfig(
         vocab_size=1000,
         hidden_size=32,
@@ -54,6 +72,22 @@ CLIP_PRESETS = {
         intermediate_size=64,
     ),
 }
+
+# a family's first tower, as JAX's ``ModelBundle.random`` picks it
+_FAMILY_TOWER = {"sd15": "sd15", "sd21": "sd21", "sdxl": "sdxl-1", "tiny": "tiny",
+                 "tiny-xl": "tiny"}
+
+
+def tower_for(family: str) -> str:
+    """The CLIP preset of ``family``'s (first) text tower; sd15 for a
+    family the table does not name (``sd15-base``)."""
+    return _FAMILY_TOWER.get(family, "sd15")
+
+
+def second_tower_for(family: str) -> str:
+    """The CLIP preset of an SDXL-family bundle's second tower
+    (``tiny-xl`` reuses the tiny tower)."""
+    return "sdxl-2" if family == "sdxl" else "tiny"
 
 
 def _act(name: str, x):
@@ -84,8 +118,6 @@ class _Layer(nn.Module):
 class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        if cfg.output_hidden_state != -1 or cfg.projection_dim is not None:
-            raise NotImplementedError("penultimate-state and projected towers are not ported yet")
         self.cfg = cfg
         d = cfg.hidden_size
         tm = nn.Module()
@@ -96,9 +128,13 @@ class CLIPTextModel(nn.Module):
         tm.encoder.layers = nn.ModuleList([_Layer(cfg) for _ in range(cfg.num_layers)])
         tm.final_layer_norm = LayerNorm(d)
         self.text_model = tm
+        self.text_projection = (None if cfg.projection_dim is None
+                                else nn.Linear(d, cfg.projection_dim, bias=False))
 
     def forward(self, input_ids):
-        """[B, S] ids -> (last_hidden_state [B,S,D], pooled [B,D])."""
+        """[B, S] ids -> (context [B,S,D], pooled [B,D|P]): the context is the
+        final (post-LN) state, or with ``output_hidden_state=-k`` the k-th
+        last of the embeddings and the layers' outputs, without the LN."""
         cfg, tm = self.cfg, self.text_model
         # out-of-vocab ids are clamped, like the JAX take(mode="clip")
         ids = input_ids.long().clamp(0, cfg.vocab_size - 1)
@@ -107,6 +143,7 @@ class CLIPTextModel(nn.Module):
         causal = torch.triu(
             torch.full((seq, seq), float("-inf"), dtype=torch.float32, device=x.device), 1
         )[None, None]
+        hidden_states = [x]
         for layer in tm.encoder.layers:
             h = layer.layer_norm1(x)
             sa = layer.self_attn
@@ -116,7 +153,11 @@ class CLIPTextModel(nn.Module):
             h = layer.mlp.fc1(layer.layer_norm2(x))
             h = _act(cfg.hidden_act, h.float()).to(h.dtype)
             x = x + layer.mlp.fc2(h)
+            hidden_states.append(x)
         final = tm.final_layer_norm(x)
+        context = final if cfg.output_hidden_state == -1 else hidden_states[cfg.output_hidden_state]
         eot = input_ids.long().argmax(dim=-1)
         pooled = final[torch.arange(final.shape[0], device=final.device), eot]
-        return final, pooled
+        if self.text_projection is not None:
+            pooled = self.text_projection(pooled)
+        return context, pooled

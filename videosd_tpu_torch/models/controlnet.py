@@ -8,6 +8,10 @@ down and mid blocks, plus
    small conv stack onto the latent grid, added after conv_in, and
 2. zero-initialized 1x1 convs on every skip output and on the mid output.
 
+An SDXL-family ControlNet copies the UNet encoder, so it carries the same
+``text_time`` embedder (``add_embedding``), fed the same pooled embedding
+and time ids.
+
 The residuals are scaled per batch element by ``conditioning_scale`` and,
 in guess mode (the default, as the reference calls it), by diffusers'
 ``logspace(-1, 0)`` ramp from the shallowest skip to the mid block.
@@ -75,13 +79,15 @@ class ControlNetModel(UNetEncoder):
         conditioning_scale=1.0,
         timestep_cond=None,
         guess_mode: bool = True,
+        added_cond_kwargs=None,
     ):
         """NCHW forward -> (down residuals, mid residual), NCHW.
 
         ``controlnet_cond``: [B,3,H,W] control image in [0,1] at pixel
-        resolution; ``conditioning_scale``: a scalar or a [B] tensor.
+        resolution; ``conditioning_scale``: a scalar or a [B] tensor;
+        ``added_cond_kwargs``: SDXL's pooled embedding and time ids.
         """
-        temb = self.time_embedding(self.cfg, timesteps, timestep_cond)
+        temb = self.embed(timesteps, timestep_cond, added_cond_kwargs)
         context = encoder_hidden_states.to(sample.dtype)
         x = self.conv_in(sample)
         x = x + self.controlnet_cond_embedding(controlnet_cond.to(sample.dtype))
@@ -109,6 +115,7 @@ def controlnet_apply(
     *,
     conditioning_scale=1.0,
     timestep_cond=None,
+    added_cond_kwargs=None,
     guess_mode: bool = True,
 ):
     """ControlNet forward with the JAX package's layouts: NHWC ``sample`` and
@@ -121,5 +128,6 @@ def controlnet_apply(
         conditioning_scale=conditioning_scale,
         timestep_cond=timestep_cond,
         guess_mode=guess_mode,
+        added_cond_kwargs=added_cond_kwargs,
     )
     return [r.permute(0, 2, 3, 1) for r in down], mid.permute(0, 2, 3, 1)

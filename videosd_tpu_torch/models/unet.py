@@ -1,4 +1,4 @@
-"""Conditional diffusion UNet (the SD1.5 and SD2.1 families) as torch modules.
+"""Conditional diffusion UNet (the SD1.5, SD2.1 and SDXL families) as torch modules.
 
 Counterpart of ``videosd_tpu/models/unet.py``.  Module and parameter
 names are diffusers' ``UNet2DConditionModel`` names, so a diffusers-layout
@@ -8,14 +8,15 @@ modules.  :func:`unet_apply` keeps the JAX package's NHWC interface.
 Covered: resnets, Transformer2D with its projections applied as linears on
 the token view (SD1.5's 1x1 convs, SD2.1's ``nn.Linear``), fused-QKV self-attention (long sequences go to kernel
 K1 through ``layers.attention``), 77-token cross-attention, the LCM
-guidance ``cond_proj``, the ControlNet residual adds, and the DeepCache
+guidance ``cond_proj``, SDXL's ``text_time`` micro-conditioning (the
+pooled text embedding and six size ids through ``add_embedding``, added
+to the time embedding), the ControlNet residual adds, and the DeepCache
 split (the deep feature out of a full pass, and the shallow pass over a
 cached one), and the reference-attention hooks: the WRITE pass banks each
 self-attention's normed input (``bank_out``) and the READ pass attends
 over it beside its own tokens (``bank``, a :class:`BankReader`), with an
 ``adain`` hook after every resnet(+attention) pair of the down and up
-blocks and after the mid block (``pipelines/reference_attn.py``).  Not
-covered yet: SDXL ``text_time``.
+blocks and after the mid block (``pipelines/reference_attn.py``).
 """
 
 from __future__ import annotations
@@ -82,7 +83,10 @@ class UNetConfig:
     norm_num_groups: int = 32
     time_cond_proj_dim: int | None = None  # LCM guidance embedding (w) input
     use_linear_projection: bool = False
-    addition_embed_type: str | None = None  # "text_time" (SDXL) is not ported
+    # SDXL micro-conditioning ("text_time"): pooled text emb + 6 time_ids.
+    addition_embed_type: str | None = None
+    addition_time_embed_dim: int | None = None
+    projection_class_embeddings_input_dim: int | None = None
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
 
@@ -103,6 +107,7 @@ class UNetConfig:
 UNET_PRESETS: dict[str, UNetConfig] = {
     # SimianLuo/LCM_Dreamshaper_v7 and SD1.5-family ControlNet hosts
     "sd15": UNetConfig(time_cond_proj_dim=256),
+    "sd15-base": UNetConfig(),
     # SD2.1 / SD-Turbo (stabilityai/sd-turbo): 1024-dim OpenCLIP context,
     # heads of 64 (5/10/20 at 320/640/1280 channels), linear projections
     "sd21": UNetConfig(
@@ -110,6 +115,36 @@ UNET_PRESETS: dict[str, UNetConfig] = {
         attention_head_dim=64,
         head_dim_is_num_heads=False,
         use_linear_projection=True,
+    ),
+    # SDXL-base topology (stabilityai/stable-diffusion-xl-base-1.0, and
+    # SDXL-Lightning): 3 stages, transformer depth 0/2/10, heads of 64,
+    # 2048-wide two-tower context, text_time micro-conditioning
+    "sdxl": UNetConfig(
+        block_out_channels=(320, 640, 1280),
+        attn_down=(False, True, True),
+        transformer_depth=(0, 2, 10),
+        cross_attention_dim=2048,
+        attention_head_dim=64,
+        head_dim_is_num_heads=False,
+        use_linear_projection=True,
+        addition_embed_type="text_time",
+        addition_time_embed_dim=256,
+        projection_class_embeddings_input_dim=2816,
+    ),
+    # tiny SDXL-topology config (text_time micro-conditioning) for tests
+    "tiny-xl": UNetConfig(
+        block_out_channels=(32, 64),
+        attn_down=(False, True),
+        layers_per_block=1,
+        transformer_depth=(0, 2),
+        attention_head_dim=16,
+        head_dim_is_num_heads=False,
+        cross_attention_dim=64,
+        norm_num_groups=8,
+        use_linear_projection=True,
+        addition_embed_type="text_time",
+        addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=32 + 6 * 8,
     ),
     # tiny config for tests: the sd15 topology at 2 stages and narrow widths
     "tiny": UNetConfig(
@@ -124,11 +159,6 @@ UNET_PRESETS: dict[str, UNetConfig] = {
         time_cond_proj_dim=32,
     ),
 }
-
-
-def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.addition_embed_type is not None:
-        raise NotImplementedError("SDXL UNets (addition_embed_type text_time) are not ported yet")
 
 
 # ------------------------------------------------------------------ blocks
@@ -376,6 +406,31 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(temb)))
 
 
+class AddEmbedding(nn.Module):
+    """SDXL's ``text_time`` embedder: the pooled text embedding beside the
+    sinusoids of the six time ids, through a two-layer MLP."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        ted = cfg.time_embed_dim
+        self.linear_1 = nn.Linear(cfg.projection_class_embeddings_input_dim, ted)
+        self.linear_2 = nn.Linear(ted, ted)
+
+    def forward(self, cfg: UNetConfig, text_embeds, time_ids):
+        """``text_embeds`` [B, pooled], ``time_ids`` [B, 6] fp32 -> [B, ted].
+        The pooled embedding joins the fp32 sinusoids in fp32 and the MLP
+        runs in the weights' dtype, as JAX's ``compute_add_embedding``."""
+        b = time_ids.shape[0]
+        t_emb = timestep_embedding(
+            time_ids.reshape(-1),
+            cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift,
+        ).reshape(b, -1)
+        x = torch.cat([text_embeds.float(), t_emb], dim=-1).to(self.linear_1.weight.dtype)
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
 def _scope(name: str, on: bool):
     return record_function(name) if on else contextlib.nullcontext()
 
@@ -390,11 +445,12 @@ class UNetEncoder(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(cfg)
+        self.add_embedding = (AddEmbedding(cfg) if cfg.addition_embed_type == "text_time"
+                              else None)
         n = len(cfg.block_out_channels)
         self.down_blocks = nn.ModuleList()
         ch = ch0
@@ -402,6 +458,19 @@ class UNetEncoder(nn.Module):
             self.down_blocks.append(DownBlock2D(cfg, i, ch, out_ch, final=(i == n - 1)))
             ch = out_ch
         self.mid_block = UNetMidBlock2DCrossAttn(cfg)
+
+    def embed(self, timesteps, timestep_cond=None, added_cond_kwargs=None):
+        """The time embedding, plus the ``text_time`` embedding of
+        ``added_cond_kwargs`` (``{"text_embeds", "time_ids"}``) on an SDXL
+        config, which requires them."""
+        temb = self.time_embedding(self.cfg, timesteps, timestep_cond)
+        if self.add_embedding is not None:
+            if added_cond_kwargs is None:
+                raise ValueError("a text_time UNet needs added_cond_kwargs "
+                                 "(text_embeds and time_ids)")
+            temb = temb + self.add_embedding(self.cfg, added_cond_kwargs["text_embeds"],
+                                             added_cond_kwargs["time_ids"])
+        return temb
 
     def encode(self, x, temb, context, **hooks):
         """Down and mid blocks; ``hooks`` (``bank``, ``bank_out``, ``adain``)
@@ -446,6 +515,7 @@ class UNet2DConditionModel(UNetEncoder):
         bank=None,
         bank_out=None,
         adain=None,
+        added_cond_kwargs=None,
     ):
         """NCHW forward; the ControlNet residuals and the deep feature are
         NCHW too.  ``bank``/``bank_out``/``adain``: the reference-attention
@@ -459,9 +529,10 @@ class UNet2DConditionModel(UNetEncoder):
         the last up block over the cached feature, conv_out -- which
         reproduces the full pass exactly on the same inputs.  The shallow
         path uses only the first ``layers_per_block + 1`` ControlNet down
-        residuals.
+        residuals.  ``added_cond_kwargs``: SDXL's ``{"text_embeds": [B, P],
+        "time_ids": [B, 6]}`` (:meth:`embed`).
         """
-        temb = self.time_embedding(self.cfg, timesteps, timestep_cond)
+        temb = self.embed(timesteps, timestep_cond, added_cond_kwargs)
         context = encoder_hidden_states.to(sample.dtype)
         x = self.conv_in(sample)
         if deep_feature is not None:
@@ -521,6 +592,7 @@ def unet_apply(
     encoder_hidden_states,
     *,
     timestep_cond=None,
+    added_cond_kwargs=None,
     down_block_additional_residuals=None,
     mid_block_additional_residual=None,
     deep_feature=None,
@@ -554,6 +626,7 @@ def unet_apply(
         bank=bank,
         bank_out=bank_out,
         adain=adain,
+        added_cond_kwargs=added_cond_kwargs,
     )
     if return_deep_feature:
         return _nhwc(out[0]), _nhwc(out[1])

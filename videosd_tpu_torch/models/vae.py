@@ -48,7 +48,11 @@ class VAEConfig:
 
 VAE_PRESETS: dict[str, VAEConfig] = {
     "sd15": VAEConfig(),
+    "sd15-base": VAEConfig(),
     "sd21": VAEConfig(),
+    # every family but tiny takes the stock VAE, as in JAX's ModelBundle.random
+    "sdxl": VAEConfig(),
+    "tiny-xl": VAEConfig(),
     # the tiny family's (videosd_tpu/pipelines/lcm_img2img.py ModelBundle.random)
     "tiny": VAEConfig(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4),
 }

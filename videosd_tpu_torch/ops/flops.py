@@ -164,11 +164,15 @@ def frame_flops(bundle, spec, *, warm: bool = False, src_box: bool = False,
 def _inputs(meta_bundle, spec, frame, warm_latents, src_box, deep_caches) -> dict:
     """Meta buffers of one call (shapes only: nothing is staged)."""
     B = spec.batch
+    pooled = None
+    if meta_bundle.clip2_cfg is not None:  # SDXL's pooled text embedding
+        clip2 = meta_bundle.clip2_cfg
+        pooled = torch.zeros((B, clip2.projection_dim or clip2.hidden_size))
     inputs = _call_inputs(
         meta_bundle, spec, frame,
         torch.zeros((B, 77, meta_bundle.unet_cfg.cross_attention_dim)),
         [0.6] * B, [5.0] * B, [2.0] * B, None, warm_latents,
-        None if warm_latents is None else [0.3] * B, None, src_box, deep_caches,
+        None if warm_latents is None else [0.3] * B, pooled, src_box, deep_caches,
     )
     return _new_buffers(meta_bundle, spec, inputs)
 

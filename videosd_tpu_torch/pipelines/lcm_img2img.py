@@ -75,7 +75,13 @@ from videosd_tpu_torch.io.weights import (
     unet_plan,
     vae_plan,
 )
-from videosd_tpu_torch.models.clip_text import CLIP_PRESETS, CLIPTextConfig, CLIPTextModel
+from videosd_tpu_torch.models.clip_text import (
+    CLIP_PRESETS,
+    CLIPTextConfig,
+    CLIPTextModel,
+    second_tower_for,
+    tower_for,
+)
 from videosd_tpu_torch.models.controlnet import ControlNetModel
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.taesd import AutoencoderTiny, TAESDConfig, taesd_decode, taesd_encode
@@ -189,19 +195,23 @@ def init_like_jax(model: nn.Module, gen: torch.Generator, zero_prefixes=()) -> N
 
 @dataclasses.dataclass
 class ModelBundle:
-    """The models and configs of one family, resident on ``device``."""
+    """The models and configs of one family, resident on ``device``.  An
+    SDXL-family bundle (``text_time`` UNet) also holds a second text tower,
+    ``models["clip2"]`` of ``clip2_cfg``."""
 
     family: str
     unet_cfg: UNetConfig
     clip_cfg: CLIPTextConfig
     sched_cfg: LCMSchedulerConfig
-    models: dict  # {"unet", "controlnet", "taesd", "clip", "vae"} -> nn.Module
+    # {"unet", "controlnet", "taesd", "clip", "clip2", "vae"} -> nn.Module
+    models: dict
     alphas_cumprod: torch.Tensor
     tokenizer: CLIPTokenizer
     taesd_cfg: TAESDConfig
     vae_cfg: VAEConfig  # the KL VAE's, whether or not ``models`` holds one
     dtype: torch.dtype
     device: torch.device
+    clip2_cfg: CLIPTextConfig | None = None  # SDXL's second tower
     # optional post-decode hook, images_pm1 [B,H,W,3] -> images_pm1
     # (pipelines/safety.py); None = off
     safety_hook: Any = None
@@ -220,13 +230,17 @@ class ModelBundle:
         """Randomly initialized bundle, drawn with the JAX init rule from a
         ``torch.Generator`` seeded with ``seed`` (not the JAX values; the
         KL VAE, with ``with_kl_vae``, is drawn last, so the other models'
-        values do not depend on it).  On ``device="meta"`` the models have
-        shapes and no values (for counting, ``ops/flops.py``)."""
+        values do not depend on it; an SDXL family's second text tower is
+        drawn after the first and before the KL VAE).  On ``device="meta"``
+        the models have shapes and no values (for counting,
+        ``ops/flops.py``)."""
         if family not in UNET_PRESETS:
-            raise NotImplementedError(f"family {family!r} is not ported yet")
+            raise ValueError(f"unknown family {family!r}; the port has {sorted(UNET_PRESETS)}")
         device = _resolve_device(device)
         unet_cfg = UNET_PRESETS[family]
-        clip_cfg = CLIP_PRESETS[family]
+        clip_cfg = CLIP_PRESETS[tower_for(family)]
+        clip2_cfg = (CLIP_PRESETS[second_tower_for(family)]
+                     if unet_cfg.addition_embed_type == "text_time" else None)
         taesd_cfg = (
             TAESDConfig(hidden=16, blocks_per_stage=1) if family == "tiny" else TAESDConfig()
         )
@@ -235,7 +249,11 @@ class ModelBundle:
         if with_controlnet:
             models["controlnet"] = _empty_module(lambda: ControlNetModel(unet_cfg), dtype, device)
         models["taesd"] = _empty_module(lambda: AutoencoderTiny(taesd_cfg), dtype, device)
+        towers = ["clip"]
         models["clip"] = _empty_module(lambda: CLIPTextModel(clip_cfg), dtype, device)
+        if clip2_cfg is not None:
+            towers.append("clip2")
+            models["clip2"] = _empty_module(lambda: CLIPTextModel(clip2_cfg), dtype, device)
         if with_kl_vae:
             models["vae"] = _empty_module(lambda: AutoencoderKL(vae_cfg), dtype, device)
         if device.type != "meta":
@@ -244,13 +262,14 @@ class ModelBundle:
             if with_controlnet:
                 init_like_jax(models["controlnet"], gen, ControlNetModel.ZERO_INIT)
             init_like_jax(models["taesd"], gen)
-            init_like_jax(models["clip"], gen)
-            emb = models["clip"].text_model.embeddings
-            for table, std in ((emb.token_embedding, 0.02), (emb.position_embedding, 0.01)):
-                with torch.no_grad():
-                    table.weight.copy_(
-                        torch.randn(table.weight.shape, generator=gen, device=device) * std
-                    )
+            for tower in towers:
+                init_like_jax(models[tower], gen)
+                emb = models[tower].text_model.embeddings
+                for table, std in ((emb.token_embedding, 0.02), (emb.position_embedding, 0.01)):
+                    with torch.no_grad():
+                        table.weight.copy_(
+                            torch.randn(table.weight.shape, generator=gen, device=device) * std
+                        )
             if with_kl_vae:
                 init_like_jax(models["vae"], gen)
         sched_cfg = LCMSchedulerConfig()
@@ -266,6 +285,7 @@ class ModelBundle:
             vae_cfg=vae_cfg,
             dtype=dtype,
             device=device,
+            clip2_cfg=clip2_cfg,
         )
 
     @classmethod
@@ -316,11 +336,13 @@ class ModelBundle:
         TAESD come from their own directories; without them the ControlNet
         (with ``with_controlnet``, default: whether ``controlnet_dir`` is
         given) and TAESD keep the random init, the ControlNet's zeroed
-        output convs making it a no-op.  The tokenizer reads ``tokenizer/``
+        output convs making it a no-op.  An SDXL family's second text
+        tower keeps its random init too, as the JAX loader leaves it (it
+        reads ``text_encoder/`` alone).  The tokenizer reads ``tokenizer/``
         or the snapshot's own ``vocab.json``."""
         if family not in UNET_PRESETS:
-            raise NotImplementedError(f"family {family!r} is not ported yet")
-        unet_cfg, clip_cfg = UNET_PRESETS[family], CLIP_PRESETS[family]
+            raise ValueError(f"unknown family {family!r}; the port has {sorted(UNET_PRESETS)}")
+        unet_cfg, clip_cfg = UNET_PRESETS[family], CLIP_PRESETS[tower_for(family)]
         state_dicts = {
             "unet": load_model_dir(model_dir, "unet", unet_plan(unet_cfg)),
             "clip": load_model_dir(model_dir, "text_encoder", clip_plan(clip_cfg)),
@@ -423,8 +445,6 @@ def _call_inputs(bundle: ModelBundle, spec: FrameSpec, frame_u8, prompt_embeds, 
     shapes, on whatever device they arrived: ``{name: tensor or None}``
     named and ordered as :func:`_frame_body`'s arguments (``noise`` None:
     drawn from the seeds)."""
-    if pooled_embeds is not None:
-        raise NotImplementedError("frame_program(pooled_embeds=...) (SDXL) is not ported yet")
     B, S = spec.batch, spec.steps
     latent = (B, *_latent_hw(bundle, spec), 4)
     if warm_latents is not None:
@@ -462,11 +482,28 @@ def _call_inputs(bundle: ModelBundle, spec: FrameSpec, frame_u8, prompt_embeds, 
         "warm_alpha": warm_alpha,
         "src_box": src_box,
         "deep_caches": deep_caches,
+        "pooled": _check_pooled(bundle, B, pooled_embeds),
     }
 
 
+def _check_pooled(bundle: ModelBundle, batch: int, pooled_embeds):
+    """SDXL's pooled text embedding [B, P]: required by a ``text_time``
+    UNet, ignored (None) by any other, as in the JAX program."""
+    if bundle.unet_cfg.addition_embed_type != "text_time":
+        return None
+    if pooled_embeds is None:
+        raise ValueError("sdxl family requires pooled_embeds")
+    pooled = torch.as_tensor(pooled_embeds)
+    width = bundle.unet_cfg.projection_class_embeddings_input_dim - (
+        6 * bundle.unet_cfg.addition_time_embed_dim)
+    if tuple(pooled.shape) != (batch, width):
+        raise ValueError(f"pooled_embeds must be [{batch}, {width}], got {tuple(pooled.shape)}")
+    return pooled
+
+
 def _staged_dtype(bundle: ModelBundle, name: str, x) -> torch.dtype:
-    if name == "context":
+    if name in ("context", "pooled"):
+        # JAX casts both to the bundle dtype in the frame
         return bundle.dtype
     if name in ("noise", "warm_latents"):
         return torch.float32
@@ -526,9 +563,23 @@ def _decode_latents(bundle: ModelBundle, spec: FrameSpec, z):
     return taesd_decode(bundle.models["taesd"], z, bundle.taesd_cfg)
 
 
+def _added_cond(bundle: ModelBundle, spec: FrameSpec, pooled):
+    """SDXL's ``text_time`` conditioning of a frame: the staged pooled
+    embedding and, per row, the time ids (orig_h, orig_w, crop_top,
+    crop_left, target_h, target_w) = (H, W, 0, 0, H, W) in fp32, filled on
+    the device (no host copy, so a graph capture takes it).  None for a
+    UNet without ``text_time``."""
+    if pooled is None:
+        return None
+    h, w = (torch.full((pooled.shape[0], 1), float(x), dtype=torch.float32, device=pooled.device)
+            for x in (spec.height, spec.width))
+    time_ids = torch.cat([h, w, torch.zeros_like(h), torch.zeros_like(h), h, w], dim=1)
+    return {"text_embeds": pooled, "time_ids": time_ids}
+
+
 def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, guidance,
                 cn_scale, noise, warm_latents=None, warm_alpha=None, src_box=None,
-                deep_caches=None):
+                deep_caches=None, pooled=None):
     """The device side of :func:`frame_program`: a function of staged device
     tensors that makes no host sync, no host-to-device copy and allocates no
     host constant, so a CUDA graph can capture it."""
@@ -550,21 +601,27 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         img_pm1 = (img01 * 2.0 - 1.0).to(dtype)
     with record_function("vae_encode"):
         latents0 = _encode_latents(bundle, spec, img_pm1)  # [B, h, w, 4]
-    if warm_latents is not None:
-        a = warm_alpha[:, None, None, None]
-        latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
+    # the LCM scheduler's work between the models (warm start, ladders,
+    # noising, the conditioning embeddings, each step's update) has a range
+    # of its own, which the JAX program's scopes leave out: the trace by
+    # block places it there, not in (unmapped)
+    with record_function("scheduler"):
+        if warm_latents is not None:
+            a = warm_alpha[:, None, None, None]
+            latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
 
-    ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
+        ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
 
-    # forward-noise to the first VALID ladder step
-    alphas = bundle.alphas_cumprod
-    first_idx = valid.to(torch.int32).argmax(dim=1)
-    t_first = ts.gather(1, first_idx[:, None])[:, 0]
-    latents = add_noise(alphas, latents0, noise[0], t_first)
+        # forward-noise to the first VALID ladder step
+        alphas = bundle.alphas_cumprod
+        first_idx = valid.to(torch.int32).argmax(dim=1)
+        t_first = ts.gather(1, first_idx[:, None])[:, 0]
+        latents = add_noise(alphas, latents0, noise[0], t_first)
 
-    w_emb = None
-    if cfg.time_cond_proj_dim is not None:
-        w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
+        w_emb = None
+        if cfg.time_cond_proj_dim is not None:
+            w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
+        added_cond = _added_cond(bundle, spec, pooled)
     denoised = latents0
 
     cn_interval = max(1, int(spec.controlnet_interval))
@@ -578,9 +635,10 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         return s % k == 0 or (spec.interval_refresh_last and s == S - 1)
 
     for s in range(S):
-        t = ts[:, s]
-        t_prev = ts[:, s + 1] if s + 1 < S else t
-        x = _nchw(latents)
+        with record_function("scheduler"):
+            t = ts[:, s]
+            t_prev = ts[:, s + 1] if s + 1 < S else t
+            x = _nchw(latents)
         down_res = mid_res = None
         # the keep-window is all-or-nothing per step, so keep is 1 wherever
         # the ControlNet runs and the base-scale cache is used as it is
@@ -592,9 +650,11 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
                 with record_function("controlnet"):
                     cn_cache = models["controlnet"](
                         x, t, context, ctrl, conditioning_scale=cn_scale, timestep_cond=w_emb,
+                        added_cond_kwargs=added_cond,
                     )
             down_res, mid_res = cn_cache
-        unet_kw = dict(timestep_cond=w_emb, down_block_additional_residuals=down_res)
+        unet_kw = dict(timestep_cond=w_emb, down_block_additional_residuals=down_res,
+                       added_cond_kwargs=added_cond)
         with record_function("unet"):
             if deep_caches is not None:
                 # temporal reuse: shallow pass over the carried feature of step
@@ -611,13 +671,14 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
                 eps = unet(x, t, context, deep_feature=dc_cache, **unet_kw)
             else:
                 eps = unet(x, t, context, mid_block_additional_residual=mid_res, **unet_kw)
-        new_lat, new_den = step(
-            bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
-            noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
-        )
-        m = valid[:, s][:, None, None, None]
-        latents = torch.where(m, new_lat, latents)
-        denoised = torch.where(m, new_den, denoised)
+        with record_function("scheduler"):
+            new_lat, new_den = step(
+                bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
+                noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
+            )
+            m = valid[:, s][:, None, None, None]
+            latents = torch.where(m, new_lat, latents)
+            denoised = torch.where(m, new_den, denoised)
 
     with record_function("vae_decode"):
         out = _decode_latents(bundle, spec, denoised)
@@ -660,7 +721,9 @@ def frame_program(
     ``warm_latents`` [B, h, w, 4] with ``warm_alpha`` [B]: the encoded
     frame becomes ``(1-a)*encoded + a*warm`` (fp32 blend, cast back);
     ``a = 0`` leaves it unchanged.  ``deep_caches`` [B, S, h', w', c']
-    (``deepcache_temporal`` only): reuse mode.
+    (``deepcache_temporal`` only): reuse mode.  ``pooled_embeds`` [B, P]:
+    SDXL's pooled text embedding (the prompt encoder's second output),
+    required by an SDXL-family bundle and ignored by any other.
 
     Returns (images_u8 [B,H,W,3], denoised latents [B,h,w,4] in the bundle
     dtype), and in temporal produce mode (``deepcache_temporal`` without
@@ -811,7 +874,8 @@ class _Program:
             _stage(bucket.buffers, inputs, seed, self.spec.batch)
         outputs = bucket.run()
         self.last_launches = bucket.launches
-        return tuple(x.clone() for x in outputs)
+        with record_function("outputs"):
+            return tuple(x.clone() for x in outputs)
 
 
 class FrameProgram(_Program):
@@ -864,11 +928,18 @@ def build_frame_program(bundle: ModelBundle, spec: FrameSpec) -> FrameProgram:
 
 def build_prompt_encoder(bundle: ModelBundle):
     """``input_ids [B, 77] -> (context [B,77,D], pooled [B,D])`` on the
-    bundle's device."""
-    clip = bundle.models["clip"]
+    bundle's device.  An SDXL bundle encodes both towers: the context is
+    the concatenation of theirs (768 + 1280 = 2048 wide), the pooled output
+    tower 2's (projected)."""
+    clip, clip2 = bundle.models["clip"], bundle.models.get("clip2")
 
     @torch.inference_mode()
     def encode(input_ids):
-        return clip(torch.as_tensor(input_ids).to(bundle.device))
+        ids = torch.as_tensor(input_ids).to(bundle.device)
+        ctx, pooled = clip(ids)
+        if clip2 is not None:
+            ctx2, pooled = clip2(ids)
+            ctx = torch.cat([ctx, ctx2], dim=-1)
+        return ctx, pooled
 
     return encode

@@ -54,6 +54,8 @@ from videosd_tpu_torch.pipelines.lcm_img2img import (
     _nchw,
     _new_buffers,
     _per_element,
+    _added_cond,
+    _check_pooled,
     _Program,
     _stage,
 )
@@ -114,8 +116,6 @@ def _ref_inputs(bundle: ModelBundle, spec: FrameSpec, frame_u8, ref_u8, prompt_e
     """Check one call's inputs: ``{name: tensor or None}`` named and ordered
     as :func:`_reference_body`'s arguments (``noise`` holds the frame's
     S+1 rows and the reference's one, or None: drawn from the seeds)."""
-    if pooled_embeds is not None:
-        raise NotImplementedError("the reference program's pooled_embeds (SDXL) is not ported yet")
     B, S = spec.batch, spec.steps
     latent = (B, *_latent_hw(bundle, spec), 4)
     if (noise is None) != (ref_noise is None):
@@ -150,6 +150,7 @@ def _ref_inputs(bundle: ModelBundle, spec: FrameSpec, frame_u8, ref_u8, prompt_e
         "sf": sf,
         "noise": noise,
         **boxes,
+        "pooled": _check_pooled(bundle, B, pooled_embeds),
     }
 
 
@@ -160,7 +161,7 @@ def _to01(spec: FrameSpec, rgb, box):
 
 
 def _reference_body(bundle: ModelBundle, spec: FrameSpec, frame, ref, context, strength,
-                    guidance, sf, noise, src_box=None, ref_box=None):
+                    guidance, sf, noise, src_box=None, ref_box=None, pooled=None):
     """The device side of :func:`reference_frame_program`, capturable as
     ``lcm_img2img._frame_body`` is (no host sync, no host copy).  ``noise``
     is [S+2, B, h, w, 4]: the frame's S+1 rows, then the reference's."""
@@ -177,41 +178,48 @@ def _reference_body(bundle: ModelBundle, spec: FrameSpec, frame, ref, context, s
         latents0 = _encode_latents(bundle, spec, img_pm1)
         ref_lat0 = _encode_latents(bundle, spec, ref_pm1)
 
-    ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
-    first_idx = valid.to(torch.int32).argmax(dim=1)
-    t_first = ts.gather(1, first_idx[:, None])[:, 0]
-    latents = add_noise(alphas, latents0, noise[0], t_first)
-    ref_noise = noise[S + 1]  # one tensor, re-noised to every step's t
+    # the scheduler's work has a range of its own, as in the frame body
+    with record_function("scheduler"):
+        ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
+        first_idx = valid.to(torch.int32).argmax(dim=1)
+        t_first = ts.gather(1, first_idx[:, None])[:, 0]
+        latents = add_noise(alphas, latents0, noise[0], t_first)
+        ref_noise = noise[S + 1]  # one tensor, re-noised to every step's t
 
-    w_emb = None
-    if cfg.time_cond_proj_dim is not None:
-        w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
-    context = context.to(dtype)
-    sf_attn, sf_adain = (sf[:, 0], sf[:, 1]) if sf.ndim == 2 else (sf, sf)
+        w_emb = None
+        if cfg.time_cond_proj_dim is not None:
+            w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
+        context = context.to(dtype)
+        # SDXL's text_time conditioning, the same in both passes
+        added_cond = _added_cond(bundle, spec, pooled)
+        sf_attn, sf_adain = (sf[:, 0], sf[:, 1]) if sf.ndim == 2 else (sf, sf)
     denoised = latents0
 
     for s in range(S):
-        t = ts[:, s]
-        t_prev = ts[:, s + 1] if s + 1 < S else t
-        ref_xt = add_noise(alphas, ref_lat0, ref_noise, t)
+        with record_function("scheduler"):
+            t = ts[:, s]
+            t_prev = ts[:, s + 1] if s + 1 < S else t
+            ref_xt = add_noise(alphas, ref_lat0, ref_noise, t)
         # WRITE pass: bank the self-attention tokens and the statistics
         bank_out: list = []
         adain_w = AdainBank("write")
         with record_function("unet"):
             unet(_nchw(ref_xt), t, context, timestep_cond=w_emb, bank_out=bank_out,
-                 adain=adain_w)
+                 adain=adain_w, added_cond_kwargs=added_cond)
             # READ pass on the frame's latents
             bank = BankReader([b.to(dtype) for b in bank_out], fidelity=sf_attn[:, None, None])
             adain_r = AdainBank("read", stats=adain_w.stats,
                                 fidelity=sf_adain[:, None, None, None])
-            eps = unet(_nchw(latents), t, context, timestep_cond=w_emb, bank=bank, adain=adain_r)
-        new_lat, new_den = step(
-            bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
-            noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
-        )
-        m = valid[:, s][:, None, None, None]
-        latents = torch.where(m, new_lat, latents)
-        denoised = torch.where(m, new_den, denoised)
+            eps = unet(_nchw(latents), t, context, timestep_cond=w_emb, bank=bank, adain=adain_r,
+                       added_cond_kwargs=added_cond)
+        with record_function("scheduler"):
+            new_lat, new_den = step(
+                bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
+                noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
+            )
+            m = valid[:, s][:, None, None, None]
+            latents = torch.where(m, new_lat, latents)
+            denoised = torch.where(m, new_den, denoised)
 
     with record_function("vae_decode"):
         out = _decode_latents(bundle, spec, denoised)
@@ -231,7 +239,8 @@ def reference_frame_program(bundle: ModelBundle, spec: FrameSpec, frame_u8, ref_
     reference; ``src_box``/``ref_box`` optional [B, 4] (top, left, height,
     width) extents of the camera frame and of the reference inside their
     frames, resized by ``crop_resize``.  ``style_fidelity`` [B] or [B, 2].
-    No ControlNet runs in this mode.  Returns (images_u8 [B,H,W,3],
+    ``pooled_embeds`` [B, P]: SDXL's, required by an SDXL-family bundle and
+    ignored by any other.  No ControlNet runs in this mode.  Returns (images_u8 [B,H,W,3],
     denoised latents [B,h,w,4] in the bundle dtype).
     """
     _check_ref_spec(bundle, spec)

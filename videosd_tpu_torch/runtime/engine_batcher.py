@@ -81,20 +81,22 @@ class BatcherMixin:
         self._dispatch_threads[name] = self._dispatch_threads.get(name, 0) + 1
 
         dev = self.bundle.device
-        if isinstance(embeds, (list, tuple)):
-            embeds = torch.cat([torch.as_tensor(e).to(dev) for e in embeds], dim=0)
-        if isinstance(pooled_embeds, (list, tuple)):
-            pooled_embeds = torch.cat([torch.as_tensor(e).to(dev) for e in pooled_embeds])
-        if isinstance(warm_latents, (list, tuple)):
-            from videosd_tpu_torch.pipelines.lcm_img2img import _latent_hw
+        # the batch's assembly is staging, and the trace by block says so
+        with torch.profiler.record_function("stage"):
+            if isinstance(embeds, (list, tuple)):
+                embeds = torch.cat([torch.as_tensor(e).to(dev) for e in embeds], dim=0)
+            if isinstance(pooled_embeds, (list, tuple)):
+                pooled_embeds = torch.cat([torch.as_tensor(e).to(dev) for e in pooled_embeds])
+            if isinstance(warm_latents, (list, tuple)):
+                from videosd_tpu_torch.pipelines.lcm_img2img import _latent_hw
 
-            zero = torch.zeros((*_latent_hw(self.bundle, spec), 4), dtype=torch.float32,
-                               device=dev)
-            warm_latents = torch.stack(
-                [zero if r is None else r.to(dev, torch.float32) for r in warm_latents]
-            )
-        if isinstance(deep_caches, (list, tuple)):
-            deep_caches = torch.stack(deep_caches)
+                zero = torch.zeros((*_latent_hw(self.bundle, spec), 4), dtype=torch.float32,
+                                   device=dev)
+                warm_latents = torch.stack(
+                    [zero if r is None else r.to(dev, torch.float32) for r in warm_latents]
+                )
+            if isinstance(deep_caches, (list, tuple)):
+                deep_caches = torch.stack(deep_caches)
         prog = self._get_program(spec, ref_mode=ref_mode)
         key = (spec, ref_mode)
         kwargs = {}
@@ -559,7 +561,10 @@ class BatcherMixin:
                 # discarded outputs
                 deep_rows_in = [st.deep_rows for st, _buf, _ts in items]
                 deep_rows_in.extend([deep_rows_in[-1]] * (b - len(items)))
-        pooled = None  # SDXL's pooled embeds: not ported yet
+        pooled = None
+        if self.bundle.clip2_cfg is not None:
+            # SDXL text_time micro-conditioning consumes the pooled embeds
+            pooled = [p for _, p in emb_list]
 
         self.telemetry.stages.record("pack", time.perf_counter() - t_pack)
         self.queue.mark_gen_start()

@@ -200,7 +200,10 @@ class WarmupMixin:
     def _dummy_batch(self, spec):
         b = spec.batch
         frames = np.zeros((b, *self._mailbox_shape()), np.uint8)
-        emb, _ = self._encode_prompt("warmup")
+        emb, pooled1 = self._encode_prompt("warmup")
+        pooled = None
+        if self.bundle.clip2_cfg is not None:
+            pooled = torch.cat([pooled1] * b, dim=0)
         return (
             frames,
             torch.cat([emb] * b, dim=0),
@@ -208,5 +211,5 @@ class WarmupMixin:
             np.full((b,), 5.0, np.float32),
             np.full((b,), 2.0, np.float32),
             np.arange(b, dtype=np.int32),
-            None,  # pooled embeds: SDXL's, not ported yet
+            pooled,
         )
