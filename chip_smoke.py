@@ -136,6 +136,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    K1' at the main path's three shapes in bf16 and fp32 (its output held to
    K1's bars, dq/dk/dv to autograd through the plain version), its forward
    + backward timed beside its bound, the plain version's and SDPA's;
+6g. LoRA and int8 w8a8 (``io/lora.py``, ``ops/quant.py``, ``models/layers.py::
+   LinearW8A8``): (a) a rank-8 PEFT file over every UNet attention
+   projection and feed-forward and a kohya file over the text tower, both
+   from seeded random tensors, fused on the card into a copy of the
+   phase-5 bundle, the fused state dicts equal to the same fusion on the
+   CPU bit for bit, its frame replayed equal to eager with 84 K1 launches;
+   (b) ``quant: int8`` on that bundle: the quantized-linear counts, 440
+   ``torch._int_mm`` and 84 K1 launches per frame at capture, replay equal
+   to eager, ms/frame beside the bf16 frame in alternating turns, UNet +
+   ControlNet weight bytes and peak memory int8 beside bf16, the int8
+   frame's PSNR against the bf16 frame, ``_int_mm``'s device time per
+   frame, and three quantized linears at the frame's shapes whose int32
+   products equal the CPU's bit for bit; (c) an ``Engine`` with ``lora:``
+   and ``quant: int8`` serving one stream, its reply equal to a direct
+   ``build_frame_program`` call on a bundle fused and quantized the same
+   way, ``swap_params`` with the plain base state dicts keeping the
+   reply, ``stats()`` showing both; (d) the SDXL 1024x1024 frame without
+   the ControlNet in int8 beside phase 6f's bf16 frame; (e) the tools
+   (``flicker``, ``temporal_gate``, ``ref_gate``, ``taesd_ab``, ``soak``)
+   each in a process of its own, their identity rows held;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
@@ -210,6 +230,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from videosd_tpu_torch import _build, bench  # noqa: E402
 from videosd_tpu_torch.models import layers  # noqa: E402
+from videosd_tpu_torch.models import unet as unet_mod  # noqa: E402
 from videosd_tpu_torch.models.taesd import taesd_decode, taesd_encode  # noqa: E402
 from videosd_tpu_torch.models.vae import vae_decode, vae_encode  # noqa: E402
 from videosd_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
@@ -222,7 +243,8 @@ from videosd_tpu_torch.ops.preprocess import (  # noqa: E402
     i420_to_rgb255,
     rgb_to_i420_host,
 )
-from videosd_tpu_torch.ops.sobel import sobel_control_image  # noqa: E402
+from videosd_tpu_torch.io.safetensors import write_safetensors  # noqa: E402
+from videosd_tpu_torch.ops.sobel import div_rn, sobel_control_image  # noqa: E402
 from videosd_tpu_torch.ops.tiling import tiled_decode  # noqa: E402
 from videosd_tpu_torch.pipelines.lcm_img2img import (  # noqa: E402
     FrameSpec,
@@ -382,6 +404,75 @@ SDXL_FRAMES, SDXL_SIDE = 8, 1024
 SDXL_PROD_ARGS = ["videosd_tpu_torch.tools.sdxl_prod", "--size", "1024", "--steps", "4",
                   "--frames", "4"]
 SDXL_PROD_S = 300
+# phase 6g: LoRA and int8 w8a8 on the serving paths.  The adapters: rank 8,
+# a PEFT file over every UNet attention projection and feed-forward (16
+# transformer blocks x 10 modules) at scale 0.8, its halves drawn with the
+# standard deviations LORA_UNET_STD (down, up), and a kohya file over every
+# projection of the text tower (12 layers x 6, alpha 4, both halves 0.02)
+# at scale 1
+LORA_RANK, LORA_SCALES = 8, (0.8, 1.0)
+LORA_UNET_STD = (0.02, 0.1)
+LORA_UNET = re.compile(r"\.(attn[12]\.to_(q|k|v|out\.0)|ff\.net\.(0\.proj|2))\.weight$")
+LORA_CLIP = re.compile(r"\.(self_attn\.(q|k|v|out)_proj|mlp\.fc[12])\.weight$")
+LORA_UNET_MODULES, LORA_CLIP_MODULES = 160, 72
+# quant: int8 at the default policy (JAX's counts, tests/test_torch_port_quant.py):
+# the ff pair of all 16 UNet blocks and the six attention projections of the
+# 11 blocks of 640 channels or more; the ControlNet's 7 and 5
+INT8_SD15_COUNTS = {"unet": {"quantized_linears": 98, "plain_linears": 87},
+                    "controlnet": {"quantized_linears": 44, "plain_linears": 39}}
+# torch._int_mm calls per sd15 512^2 4-step CN frame: a block of 640 channels
+# or more makes 6 (fused qkv, to_out, the cross-attention's to_q and to_out,
+# ff proj and out), a 320 one 2 (ff); UNet 5 x 2 + 11 x 6 = 76, ControlNet
+# 2 x 2 + 5 x 6 = 34, each step.  SDXL without the ControlNet: 70 blocks, all
+# of 640 channels or more
+INT_MM_SD15, INT_MM_SDXL = 4 * (76 + 34), 4 * 70 * 6
+# The UNet adapters held on their own: the fused UNet's noise prediction
+# against the base UNet's on the same inputs (the base prompt embeddings,
+# so the text-tower adapters cannot move it; nor can they move the frame,
+# which takes the embeddings as an input), relative L2 at least
+# LORA_EPS_REL_MIN, and the LoRA frame at most LORA_PSNR_MAX_DB from the
+# base frame.  Readings on an H100 (PERF.md): 0.1398 and 55.88 dB;
+# 0 and inf without the UNet adapters; the phase also reads the UNet file
+# fused at half its scale, which must fall below the bar
+LORA_EPS_REL_MIN, LORA_PSNR_MAX_DB = 0.1, 60.0
+# int8 against bf16 on the same LoRA weights: the noise prediction within
+# INT8_EPS_REL_MAX relative L2 and the frame above INT8_PSNR_DB, and the
+# int8 UNet bit for bit its w8a8 linears in plain PyTorch (_w8a8_plain).
+# Readings: sound 1.475e-2 and 64.46 dB; with each fault of W8A8_FAULTS
+# patched in, which the phase reads again every run: 1.763e-2 and 64.12 dB,
+# 1.485e-2 and 64.49 dB (within the noise: only the bit-for-bit check
+# sees it), 2.340e-2 and 63.27 dB, 4.228e-2 and 61.37 dB
+INT8_EPS_REL_MAX, INT8_PSNR_DB = 1.6e-2, 62.0
+W8A8_FAULTS = ("the scale over the first token", "the scale over the first 64 channels",
+               "codes truncated", "the weight scales reversed")
+# the eager bf16 and int8 frames in alternating turns of this many frames each
+INT8_TURNS, INT8_TURN_FRAMES = 4, 5
+# the tools, each a process of its own: on the sd15 random bundle at 512^2
+# with few frames, one at a time: flicker, taesd_ab, ref_gate's frames/s,
+# and a 1-minute soak of 2 streams; beside the soak, at once, the two gates
+# on the committed toy checkpoint at 64^2 (for their identity rows only:
+# they time nothing)
+TOY_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "toy_tiny_ckpt")
+TOOL_RUNS_TOY = {
+    "temporal_gate": ["videosd_tpu_torch.tools.temporal_gate", "--weights", TOY_CKPT, "--size",
+                      "64", "--frames", "24", "--every", "2", "4", "8"],
+    "ref_gate": ["videosd_tpu_torch.tools.ref_gate", "--weights", TOY_CKPT, "--size", "64",
+                 "--frames", "24", "--sf", "0", "0.5", "1", "--no-fps"],
+}
+TOOL_RUNS_CARD = {
+    "flicker": ["videosd_tpu_torch.tools.flicker", "--family", "sd15", "--size", "512",
+                "--frames", "6"],
+    "taesd_ab": ["videosd_tpu_torch.tools.taesd_ab", "--size", "512", "--pairs", "2",
+                 "--frames", "10", "--variants", "unpacked,packed,pallas"],
+    "ref_gate_fps": ["videosd_tpu_torch.tools.ref_gate", "--family", "sd15", "--size", "512",
+                     "--fps-only"],
+    "soak": ["videosd_tpu_torch.tools.soak", "--minutes", "1", "--streams", "2", "--family",
+             "sd15", "--size", "512", "--sample-every", "10"],
+}
+TOOL_S = 300
+# taesd_ab's routes against the unpacked one: the packed and K3 routes sum
+# in other orders (phase 6's taesd_pallas frame measured 64.92 dB)
+TAESD_AB_PSNR_DB = 40.0
 # K1 launches per sd15 512^2 4-step CN + KL frame: the 84 routed attentions of
 # the UNet and ControlNet, and the VAE's mid attention (d = 512) in encode and
 # decode on the wide kernel
@@ -946,9 +1037,9 @@ def phase_tiny() -> int:
 
 
 def _zero_counts() -> None:
-    """Sets every kernel wrapper's launch count to 0."""
+    """Sets every kernel wrapper's launch count (and the int8 products') to 0."""
     fa.launches = fa.launches_fp32 = fa.launches_wide = fa.launches_wide_fp32 = 0
-    k2.launches = k3.launches = k3.launches_fp32 = 0
+    k2.launches = k3.launches = k3.launches_fp32 = layers.int_mm_launches = 0
 
 
 def phase_tiny_kl() -> int:
@@ -2895,6 +2986,15 @@ def phase_sdxl_profile(card: str, sdxl: dict) -> None:
                     sdxl["replay_ms"], {"flash_fwd_kernel": K1_SDXL_PER_FRAME[False]})
 
 
+def phase_sdxl_int8_profile(card: str, int8: dict) -> None:
+    """The same over two replayed SDXL 1024x1024 int8 w8a8 frames (6g d):
+    K1's 280, and where the time int8 adds goes, class by class beside
+    the bf16 frame's profile above."""
+    program, (args, kw) = int8["program"], int8["call"]
+    _profile_frames(card, "SDXL 1024x1024 int8 w8a8", lambda: program(*args, **kw),
+                    int8["replay_ms"], {"flash_fwd_kernel": K1_SDXL_PER_FRAME[False]})
+
+
 def phase_ref_profile(card: str, ref: dict) -> None:
     """The same over two replayed reference frames: K1's 180 (60 banked)."""
     _profile_frames(card, "reference-mode", ref["call"], ref["replay_ms"],
@@ -3215,6 +3315,536 @@ def phase_toy(card: str) -> dict:
     return {"report": report, "ladder": ladder}
 
 
+# ------------------------------------------------------------ 6g: LoRA, int8, tools
+
+
+def _weight_bytes(*models) -> int:
+    return sum(t.numel() * t.element_size() for m in models
+               for t in list(m.parameters()) + list(m.buffers()))
+
+
+def _write_loras(bundle, tmp: str) -> list:
+    """The phase's two adapters from seeded random tensors: a rank-8 PEFT
+    file over every UNet attention projection and feed-forward, and a
+    rank-8 kohya file (alpha 4) over every projection of the text tower.
+    Returns the config's ``[(path, scale), ...]``."""
+    rng = np.random.default_rng(31)
+
+    def halves(w, std=(0.02, 0.02)):
+        out_dim, in_dim = w.shape
+        return ((rng.standard_normal((LORA_RANK, in_dim)) * std[0]).astype(np.float32),
+                (rng.standard_normal((out_dim, LORA_RANK)) * std[1]).astype(np.float32))
+
+    peft, kohya = {}, {}
+    for key, w in bundle.models["unet"].state_dict().items():
+        if LORA_UNET.search(key):
+            m = key[: -len(".weight")]
+            peft[f"unet.{m}.lora_A.weight"], peft[f"unet.{m}.lora_B.weight"] = halves(
+                w, LORA_UNET_STD)
+    for key, w in bundle.models["clip"].state_dict().items():
+        if LORA_CLIP.search(key):
+            m = "lora_te_" + key[: -len(".weight")].replace(".", "_")
+            kohya[f"{m}.lora_down.weight"], kohya[f"{m}.lora_up.weight"] = halves(w)
+            kohya[f"{m}.alpha"] = np.asarray(4.0, np.float32)
+    paths = [os.path.join(tmp, "unet_peft.safetensors"), os.path.join(tmp, "te_kohya.safetensors")]
+    write_safetensors(paths[0], peft)
+    write_safetensors(paths[1], kohya)
+    print(f"LoRA files: {len(peft) // 2} UNet modules (PEFT), {len(kohya) // 3} text-tower "
+          f"modules (kohya, alpha 4), rank {LORA_RANK}")
+    return list(zip(paths, LORA_SCALES))
+
+
+def _copy_bundle(bundle):
+    """A second bundle with ``bundle``'s weights (so the phase-5 bundle that
+    later phases and profiles use stays as it is)."""
+    return ModelBundle.from_state_dicts(
+        bundle.family, {n: m.state_dict() for n, m in bundle.models.items()},
+        dtype=bundle.dtype, device="cuda")
+
+
+def _unet_eps(bundle, embeds):
+    """The bundle's UNet alone on fixed inputs (phase 5's UNet call: a
+    seeded latent, t = 519, guidance 5, ``embeds``): its noise prediction
+    in fp32."""
+    x = torch.randn(1, 4, 64, 64, generator=torch.Generator("cuda").manual_seed(3),
+                    device="cuda").bfloat16()
+    w = layers.guidance_embedding(torch.tensor([5.0], device="cuda"), 256).bfloat16()
+    with torch.inference_mode():
+        return bundle.models["unet"](x, torch.tensor([519], device="cuda"), embeds,
+                                     timestep_cond=w).float()
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _w8a8_plain(x, w8, sw, bias=None, fault=None):
+    """``linear_w8a8``'s function in plain PyTorch: the scale over the whole
+    input and the codes as JAX takes them, their product in fp64 in place of
+    ``torch._int_mm`` (exact: every sum is an integer below 2**53), then the
+    same epilogue; bit for bit the int8 route where that route is sound.
+    ``fault``, one of W8A8_FAULTS, breaks it on purpose."""
+    n, k = w8.shape
+    xf = x.float()
+    over = {W8A8_FAULTS[0]: xf.reshape(-1, k)[:1], W8A8_FAULTS[1]: xf[..., :64]}.get(fault, xf)
+    sx = div_rn(torch.clamp_min(over.abs().amax(), 1e-6), 127.0)
+    rnd = torch.trunc if fault == W8A8_FAULTS[2] else torch.round
+    xq = torch.clamp(rnd(xf / sx), -127, 127).reshape(-1, k)
+    sw = sw.flip(0) if fault == W8A8_FAULTS[3] else sw
+    y = (xq.double() @ w8.double().t()).float() * (sw * sx)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+@contextlib.contextmanager
+def _plain_w8a8(fault=None):
+    """Every w8a8 linear on :func:`_w8a8_plain` (with ``fault``) inside."""
+    routed = layers.linear_w8a8, unet_mod.linear_w8a8
+    layers.linear_w8a8 = unet_mod.linear_w8a8 = (
+        lambda x, w8, sw, bias=None: _w8a8_plain(x, w8, sw, bias, fault))
+    try:
+        yield
+    finally:
+        layers.linear_w8a8, unet_mod.linear_w8a8 = routed
+
+
+def _int8_parts(x, w8):
+    """The activation codes and the int32 product of ``linear_w8a8``'s first
+    steps, on x's device."""
+    xf = x.float()
+    sx = div_rn(torch.clamp_min(xf.abs().amax(), 1e-6), 127.0)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8).reshape(-1, w8.shape[1])
+    return xq, torch._int_mm(xq, w8.t())
+
+
+def _int8_layers_on_card(unet) -> None:
+    """Three quantized linears of the frame at its real shapes, the card
+    against the CPU on the same bf16 input: the activation codes and the
+    int32 product of ``torch._int_mm`` equal bit for bit, and the layer's
+    bf16 output within one bf16 ulp of the CPU's fp32 chain."""
+    blocks = [unet.down_blocks[i].attentions[0].transformer_blocks[0] for i in range(3)]
+    a1 = blocks[1].attn1
+    cases = [
+        ("ff.net.0.proj at 4096 tokens", 4096, blocks[0].ff.net[0].proj.w8,
+         blocks[0].ff.net[0].proj.sw, blocks[0].ff.net[0].proj.bias),
+        ("fused to_q|to_k|to_v at 1024 tokens", 1024,
+         torch.cat([a1.to_q.w8, a1.to_k.w8, a1.to_v.w8]),
+         torch.cat([a1.to_q.sw, a1.to_k.sw, a1.to_v.sw]), None),
+        ("attn1.to_out.0 at 256 tokens", 256, blocks[2].attn1.to_out[0].w8,
+         blocks[2].attn1.to_out[0].sw, blocks[2].attn1.to_out[0].bias),
+    ]
+    gen = torch.Generator("cuda").manual_seed(41)
+    for name, tokens, w8, sw, bias in cases:
+        x = torch.randn(1, tokens, w8.shape[1], generator=gen, device="cuda").bfloat16()
+        xq, prod = _int8_parts(x, w8)
+        xq_cpu, prod_cpu = _int8_parts(x.cpu(), w8.cpu())
+        y = layers.linear_w8a8(x, w8, sw, bias)
+        want = layers.linear_w8a8(x.cpu().float(), w8.cpu(), sw.cpu(),
+                                  None if bias is None else bias.cpu())
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        over = int(((y.float().cpu() - want).abs() > ulp).sum())
+        same = torch.equal(xq.cpu(), xq_cpu) and torch.equal(prod.cpu(), prod_cpu)
+        print(f"int8 linear {name} ({tuple(x.shape)} x [{w8.shape[1]}, {w8.shape[0]}]): codes "
+              f"and int32 product equal to the CPU's bit for bit: {same}; bf16 output "
+              f"elements more than one bf16 ulp from the CPU's fp32 chain: {over}")
+        if not same or over:
+            fail(f"the int8 linear {name} on the card disagrees with the CPU")
+
+
+def _int_mm_device_ms(program, call) -> tuple[float, float, int]:
+    """The int8 products of one frame of ``program``: their shapes recorded
+    through one eager frame, each shape's ``torch._int_mm`` timed with CUDA
+    events and summed over its calls, beside one bf16 matmul of each shape.
+    Returns (int8 ms per frame, bf16 ms at the same shapes, calls)."""
+    shapes = collections.Counter()
+    int_mm = torch._int_mm
+
+    def record(a, b):
+        shapes[(a.shape[0], a.shape[1], b.shape[1])] += 1
+        return int_mm(a, b)
+
+    torch._int_mm = record
+    try:
+        frame_program(program.bundle, program.spec, *call[0], **call[1])
+    finally:
+        torch._int_mm = int_mm
+    torch.cuda.synchronize()
+    int8 = bf16 = 0.0
+    for (m, k, n), count in shapes.items():
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+        b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda")
+        int8 += count * cuda_ms(lambda: torch._int_mm(a, b.t()), iters=50)
+        a16, b16 = a.bfloat16(), b.bfloat16()
+        bf16 += count * cuda_ms(lambda: torch.matmul(a16, b16.t()), iters=50)
+    return int8, bf16, sum(shapes.values())
+
+
+def _frame_in_turns(programs: dict, call, turns: int = INT8_TURNS,
+                    frames: int = INT8_TURN_FRAMES) -> dict:
+    """Blocking replayed frames of each program in alternating turns: the
+    median ms per frame of each over all turns."""
+    ms = {name: [] for name in programs}
+    for turn in range(turns):
+        order = list(programs) if turn % 2 == 0 else list(reversed(programs))
+        for name in order:
+            for i in range(frames):
+                t0 = time.perf_counter()
+                programs[name](*call[0][:-1], [60 + i], **call[1])
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in ms.items()}
+
+
+def _captured(program, call) -> float:
+    """The program's first call (its warm-up and capture) from counts of 0;
+    returns the bytes it allocated at its peak above what was allocated
+    before it (the activations' working set and the graph's pool)."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    program(*call[0], **call[1])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def _w8a8_fault_readings(bundle, spec, call, embeds, bf16: tuple, int8, bar: float) -> None:
+    """The int8 bars against a deliberately broken w8a8 linear: for each
+    fault of W8A8_FAULTS patched into every quantized linear, the UNet's
+    noise prediction and the eager frame against bf16's (``bf16``: the
+    prediction and the image), and which checks catch it; each fault must
+    be caught (by the bit-for-bit check against ``int8``, the sound
+    prediction, at the least)."""
+    for fault in W8A8_FAULTS:
+        with _plain_w8a8(fault):
+            eps = _unet_eps(bundle, embeds)
+            img = frame_program(bundle, spec, *call[0], **call[1])[0]
+        rel, psnr = _rel_l2(eps, bf16[0]), _psnr(img, bf16[1])
+        caught = [name for name, hit in (
+            ("bit for bit", (eps - int8).abs().max().item() > bar),
+            ("rel L2", rel > INT8_EPS_REL_MAX), ("PSNR", psnr <= INT8_PSNR_DB)) if hit]
+        print(f"int8 with a fault, {fault}: the UNet's noise prediction rel L2 {rel:.4e}, the "
+              f"frame PSNR {psnr:.2f} dB against bf16; caught by {caught or 'nothing'}")
+        if not caught:
+            fail(f"no int8 check catches a w8a8 linear with {fault}")
+
+
+def phase_lora_int8(card: str, main, tmp: str) -> dict:
+    """6g (a) and (b): LoRA on a copy of the phase-5 bundle, fused on the
+    card and equal to the CPU's fusion bit for bit, its frame replayed equal
+    to eager with 84 K1 launches, the UNet adapters' move of the UNet's
+    noise prediction and of the frame held to their bars; then ``quant:
+    int8`` on it: the quantized linears, ``_int_mm`` and K1 launches per
+    frame at capture, replay equal to eager, the int8 UNet and frame against
+    bf16 within their bars and the int8 UNet equal to its plain w8a8
+    version, ms/frame beside the bf16 frame in turns, weight bytes and the
+    capture's memory, the int8 products' device time per frame, and three
+    linears held to the CPU."""
+    from videosd_tpu_torch.io.lora import fuse_bundle_loras, fuse_state_dict_loras
+    from videosd_tpu_torch.ops.quant import quant_stats, quantize_bundle_params
+
+    bundle0, embeds, frame, args, _, program0 = main
+    loras = _write_loras(bundle0, tmp)
+    eps_base = _unet_eps(bundle0, embeds)
+    bundle = _copy_bundle(bundle0)
+    t0 = time.perf_counter()
+    stats = fuse_bundle_loras(bundle, loras, strict=True)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    on_cpu = {n: {k: v.cpu() for k, v in bundle0.models[n].state_dict().items()}
+              for n in ("unet", "clip")}
+    want, _ = fuse_state_dict_loras(bundle0, on_cpu, loras, strict=True)
+    diff = [f"{n}.{k}" for n in want for k, v in bundle.models[n].state_dict().items()
+            if not torch.equal(v.cpu(), want[n][k])]
+    changed = sum(not torch.equal(want[n][k], on_cpu[n][k]) for n in want for k in want[n])
+    print(f"LoRA fused on {card} in {fuse_s:.2f} s: {stats} modules per tower, {changed} "
+          f"weights changed; fused state dicts equal to the CPU's fusion bit for bit: "
+          f"{not diff}" + (f" (first differing: {diff[:3]})" if diff else ""))
+    if diff or stats != {"unet": LORA_UNET_MODULES, "text_encoder": LORA_CLIP_MODULES}:
+        fail("the LoRA fusion on the card differs from the CPU's, or fused other modules")
+
+    spec = FrameSpec(batch=1, height=512, width=512, steps=4)
+    calls = [((frame, embeds, *args[:3], [23 + i]), {}) for i in range(2)]
+    res = {"launches": 0}
+    mem = {}
+    lora_program = build_frame_program(bundle, spec)
+    mem["bf16"] = _captured(lora_program, calls[0])
+    counted = {}
+    lora_out = _replay_vs_eager("sd15 512x512 4-step CN+TAESD bf16 with LoRA", lora_program,
+                                calls, {"flash_attention": K1_PER_FRAME, "int_mm": 0}, counted)
+    res["launches"] += counted["flash_attention"]
+    base_out = program0(*calls[0][0])
+    lora_psnr = _psnr(lora_out[0][0], base_out[0])
+    eps_lora = _unet_eps(bundle, embeds)
+    lora_rel = _rel_l2(eps_lora, eps_base)
+    half = _copy_bundle(bundle0)
+    fuse_bundle_loras(half, [(loras[0][0], loras[0][1] / 2)], strict=True)
+    half_rel = _rel_l2(_unet_eps(half, embeds), eps_base)
+    del half
+    print(f"LoRA against the base: the UNet alone (base prompt embeddings) noise prediction "
+          f"rel L2 {lora_rel:.4e} (bar >= {LORA_EPS_REL_MIN:g}; the UNet file fused at half "
+          f"its scale {half_rel:.4e}); the frame (same inputs) PSNR {lora_psnr:.2f} dB (bar "
+          f"<= {LORA_PSNR_MAX_DB:g})")
+    if not (lora_rel >= LORA_EPS_REL_MIN > half_rel and lora_psnr <= LORA_PSNR_MAX_DB):
+        fail("the UNet adapters did not move the UNet's prediction, the bar does not tell "
+             "them from half their scale, or the LoRA frame did not move off the base frame")
+    del lora_program
+
+    bf16_bytes = _weight_bytes(bundle.models["unet"], bundle.models["controlnet"])
+    quantize_bundle_params(bundle)
+    torch.cuda.empty_cache()
+    int8_bytes = _weight_bytes(bundle.models["unet"], bundle.models["controlnet"])
+    counts = {n: quant_stats(bundle.models[n]) for n in ("unet", "controlnet")}
+    print(f"int8 w8a8: {counts}; UNet + ControlNet weights {bf16_bytes / 2**30:.3f} GiB bf16, "
+          f"{int8_bytes / 2**30:.3f} GiB int8")
+    if counts != INT8_SD15_COUNTS:
+        fail(f"quant: int8 quantized {counts}, expected {INT8_SD15_COUNTS}")
+    int8_program = build_frame_program(bundle, spec)
+    mem["int8"] = _captured(int8_program, calls[0])
+    counted = {}
+    int8_out = _replay_vs_eager("sd15 512x512 4-step CN+TAESD int8 w8a8 with LoRA",
+                                int8_program, calls,
+                                {"flash_attention": K1_PER_FRAME, "int_mm": INT_MM_SD15}, counted)
+    res["launches"] += counted["flash_attention"]
+    int8_psnr = _psnr(int8_out[0][0], lora_out[0][0])
+    eps_int8 = _unet_eps(bundle, embeds)
+    int8_rel = _rel_l2(eps_int8, eps_lora)
+    again = _unet_eps(bundle, embeds)
+    with _plain_w8a8():
+        eps_plain = _unet_eps(bundle, embeds)
+    stable = torch.equal(again, eps_int8)
+    bar = 0.0 if stable else (again - eps_int8).abs().max().item()
+    plain_d = (eps_plain - eps_int8).abs().max().item()
+    print(f"int8 against bf16 on the same LoRA weights: the UNet's noise prediction rel L2 "
+          f"{int8_rel:.4e} (bar <= {INT8_EPS_REL_MAX:g}); the frame PSNR {int8_psnr:.2f} dB "
+          f"(bar > {INT8_PSNR_DB:g}); the int8 UNet against its w8a8 linears in plain PyTorch "
+          f"(fp64 products): max|d| {plain_d:.3e} (bar {bar:.3e}: the int8 UNet "
+          f"{'equal to itself' if stable else 'against itself'})")
+    if not (int8_rel <= INT8_EPS_REL_MAX and math.isfinite(int8_psnr)
+            and int8_psnr > INT8_PSNR_DB and plain_d <= bar):
+        fail("the int8 UNet or frame is further from bf16 than the bars, or the int8 UNet "
+             "differs from its plain w8a8 version")
+    _w8a8_fault_readings(bundle, spec, calls[0], embeds, (eps_lora, lora_out[0][0]), eps_int8,
+                         bar)
+    ms = _frame_in_turns({"bf16": program0, "int8": int8_program}, calls[0])
+    int_mm_ms, bf16_mm_ms, mm_calls = _int_mm_device_ms(int8_program, calls[0])
+    print(f"sd15 512x512 4-step CN+TAESD on {card}, replayed in {INT8_TURNS} alternating turns of "
+          f"{INT8_TURN_FRAMES}: bf16 {ms['bf16']:.2f} ms/frame, int8 w8a8 {ms['int8']:.2f} "
+          f"ms/frame; the first call's peak above what was allocated before it (warm-up, "
+          f"capture, the graph's pool) bf16 {mem['bf16'] / 2**30:.3f} GiB, int8 "
+          f"{mem['int8'] / 2**30:.3f} GiB; torch._int_mm {mm_calls} calls/frame, "
+          f"{int_mm_ms:.3f} ms of device time per frame (each shape timed alone with CUDA "
+          f"events), {100 * int_mm_ms / ms['int8']:.1f} % of the int8 frame; bf16 matmuls of the "
+          f"same shapes {bf16_mm_ms:.3f} ms")
+    _int8_layers_on_card(bundle.models["unet"])
+    res.update(bundle=bundle, loras=loras, ms=ms, int_mm_ms=int_mm_ms, bf16_mm_ms=bf16_mm_ms,
+               mm_calls=mm_calls, bytes={"bf16": bf16_bytes, "int8": int8_bytes}, mem=mem,
+               psnr=int8_psnr, int8_rel=int8_rel, lora_rel=lora_rel, lora_psnr=lora_psnr)
+    del int8_program
+    return res
+
+
+def phase_engine_lora_int8(card: str, main, g: dict, tmp: str) -> int:
+    """6g (c): an ``Engine`` from a config with ``lora:`` (the two files)
+    and ``quant: int8`` serving one 512x512 stream: its reply equal to a
+    direct ``build_frame_program`` call on the phase's bundle (fused and
+    quantized the same way) bit for bit; ``swap_params`` with the plain
+    base state dicts re-fuses and re-quantizes, and the next reply equals
+    the one before; ``stats()`` shows both.  Returns its K1 launches
+    (warm-ups and captures, counted from 0 just before; each graph holds
+    INT_MM_SD15 ``_int_mm`` launches for its K1_PER_FRAME)."""
+    import asyncio
+    import gc
+
+    from videosd_tpu_torch.config import load_config
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    _zero_counts()
+    path = os.path.join(tmp, "config.yaml")
+    with open(path, "w") as f:
+        f.write("family: sd15\ndtype: bfloat16\nweights: random\nframe_hw: [512, 512]\n"
+                "quant: int8\nlora:\n" + "".join(f"  - {{path: {p}, scale: {s}}}\n"
+                                                 for p, s in g["loras"]))
+    eng = Engine(load_config(path), max_streams=1, max_batch=1)
+    eng.warmup(batch_sizes=(1,), steps=(4,), height=512, width=512)
+    frame = np.random.default_rng(19).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+
+    async def serve(st, n):
+        return [await asyncio.wait_for(eng.submit_frame(st.stream_id, frame), 120)
+                for _ in range(n)]
+
+    async def run():
+        eng.start()
+        try:
+            st = eng.open_stream({"height": 512, "width": 512, "prompt": "a fox"})
+            before = await serve(st, 3)
+            eng.swap_params({n: m.state_dict() for n, m in main[0].models.items()},
+                            source="base")
+            after = await serve(st, 2)
+            return st, before, after
+        finally:
+            await eng.stop()
+
+    st, before, after = asyncio.run(run())
+    launches, int_mm = fa.launches, layers.int_mm_launches
+    embeds, _ = eng._encode_prompt("a fox")
+    spec = FrameSpec(batch=1, height=512, width=512, in_height=512, in_width=512, steps=4)
+    want = build_frame_program(g["bundle"], spec)(
+        torch.from_numpy(frame[None]).cuda(), embeds, [0.6], [5.0], [2.0],
+        [st.options["seed"]], warm_latents=torch.zeros((1, 64, 64, 4), device="cuda"),
+        warm_alpha=[0.0], src_box=[[0, 0, 512, 512]])[0]
+    same = bool(np.array_equal(before[-1], want[0].cpu().numpy()))
+    kept = bool(np.array_equal(after[-1], before[-1]))
+    s = eng.stats()
+    print(f"engine with lora (2 files) and quant: int8 on {card}: {eng.telemetry.frames_out} "
+          f"frames generated; reply equal to a direct build_frame_program call on the fused, "
+          f"quantized bundle bit for bit: {same}; after swap_params with the plain base "
+          f"state dicts, the next reply equal to the one before: {kept}; stats lora "
+          f"{s.get('lora')}, quant {s.get('quant')}; K1 {launches}, _int_mm {int_mm} launches "
+          f"(warm-ups and captures)")
+    if not (same and kept and s.get("quant") == "int8" and len(s.get("lora") or []) == 2
+            and launches > 0 and int_mm * K1_PER_FRAME == launches * INT_MM_SD15):
+        fail("the engine with lora and quant: int8 did not serve the fused, quantized frame, "
+             "or lost them in swap_params")
+    del eng, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sdxl_int8(card: str, sdxl: dict) -> tuple[int, dict]:
+    """6g (d): the SDXL 1024x1024 4-step frame without the ControlNet on a
+    random SDXL bundle in bf16 and the same bundle's weights quantized int8
+    (seed 0 both): each replayed equal to eager, K1 and ``_int_mm``
+    launches per frame at capture, UNet weight bytes, the capture's memory
+    and the bundle's resident bytes, and replayed ms/frame in alternating
+    turns (phase 6f's bf16 frame printed beside).  Returns the K1 launches
+    (warm-ups and captures) and, for the profile after every timing, the
+    int8 program with its call and replayed ms/frame."""
+    import gc
+
+    from videosd_tpu_torch.ops.quant import quant_stats, quantize_bundle_params
+
+    kw = {"pooled_embeds": sdxl["pooled"]}
+    calls = [((sdxl["frame"], sdxl["embeds"], *sdxl["args"][:3], [23 + i]), dict(kw))
+             for i in range(2)]
+    programs, launches, rows = {}, 0, {}
+    for mode in ("bf16", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        bundle = ModelBundle.random("sdxl", dtype=torch.bfloat16, device="cuda",
+                                    with_controlnet=False)
+        if mode == "int8":
+            quantize_bundle_params(bundle)
+            torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() - held
+        program = build_frame_program(bundle, FrameSpec(
+            batch=1, height=SDXL_SIDE, width=SDXL_SIDE, steps=4, use_controlnet=False))
+        capture = _captured(program, calls[0])
+        counted = {}
+        out = _replay_vs_eager(f"sdxl {SDXL_SIDE}x{SDXL_SIDE} 4-step TAESD {mode}", program,
+                               calls, {"flash_attention": K1_SDXL_PER_FRAME[False],
+                                       "int_mm": INT_MM_SDXL if mode == "int8" else 0}, counted)
+        _check_frame(f"sdxl {mode}", out[-1], SDXL_SIDE)
+        launches += counted["flash_attention"]
+        programs[mode] = program
+        rows[mode] = {"unet": _weight_bytes(bundle.models["unet"]), "resident": resident,
+                      "capture": capture, "stats": quant_stats(bundle.models["unet"])}
+        del bundle, out
+    ms = _frame_in_turns(programs, calls[0], turns=2, frames=4)
+    print(f"sdxl {SDXL_SIDE}x{SDXL_SIDE} 4-step TAESD (no ControlNet) on {card}, replayed in 2 "
+          f"alternating turns of 4: bf16 {ms['bf16']:.2f} ms/frame, int8 w8a8 {ms['int8']:.2f} "
+          f"(phase 6f's bf16 frame {sdxl['replay_ms']:.2f}); " + "; ".join(
+              f"{m}: UNet {r['unet'] / 2**30:.3f} GiB ({r['stats']}), bundle resident "
+              f"{r['resident'] / 2**30:.3f} GiB, first call's peak above it "
+              f"{r['capture'] / 2**30:.3f} GiB" for m, r in rows.items()))
+    int8 = {"program": programs.pop("int8"), "call": calls[0], "replay_ms": ms["int8"]}
+    del programs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, int8
+
+
+def phase_tools(card: str) -> dict:
+    """6g (e): each tool of ``videosd_tpu_torch/tools`` in a process of its
+    own (TOOL_RUNS_CARD one at a time, the two toy gates beside the soak),
+    its JSON printed and its identity rows held."""
+    reports, cwd = {}, os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        procs = {}
+        for name, argv in TOOL_RUNS_CARD.items():
+            if name == "soak":
+                for toy, toy_argv in TOOL_RUNS_TOY.items():
+                    out = os.path.join(tmp, toy + ".json")
+                    with open(out + ".log", "w") as log:  # a file: no pipe to fill meanwhile
+                        procs[toy] = (out, time.perf_counter(), subprocess.Popen(
+                            [sys.executable, "-m", *toy_argv, "--json", out], stdout=log,
+                            stderr=subprocess.STDOUT, cwd=cwd))
+            out = os.path.join(tmp, name + ".json")
+            _run_tool([*argv, "--json", out], name, timeout=TOOL_S)
+            with open(out) as f:
+                reports[name] = json.load(f)
+        for name, (out, t0, proc) in procs.items():
+            try:
+                proc.wait(timeout=TOOL_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                fail(f"{name} ran past {TOOL_S} s")
+            with open(out + ".log") as f:
+                lines = f.read().splitlines()
+            print("\n".join(f"   {ln}" for ln in lines[-8:]))
+            print(f"{name}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s "
+                  f"(beside the soak)")
+            if proc.returncode:
+                print("\n".join(lines[-60:]))
+                fail(f"{name} exited {proc.returncode}")
+            with open(out) as f:
+                reports[name] = json.load(f)
+    rows = reports["temporal_gate"]
+    drift = reports["ref_gate"]["drift"]
+    frames = int(TOOL_RUNS_TOY["ref_gate"][TOOL_RUNS_TOY["ref_gate"].index("--frames") + 1])
+    soak_r = reports["soak"]
+    checks = {
+        "temporal_gate N=1 at identity": rows[0]["every"] == 1 and rows[0]["psnr_min"] == math.inf,
+        "ref_gate sf=0 at identity": drift[0]["style_fidelity"] == 0
+        and drift[0]["identity_frames"] == frames,
+        "flicker rows with frames/s": all(r["fps"] and r["fps"] > 0
+                                          for r in reports["flicker"]),
+        "taesd_ab routes agree": all(v > TAESD_AB_PSNR_DB
+                                     for v in reports["taesd_ab"]["psnr_db"].values())
+        and len(reports["taesd_ab"]["pairs"]) > 0,
+        "ref_gate frames/s": reports["ref_gate_fps"].get("fps_ref", 0) > 0,
+        "soak stable": soak_r["programs_stable"] and soak_r["rss_ok"]
+        and soak_r["frames_served"] > 0 and soak_r["graphs_final"] > 0,
+    }
+    for name, r in reports.items():
+        r = {k: v for k, v in r.items() if k != "samples"} if isinstance(r, dict) else r
+        print(f"tool {name} on {card}: {json.dumps(r)}")
+    print(f"tools' identity rows and checks: {checks}")
+    if not all(checks.values()):
+        fail(f"a tool's identity row or check failed: {checks}")
+    return reports
+
+
+def phase_6g(card: str, main, sdxl: dict) -> dict:
+    """6g: LoRA and int8 w8a8 on the serving paths, then the tools."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        g = phase_lora_int8(card, main, tmp)
+        g["launches"] += phase_engine_lora_int8(card, main, g, tmp)
+    del g["bundle"]
+    torch.cuda.empty_cache()
+    launches, g["sdxl_int8"] = phase_sdxl_int8(card, sdxl)
+    g["launches"] += launches
+    g["tools"] = phase_tools(card)
+    print(f"phase 6g took {time.perf_counter() - t_phase:.1f} s")
+    return g
+
+
 def main() -> None:
     import faulthandler
 
@@ -3244,6 +3874,7 @@ def main() -> None:
     phase_bench(main[0])
     train = phase_train(card)
     phase_toy(card)
+    g = phase_6g(card, main, sdxl)
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k1_prime = phase_k1_prime(card, clock)
     k2_res = phase_k2(card, clock)
@@ -3257,12 +3888,13 @@ def main() -> None:
     phase_ref_profile(card, ref)
     phase_sd21_profile(card, sd21)
     phase_sdxl_profile(card, sdxl)
+    phase_sdxl_int8_profile(card, g.pop("sdxl_int8"))
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
          "launches": (k1_launches + ref_launches + server_launches + sd21["launches"]
-                      + sdxl["launches"]),
+                      + sdxl["launches"] + g["launches"]),
          "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,

@@ -45,10 +45,12 @@ from videosd_tpu.runtime import framequeue as JFQ
 from videosd_tpu.runtime import jpegcodec as JJPEG
 from videosd_tpu.runtime import telemetry as JTEL
 from videosd_tpu.text.tokenizer import CLIPTokenizer as JTok
+from videosd_tpu.tools import flicker as JFL
 from videosd_tpu.tools import train_toy as JTT
 from videosd_tpu.tools import turbo_ladder as JTL
 from videosd_tpu_torch import config as PCFG
 from videosd_tpu_torch.io import discovery as PD
+from videosd_tpu_torch.io import lora as PL
 from videosd_tpu_torch.io import safetensors as PS
 from videosd_tpu_torch.io import weights as PW
 from videosd_tpu_torch.ops import metrics as PMET
@@ -70,6 +72,7 @@ from videosd_tpu_torch.runtime import jpegcodec as PJPEG
 from videosd_tpu_torch.runtime import telemetry as PTEL
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, make_alphas_cumprod
 from videosd_tpu_torch.text.tokenizer import CLIPTokenizer
+from videosd_tpu_torch.tools import flicker as PFL
 from videosd_tpu_torch.tools import train_toy as PTT
 from videosd_tpu_torch.tools import turbo_ladder as PTL
 
@@ -226,6 +229,10 @@ def test_port_imports_without_jax():
         "import videosd_tpu_torch.server.app, videosd_tpu_torch.server.protocol\n"
         "import videosd_tpu_torch.server.stt, videosd_tpu_torch.promptgen.app\n"
         "import videosd_tpu_torch.runtime.jpegcodec\n"
+        "import videosd_tpu_torch.io.lora, videosd_tpu_torch.ops.quant, videosd_tpu_torch.version\n"
+        "import videosd_tpu_torch.tools.flicker, videosd_tpu_torch.tools.temporal_gate\n"
+        "import videosd_tpu_torch.tools.ref_gate, videosd_tpu_torch.tools.taesd_ab\n"
+        "import videosd_tpu_torch.tools.soak\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'videosd_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -295,11 +302,20 @@ _COPIES = {
                                "Telemetry.print_gentime", "Telemetry.snapshot"]),
     "config": (PCFG, JCFG, ["default_options", "coerce_option", "coerce_options",
                             "StreamOptions", "load_config"]),
+    # the LoRA parsers (read_lora and the fusion work on the port's state dicts)
+    "lora": (PL, JL, ["LoRAEntry", "LoRAEntry.rank", "LoRAEntry.scaling", "LoRAEntry.delta",
+                      "_classify"]),
     # all but _load, which builds into the package's _build/
     "jpegcodec": (PJPEG, JJPEG, ["native_available", "_tls_buf", "_pil_decode", "_jpeg_dims",
                                  "decode_rgb", "decode_i420", "_pil_encode", "encode_rgb",
                                  "encode_i420"]),
 }
+
+
+def test_lora_prefix_tables_equal_original():
+    """The tower prefixes ``_classify`` reads, dotted and kohya."""
+    assert PL._DOTTED_PREFIXES == JL._DOTTED_PREFIXES
+    assert PL._KOHYA_PREFIXES == JL._KOHYA_PREFIXES
 
 
 @pytest.mark.parametrize("name", sorted(_COPIES))
@@ -470,6 +486,7 @@ def test_training_modules_import_without_jax():
 _TOOL_COPIES = {
     "turbo_ladder": (PTL, JTL, ["structured_frame", "parse_ladder"]),
     "train_toy": (PTT, JTT, ["make_batch"]),
+    "flicker": (PFL, JFL, ["drifting_frame"]),
 }
 
 

@@ -994,14 +994,20 @@ def test_registry_model_swaps_its_weights_in_and_out(rng):
 
 
 def test_unported_configurations_raise():
-    """More than one device, LoRA and int8 weights wait for their ports."""
+    """More than one device waits for its port (``gpus`` > 1 and
+    ``mesh_pipe``); LoRA and int8 weights are served (their cases are in
+    ``test_torch_port_lora.py`` and ``test_torch_port_quant.py``): a LoRA
+    file that is not there fails as a missing file, not as unported."""
     with pytest.raises(NotImplementedError, match="mesh"):
         Engine(ServerConfig(gpus=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        Engine(ServerConfig(family="tiny", weights="random", lora="a.safetensors"),
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Engine(ServerConfig(mesh_pipe=2), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        Engine(ServerConfig(family="tiny", weights="random", lora=[("a.safetensors", 1.0)]),
                device="cpu").bundle
-    with pytest.raises(NotImplementedError, match="int8"):
-        Engine(ServerConfig(family="tiny", weights="random", quant="int8"), device="cpu").bundle
+    eng = Engine(ServerConfig(family="tiny", dtype="float32", weights="random", quant="int8"),
+                 device="cpu")
+    assert any(type(m).__name__ == "LinearW8A8" for m in eng.bundle.models["unet"].modules())
 
 
 def test_trace_summarizes_the_profiled_work(tmp_path):

@@ -26,6 +26,10 @@ from test_webrtc_contract import (
     _FakeVideoFrame,
 )
 
+# a track's recv() waits on the fake camera and the engine: bounded, so a
+# lost frame fails the test instead of hanging the run
+RECV_TIMEOUT_S = 30
+
 
 @pytest.fixture()
 def webrtc_mod(monkeypatch):
@@ -129,13 +133,13 @@ def test_offer_track_recv_and_datachannel_wiring(webrtc_mod, monkeypatch):
 
         # first recv: passthrough black init frame stamped with the INPUT
         # frame's pts (reference decoupling, server.py:140-143)
-        out1 = await vtrack.recv()
+        out1 = await asyncio.wait_for(vtrack.recv(), RECV_TIMEOUT_S)
         assert out1.pts == 3000
         assert np.asarray(out1._arr).max() == 0
         # let the submit task complete, then the next recv returns it
         for _ in range(5):
             await asyncio.sleep(0)
-        out2 = await vtrack.recv()
+        out2 = await asyncio.wait_for(vtrack.recv(), RECV_TIMEOUT_S)
         assert out2.pts == 6000
         assert np.asarray(out2._arr).max() == 200
         assert engine.submitted and engine.submitted[0][0] == vtrack.stream.stream_id
@@ -204,7 +208,7 @@ def test_i420_engine_gets_planar_frames(webrtc_mod):
         cam = _FakeCameraTrack([np.zeros((64, 64, 3), np.uint8)])
         pc.fire_track(cam)
         vtrack = pc.added_tracks[0]
-        await vtrack.recv()
+        await asyncio.wait_for(vtrack.recv(), RECV_TIMEOUT_S)
         await asyncio.sleep(0)
         # packed planar upload: [h*3/2, w]
         assert engine.submitted[0][1] == (96, 64)

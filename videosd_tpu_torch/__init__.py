@@ -8,4 +8,6 @@ JAX package is the reference each part is held against; this package never
 imports JAX or ``videosd_tpu``.
 """
 
-__all__: list[str] = []
+from videosd_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

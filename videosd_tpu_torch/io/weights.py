@@ -342,18 +342,28 @@ def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
 def state_dict_from_jax(params: dict, plan: Plan) -> dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> torch state dict (fp32, CPU).
 
+    A linear in JAX's int8 w8a8 form (``{"w8", "sw"[, "bias"]}`` in place
+    of its ``kernel``, ``ops/quant.py``) crosses as the port's
+    ``LinearW8A8`` buffers: ``w8`` int8 ``[in, out]`` -> ``prefix.w8``
+    ``[out, in]``, ``sw`` -> ``prefix.sw`` (fp32); its bias as any bias.
     Raises ``KeyError`` naming the path when the tree lacks a planned leaf.
     """
     out: dict[str, torch.Tensor] = {}
     for jpath, tkey, kind in plan:
         node = params
         for p in jpath:
+            if kind == "linear" and p == "kernel" and "w8" in node:
+                prefix = tkey[: -len(".weight")]
+                out[prefix + ".w8"] = torch.from_numpy(np.array(np.asarray(node["w8"]).T))
+                out[prefix + ".sw"] = torch.from_numpy(np.array(node["sw"], np.float32))
+                break
             try:
                 node = node[p]
             except (KeyError, IndexError) as e:
                 raise KeyError(f"parameter tree has no {jpath} (for {tkey})") from e
-        arr = _to_torch(np.asarray(node, np.float32), kind)
-        out[tkey] = torch.from_numpy(np.array(arr))  # a writable copy
+        else:
+            # a writable copy
+            out[tkey] = torch.from_numpy(np.array(_to_torch(np.asarray(node, np.float32), kind)))
     return out
 
 

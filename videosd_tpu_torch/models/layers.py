@@ -12,7 +12,12 @@ reference's precision points:
   flash kernel to kernel K1 (``ops/cuda/flash_attention.py``); the rest is
   the plain ``_attention_xla`` math.  Under autograd a routed attention
   goes through :class:`FlashAttentionRecompute` (K1 forward, a backward
-  that recomputes the plain math: the JAX ``_attention_pallas_diff``).
+  that recomputes the plain math: the JAX ``_attention_pallas_diff``),
+* the int8 w8a8 linear (:func:`quantize_linear`, :func:`linear_w8a8`,
+  :class:`LinearW8A8`, chosen per layer by ``ops/quant.py``) follows JAX's
+  ``quantize_linear``/``linear_w8a8`` operation for operation, with the
+  int8 x int8 -> int32 product on ``torch._int_mm`` (cuBLASLt on the card),
+  as JAX ran it with ``lax.dot_general`` outside any Pallas kernel.
 
 ``GroupNorm`` and ``LayerNorm`` are torch's modules with these forwards, so
 state-dict keys stay diffusers' own.
@@ -30,17 +35,21 @@ from videosd_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
+from videosd_tpu_torch.ops.sobel import div_rn
 
 __all__ = [
     "FlashAttentionRecompute",
     "GroupNorm",
     "LayerNorm",
+    "LinearW8A8",
     "attention",
     "avg_pool2d",
     "geglu",
     "group_norm",
     "guidance_embedding",
     "layer_norm",
+    "linear_w8a8",
+    "quantize_linear",
     "routes_to_flash",
     "timestep_embedding",
     "upsample_nearest2d",
@@ -150,6 +159,92 @@ def _attention_plain(q, k, v, num_heads: int, mask=None):
         split(q, sq), split(k, sk), split(v, sk), 1.0 / math.sqrt(dh), mask
     )
     return out.transpose(1, 2).reshape(b, sq, d)
+
+
+# ---------------------------------------------------------------- int8 linears
+
+# calls of torch._int_mm on a CUDA tensor (the int8 product of linear_w8a8)
+int_mm_launches = 0
+
+
+def quantize_linear(weight, bias=None) -> dict:
+    """A linear's torch-layout ``weight`` [out, in] (and ``bias``) in int8
+    w8a8 form, as JAX's ``quantize_linear``: symmetric per-output-channel
+    scales ``sw = max(max|weight[n, :]|, 1e-8) / 127`` (fp32 [out]) and
+    ``w8 = round(weight / sw)`` clipped to +-127 (int8 [out, in]); the bias
+    stays, in fp32.  Every division is a true one on any device
+    (:func:`div_rn`)."""
+    k = weight.detach().float()
+    sw = div_rn(torch.clamp_min(k.abs().amax(dim=1), 1e-8), 127.0)
+    w8 = torch.clamp(torch.round(k / sw[:, None]), -127, 127).to(torch.int8)
+    q = {"w8": w8, "sw": sw}
+    if bias is not None:
+        q["bias"] = bias.detach().float()
+    return q
+
+
+def linear_w8a8(x, w8, sw, bias=None):
+    """int8 x int8 -> int32 linear with a dynamic per-tensor activation
+    scale, JAX's ``linear_w8a8`` step for step: ``sx = max(max|x|, 1e-6) /
+    127`` over the whole tensor (a 0-dim tensor on x's device), the codes
+    ``round(x / sx)`` clipped to +-127, their product with ``w8`` in int32,
+    then ``y * (sw * sx) + bias`` in fp32 and one cast to x's dtype.
+
+    On the card the product is ``torch._int_mm``, which wants more than 16
+    rows and K, N multiples of 8: fewer rows are padded with zero rows
+    (exact: they move neither the scale nor the kept rows); a K or N off
+    the multiple raises."""
+    global int_mm_launches
+    n, k = w8.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"linear_w8a8: input width {x.shape[-1]} != the weight's {k}")
+    xf = x.float()
+    sx = div_rn(torch.clamp_min(xf.abs().amax(), 1e-6), 127.0)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8).reshape(-1, k)
+    m = xq.shape[0]
+    if x.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(f"the int8 product on the card needs K and N multiples of 8, "
+                             f"got K = {k}, N = {n}")
+        if m <= 16:
+            xq = torch.cat([xq, xq.new_zeros(32 - m, k)])
+        int_mm_launches += 1
+    y = torch._int_mm(xq, w8.t())[:m]
+    y = y.float() * (sw * sx)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+class LinearW8A8(nn.Module):
+    """A linear in int8 w8a8 form: buffers ``w8`` (int8 [out, in]), ``sw``
+    (fp32 [out]) and, where the linear had one, ``bias`` (fp32 [out]); its
+    forward is :func:`linear_w8a8`.  The state-dict keys are the linear's
+    own prefix with ``w8``/``sw``/``bias``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("w8", torch.zeros(out_features, in_features, dtype=torch.int8,
+                                               device=device))
+        self.register_buffer("sw", torch.zeros(out_features, device=device))
+        self.register_buffer("bias", torch.zeros(out_features, device=device) if bias else None)
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear) -> "LinearW8A8":
+        q = quantize_linear(linear.weight, linear.bias)
+        mod = cls(linear.in_features, linear.out_features, linear.bias is not None,
+                  device=linear.weight.device)
+        for name, value in q.items():
+            setattr(mod, name, value)
+        return mod
+
+    def forward(self, x):
+        return linear_w8a8(x, self.w8, self.sw, self.bias)
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"bias={self.bias is not None}")
 
 
 # ---------------------------------------------------------------- embeddings

@@ -16,7 +16,9 @@ cached one), and the reference-attention hooks: the WRITE pass banks each
 self-attention's normed input (``bank_out``) and the READ pass attends
 over it beside its own tokens (``bank``, a :class:`BankReader`), with an
 ``adain`` hook after every resnet(+attention) pair of the down and up
-blocks and after the mid block (``pipelines/reference_attn.py``).
+blocks and after the mid block (``pipelines/reference_attn.py``); and the
+int8 w8a8 branches of the attention projections, once ``ops/quant.py`` has
+put :class:`LinearW8A8` modules in place of linears.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from torch.profiler import record_function
 from videosd_tpu_torch.models.layers import (
     GroupNorm,
     LayerNorm,
+    LinearW8A8,
     attention,
     geglu,
+    linear_w8a8,
     timestep_embedding,
     upsample_nearest2d,
 )
@@ -195,14 +199,27 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
     def forward(self, x, context=None):
+        """Projections in int8 (``ops/quant.py``) fuse as the plain ones do:
+        the self-attention's Q/K/V and the banked READ pass's K/V (context
+        ``[h; bank]``) are one w8a8 product over the concatenated ``w8`` and
+        ``sw``, with one activation scale over the whole input, as JAX's
+        ``cross_attn_apply``; the cross-attention's K/V stay plain."""
         if context is None:
             # self-attention: Q/K/V as one GEMM over the concatenated weights
-            w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
-            q, k, v = F.linear(x, w).chunk(3, dim=-1)
+            qkv = (self.to_q, self.to_k, self.to_v)
+            if isinstance(self.to_q, LinearW8A8):
+                y = linear_w8a8(x, torch.cat([m.w8 for m in qkv]), torch.cat([m.sw for m in qkv]))
+            else:
+                y = F.linear(x, torch.cat([m.weight for m in qkv]))
+            q, k, v = y.chunk(3, dim=-1)
         else:
             q = self.to_q(x)
-            w = torch.cat([self.to_k.weight, self.to_v.weight])
-            k, v = F.linear(context, w).chunk(2, dim=-1)
+            if isinstance(self.to_k, LinearW8A8):
+                kv = linear_w8a8(context, torch.cat([self.to_k.w8, self.to_v.w8]),
+                                 torch.cat([self.to_k.sw, self.to_v.sw]))
+            else:
+                kv = F.linear(context, torch.cat([self.to_k.weight, self.to_v.weight]))
+            k, v = kv.chunk(2, dim=-1)
         out = attention(q, k, v, num_heads=self.heads)
         return self.to_out[0](out)
 

@@ -83,6 +83,7 @@ from videosd_tpu_torch.models.clip_text import (
     tower_for,
 )
 from videosd_tpu_torch.models.controlnet import ControlNetModel
+from videosd_tpu_torch.models import layers
 from videosd_tpu_torch.models.layers import guidance_embedding
 from videosd_tpu_torch.models.taesd import AutoencoderTiny, TAESDConfig, taesd_decode, taesd_encode
 from videosd_tpu_torch.models.unet import UNET_PRESETS, UNet2DConditionModel, UNetConfig
@@ -741,13 +742,15 @@ def frame_program(
 def kernel_launches() -> dict:
     """The launch counts of the kernels a frame may run (K1 up to d = 256
     and above it, and K3, each in bf16 and fp32), as their wrappers keep
-    them."""
+    them, and of the library's int8 product of the w8a8 linears
+    (``torch._int_mm``, counted by ``layers.linear_w8a8``)."""
     return {"flash_attention": flash_attention.launches,
             "flash_attention_fp32": flash_attention.launches_fp32,
             "flash_attention_wide": flash_attention.launches_wide,
             "flash_attention_wide_fp32": flash_attention.launches_wide_fp32,
             "taesd_conv3x3": taesd_conv.launches,
-            "taesd_conv3x3_fp32": taesd_conv.launches_fp32}
+            "taesd_conv3x3_fp32": taesd_conv.launches_fp32,
+            "int_mm": layers.int_mm_launches}
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,8 +17,12 @@ Scheduling as in the JAX engine (and the reference it follows):
   one while it warms up and captures on a background thread, a
   prompt-embedding cache, device-resident weights.
 
-Not ported yet: mesh and ``mesh_pipe`` serving (more than one device),
-LoRA and int8 weights; each raises.
+LoRA adapters (config ``lora``) fuse into the bundle's weights and
+``quant: int8`` puts the denoisers' transformer linears in w8a8 form, in
+that order, before any program is built (``io/lora.py``,
+``ops/quant.py``); a swapped-in checkpoint goes through the same two
+steps.  Not ported yet: mesh and ``mesh_pipe`` serving (more than one
+device); each raises.
 """
 
 from __future__ import annotations
@@ -240,7 +244,6 @@ class Engine(
             from videosd_tpu_torch.pipelines.lcm_img2img import ModelBundle
 
             log = logging.getLogger("videosd_tpu_torch.engine")
-            self._check_unported_weights()
             family = self.config.family
             dtype = torch.bfloat16 if self.config.dtype == "bfloat16" else torch.float32
             # config `weights`: "auto" discovers the configured repos in the
@@ -297,16 +300,43 @@ class Engine(
                     float(getattr(self.config, "safety_threshold", 0.5))
                 )
                 log.info("safety: skin-stats blackout hook enabled")
+            loras = getattr(self.config, "lora", None) or []
+            if loras:
+                # LoRA fuses BEFORE quant: deltas add to the plain weights,
+                # then the fused result quantizes (io/lora.py module doc)
+                from videosd_tpu_torch.io.lora import fuse_bundle_loras
+
+                log.info("lora: fused modules per tower: %s", fuse_bundle_loras(bundle, loras))
+            if self._quant_int8:
+                from videosd_tpu_torch.ops.quant import quantize_bundle_params
+
+                quantize_bundle_params(bundle)
+                log.info("quant: int8 w8a8 applied to unet/controlnet linears")
             self._bundle = bundle
         return self._bundle
 
-    def _check_unported_weights(self, lora=None) -> None:
-        """LoRA and int8 weights wait for their port (ROADMAP.md, queue 1)."""
-        if lora or getattr(self.config, "lora", None):
-            raise NotImplementedError("LoRA weights (config lora, models[...].lora) are not "
-                                      "ported yet")
-        if str(getattr(self.config, "quant", "none")).lower() == "int8":
-            raise NotImplementedError("quant: int8 is not ported yet")
+    @property
+    def _quant_int8(self) -> bool:
+        return str(getattr(self.config, "quant", "none")).lower() == "int8"
+
+    def _serving_form(self, state_dicts: dict) -> dict:
+        """Plain ``{model name: state dict}`` of the serving family in the
+        form the serving modules hold: the configured LoRA adapters fused
+        in, then, under ``quant: int8``, every linear the serving models
+        hold in w8a8 form put in that form (the same deterministic
+        transform the serving bundle went through)."""
+        loras = getattr(self.config, "lora", None) or []
+        if loras:
+            from videosd_tpu_torch.io.lora import fuse_state_dict_loras
+
+            state_dicts, _ = fuse_state_dict_loras(self.bundle, state_dicts, loras)
+        if self._quant_int8:
+            from videosd_tpu_torch.ops.quant import quantize_state_dict
+
+            models = self.bundle.models
+            state_dicts = {name: quantize_state_dict(models[name], sd) if name in models else sd
+                           for name, sd in state_dicts.items()}
+        return state_dicts
 
     def swap_params(self, state_dicts: dict, *, source: str | None = None) -> None:
         """Swap the serving weights under live serving — zero dropped
@@ -320,8 +350,12 @@ class Engine(
         between two dispatches: the in-flight batch finishes on the old
         weights, the next one reads the new.  The prompt cache clears (the
         text tower changed) and per-stream fades reset.
+
+        The state dicts are a base checkpoint's: the configured LoRA
+        adapters fuse into them, and under ``quant: int8`` they quantize,
+        before they are matched against the serving modules.
         """
-        self._check_unported_weights()
+        state_dicts = self._serving_form(state_dicts)
         self._check_like_serving(state_dicts)
         with self._weights_lock:
             if self._weights_in_modules:  # another model is swapped in
@@ -496,4 +530,9 @@ class Engine(
                 name: ("loaded" if name in self._extra_bundles else "cold")
                 for name in self.model_names
             }
+        loras = getattr(self.config, "lora", None) or []
+        if loras:
+            s["lora"] = [{"path": p, "scale": sc} for p, sc in loras]
+        if self._quant_int8:
+            s["quant"] = self.config.quant
         return s

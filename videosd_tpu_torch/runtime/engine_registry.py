@@ -9,7 +9,9 @@ CUDA graph holds their addresses), so a batch of another model first
 copies that model's weights into the serving modules in place (device to
 device, in stream order with the replays; the default's weights are kept
 aside once another model was swapped in).  Every program is shared, as in
-the JAX engine.  LoRA entries raise until the LoRA port.
+the JAX engine.  An entry's own ``lora`` fuses into its weights, and
+``quant: int8`` quantizes every entry as it quantized the default, so the
+state dicts match the serving modules key for key in their int8 form.
 """
 
 from __future__ import annotations
@@ -113,7 +115,6 @@ class ModelRegistryMixin:
 
             from videosd_tpu_torch.pipelines.lcm_img2img import ModelBundle
 
-            self._check_unported_weights(entry.get("lora"))
             log = logging.getLogger("videosd_tpu_torch.engine")
             family = self.config.family
             dtype = torch.bfloat16 if self.config.dtype == "bfloat16" else torch.float32
@@ -154,6 +155,14 @@ class ModelRegistryMixin:
                     with_controlnet="controlnet" in self.bundle.models,
                     with_kl_vae="vae" in self.bundle.models,
                 )
+            if entry.get("lora"):
+                from videosd_tpu_torch.io.lora import fuse_bundle_loras
+
+                fuse_bundle_loras(bundle, entry["lora"])
+            if self._quant_int8:
+                from videosd_tpu_torch.ops.quant import quantize_bundle_params
+
+                quantize_bundle_params(bundle)
             self._check_like_serving({n: m.state_dict() for n, m in bundle.models.items()})
             self._extra_bundles[name] = bundle
             return bundle
