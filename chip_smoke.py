@@ -21,7 +21,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (the KL VAE's [1, 4096, 512] and [4, 4096, 512]) and 640 in bf16 and
    fp32 (the fp32 heads on ``csrc/flash_attention_wide_fp32.cu``, whose
    3xTF32 products are its own arithmetic, not torch's TF32), keys !=
-   queries included;
+   queries included; and K1 at the sd15 frame's shapes under 2-way tensor
+   parallelism (4 of the 8 heads a rank);
 4. the committed trained tiny checkpoint (``examples/toy_tiny_ckpt``) runs
    its 2-step frame program on CUDA and on the CPU in fp32, with TF32 off,
    from the same inputs and noise, at 64x64, 128x128 and 256x256; the
@@ -156,11 +157,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the ControlNet in int8 beside phase 6f's bf16 frame; (e) the tools
    (``flicker``, ``temporal_gate``, ``ref_gate``, ``taesd_ab``, ``soak``)
    each in a process of its own, their identity rows held;
+6h. more than one device (``videosd_tpu_torch/parallel``) on this one card:
+   the mesh's slots repeat ``cuda:0`` (printed), so the numerics, partial
+   sums, launch counts and placement are real and no traffic crosses cards:
+   (a) ``verify_flagship_dp_tp`` in fp32 (TF32 off), sd15 512x512 4-step
+   ControlNet + TAESD on a (2 data x 2 model) mesh against the
+   single-device program (images within 2 levels, latents 1e-4; their
+   max/mean |d| and the latents' relative L2 printed); (b) bf16 on (2 x 1)
+   at batch 2: each row equal bit for bit to the single-device program on
+   that row alone, each row's replay equal to its eager body; (c) bf16 on
+   (1 x 2): 168 K1 launches a frame at capture (84 x 2, at [4,4096,40],
+   [4,1024,80] and [4,256,160]), the image within 50 dB of the
+   single-device one, replay = eager, replayed ms/frame in turns with the
+   single-device frame; (d) ``PipelinedFrameEngine`` on 2 stages of (1 x 1):
+   the fp32 verify, the bf16 frame within 50 dB of the single-device image
+   and its eager ms/frame, ``run_pipelined`` over 2 microbatches equal to
+   ``run``, each stage's weight bytes from the placement record; (e) an
+   ``Engine(ServerConfig(gpus=2), devices=[cuda:0, cuda:0])``'s reply equal
+   bit for bit to a direct ``ShardedFrameEngine`` call, ``stats()["devices"]``
+   ``{"data": 2, "model": 1}``, and ``Engine(ServerConfig(gpus=2))`` without
+   ``devices=`` logging the fallback and serving on ``{"data": 1, "model":
+   1}``;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
-   and at the main path's shapes under every number
-   of query rows per block the kernel can run: the first profiler sessions
+   and at the main path's shapes and the tensor-parallel ones under every
+   number of query rows per block the kernel can run: the first profiler sessions
    of the run, after every frame timing;
 7. kernel K2 (the fused preprocess with its Sobel stencil) against its
    plain version at four frame sizes: equal bit for bit, one device kernel
@@ -287,6 +309,10 @@ K1_SD21 = [(1, 5, 4096, 4096, 64), (1, 10, 1024, 1024, 64), (1, 20, 256, 256, 64
 # of 64 (10 and 20 at 640 and 1280 channels) over 64^2 and 32^2 latents (the
 # 320-channel stage holds no attention)
 K1_SDXL = [(1, 10, 4096, 4096, 64), (1, 20, 1024, 1024, 64)]
+# K1's shapes on the sd15 512^2 frame under 2-way tensor parallelism (phase
+# 6h), as (B, H, Sq, Sk, d): each rank runs 4 of the 8 heads, so each of the
+# main path's attentions is two launches of half the heads
+K1_TP2 = [(1, 4, 4096, 4096, 40), (1, 4, 1024, 1024, 80), (1, 4, 256, 256, 160)]
 K1_HEAD_DIMS = [(1, 4, 1024, 1024, 8), (1, 4, 256, 512, 16), (1, 8, 1024, 1024, 24),
                 (1, 4, 256, 256, 20), (1, 8, 1024, 1024, 64), (1, 8, 1024, 2048, 72),
                 (1, 2, 256, 256, 256)]
@@ -449,7 +475,8 @@ W8A8_FAULTS = ("the scale over the first token", "the scale over the first 64 ch
 INT8_TURNS, INT8_TURN_FRAMES = 4, 5
 # the tools, each a process of its own: on the sd15 random bundle at 512^2
 # with few frames, one at a time: flicker, taesd_ab, ref_gate's frames/s,
-# and a 1-minute soak of 2 streams; beside the soak, at once, the two gates
+# and a half-minute soak of 2 streams (a minute until phase 6h joined the
+# run); beside the soak, at once, the two gates
 # on the committed toy checkpoint at 64^2 (for their identity rows only:
 # they time nothing)
 TOY_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "toy_tiny_ckpt")
@@ -466,8 +493,8 @@ TOOL_RUNS_CARD = {
                  "--frames", "10", "--variants", "unpacked,packed,pallas"],
     "ref_gate_fps": ["videosd_tpu_torch.tools.ref_gate", "--family", "sd15", "--size", "512",
                      "--fps-only"],
-    "soak": ["videosd_tpu_torch.tools.soak", "--minutes", "1", "--streams", "2", "--family",
-             "sd15", "--size", "512", "--sample-every", "10"],
+    "soak": ["videosd_tpu_torch.tools.soak", "--minutes", "0.5", "--streams", "2", "--family",
+             "sd15", "--size", "512", "--sample-every", "5"],
 }
 TOOL_S = 300
 # taesd_ab's routes against the unpacked one: the packed and K3 routes sum
@@ -841,7 +868,8 @@ def _k1_case(gen, b, h, sq, sk, d, dtype=torch.bfloat16, loud=False):
 
 
 def _k1_cases():
-    return [(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA + K1_SD21 + K1_SDXL
+    return ([(1, s[0], s[1], s[1], s[2]) for s in K1_SHAPES] + K1_EXTRA + K1_SD21 + K1_SDXL
+            + K1_TP2)
 
 
 def phase_k1() -> tuple[float, float, float, float]:
@@ -928,7 +956,7 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
     bf16_cases = _k1_cases() + [c for c in K1_TIMED["bf16"] if c not in _k1_cases()]
     for kind, dtype, cases in (("bf16", torch.bfloat16, bf16_cases),
                                ("fp32", torch.float32, K1_TIMED["fp32"])):
-        main_rows, per_shape, banked, sd21, sdxl = [], [], [], [], []
+        main_rows, per_shape, banked, sd21, sdxl, tp2 = [], [], [], [], [], []
         for b, h, sq, sk, d in cases:
             row = _k1_time(gen, b, h, sq, sk, d, dtype, card, clock)
             tensors = {key: row.pop(key) for key in ("q", "k", "v", "qf", "kf", "vf")}
@@ -940,11 +968,15 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
                 sd21.append(row)
             if kind == "bf16" and (b, h, sq, sk, d) in K1_SDXL:
                 sdxl.append(row)
+            if kind == "bf16" and (b, h, sq, sk, d) in K1_TP2:
+                tp2.append(row)
             if sq == sk and b == 1 and (h, sq, d) in K1_SHAPES:
                 main_rows.append(row)
-            if kind == "bf16" and (h, sq, d) in K1_SHAPES and sq == sk and b == 1:
+            if kind == "bf16" and sq == sk and b == 1 and (
+                    (h, sq, d) in K1_SHAPES or (b, h, sq, sk, d) in K1_TP2):
                 # every number of rows per block the kernel can run this shape with,
-                # held to the bar and timed: what block_rows' rule rests on
+                # held to the bar and timed: what block_rows' rule rests on (the
+                # tensor-parallel shapes launch half the blocks)
                 q, k, v, qf, kf, vf = tensors.values()
                 ref = fa.flash_attention_reference(qf, kf, vf, d ** -0.5).reshape(
                     b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d)
@@ -983,6 +1015,15 @@ def phase_k1_times(card: str, clock: float) -> tuple[dict, dict]:
                       f"{per['device_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms "
                       f"({per['bound_ms'] / per['device_ms']:.1%}), SDPA "
                       f"{per['library_ms']:.3f} ms, plain {per['plain_ms']:.3f} ms ({card})")
+        if tp2:  # the sd15 frame at 2-way tensor parallelism: 56 launches of each a frame
+            result[kind]["tp2_per_shape"] = tp2
+            per = {key: sum(2 * K1_PER_FRAME // 3 * r[key] for r in tp2)
+                   for key in ("device_ms", "bound_ms", "library_ms", "plain_ms")}
+            print(f"K1 per sd15 512x512 4-step frame at 2-way tensor parallelism "
+                  f"({2 * K1_PER_FRAME} launches, {2 * K1_PER_FRAME // 3} at each shape): device "
+                  f"{per['device_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms "
+                  f"({per['bound_ms'] / per['device_ms']:.1%}), SDPA {per['library_ms']:.3f} ms, "
+                  f"plain {per['plain_ms']:.3f} ms ({card})")
         # the wide kernel: the KL VAE's [1, 4096, 512] (its main-path shape, twice
         # per KL frame) carries the entry's numbers
         rows = []
@@ -3845,6 +3886,232 @@ def phase_6g(card: str, main, sdxl: dict) -> dict:
     return g
 
 
+# phase 6h: the mesh's slots on this one card (every slot is cuda:0, so the
+# numerics, partial sums, launch counts and placement are the real ones and
+# no traffic crosses cards); the (2 x 2) fp32 verify's bars are JAX's
+# (videosd_tpu/parallel/verify.py: images within 2 levels, latents 1e-4);
+# the tensor-parallel frame's replays timed in turns with the single-device
+# frame's; the pipelined bf16 frames timed alone (they run eagerly)
+MESH_SLOTS = [torch.device("cuda", 0)] * 4
+MESH_TURNS, MESH_TURN_FRAMES, PIPE_FRAMES = 3, 4, 4
+
+
+def _mesh_rows_vs_eager(name: str, program, got) -> None:
+    """Each data row's share of ``got`` (the program's last call, replayed
+    from the rows' graphs) against the row's body run eagerly on the same
+    staged buffers, bit for bit."""
+    for i, (row, rows) in enumerate(zip(program.programs, program.rows)):
+        (bucket,) = row.buckets.values()
+        with torch.inference_mode():
+            eager = bucket.body(**bucket.buffers)
+        torch.cuda.synchronize()
+        if not _same([x[rows] for x in got], eager):
+            fail(f"{name}: data row {i}'s replay differs from its eager body")
+
+
+def phase_6h(card: str, main) -> dict:
+    """6h: more than one device, on one card (``videosd_tpu_torch/parallel``).
+    (a) ``verify_flagship_dp_tp`` in fp32 on a (2 x 2) mesh; (b) bf16 data
+    parallelism on (2 x 1): each row bit for bit the single-device program
+    on that row alone, replay = eager; (c) bf16 tensor parallelism on
+    (1 x 2): K1 launches at capture, the image against the single-device
+    one, ms/frame in turns; (d) the pipeline (2 stages of 1 x 1): fp32
+    verify, bf16 against the single-device image, ``run_pipelined`` =
+    ``run``, each stage's weight bytes from the placement record; (e) the
+    engine over two slots against a direct ``ShardedFrameEngine`` call,
+    and ``gpus=2`` without ``devices=`` falling back with JAX's warning.
+    Returns the K1 launches (bf16 and fp32), counted from 0 before each
+    path, and the readings."""
+    import asyncio
+    import gc
+
+    from videosd_tpu_torch.config import ServerConfig
+    from videosd_tpu_torch.parallel.pipe import PipelinedFrameEngine
+    from videosd_tpu_torch.parallel.serving import ShardedFrameEngine
+    from videosd_tpu_torch.parallel.verify import verify_flagship_dp_tp, verify_pipeline_parallel
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    print(f"phase 6h mesh slots: {[str(d) for d in MESH_SLOTS]} (one card: every slot is "
+          f"cuda:0, no traffic crosses cards)")
+    res = {"launches": 0, "fp32_launches": 0}
+
+    def counted():
+        torch.cuda.synchronize()
+        res["launches"] += fa.launches
+        res["fp32_launches"] += fa.launches_fp32
+        _zero_counts()
+
+    # (a) fp32 sd15 512^2 4 steps, ControlNet + TAESD, TF32 off, on (2 data x 2 model)
+    _zero_counts()
+    a = verify_flagship_dp_tp(devices=MESH_SLOTS, model_parallel=2, family="sd15", size=512,
+                              steps=4, dtype=torch.float32)
+    a_fp32 = fa.launches_fp32
+    counted()
+    print(f"6h (a) verify_flagship_dp_tp fp32 sd15 512x512 4-step CN+TAESD on a {a['mesh']} mesh, "
+          f"batch {a['batch']}, against the single-device program: image max|d| {a['max_diff']} "
+          f"levels (bar 2), mean|d| {a['mean_diff']:.4f}; latents within 1e-4: "
+          f"{a['latents_allclose']}, rel L2 {a['latents_rel_l2']:.3e}; {a_fp32} fp32 K1 launches "
+          f"(both programs' warm-ups and captures)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bundle, embeds, frame, args, img, parity = main
+    rng = np.random.default_rng(61)
+    frame2 = torch.cat([frame, torch.from_numpy(
+        rng.integers(0, 256, frame.shape, dtype=np.uint8)).cuda()])
+    args2 = ([0.6, 0.45], [5.0, 4.0], [2.0, 1.5], [23, 41])
+
+    # (b) bf16 data parallelism on (2 x 1) at batch 2
+    dp = ShardedFrameEngine(bundle, devices=MESH_SLOTS[:2])
+    dp_prog = dp.program(FrameSpec(batch=2, height=512, width=512, steps=4))
+    got = dp_prog(frame2, embeds.expand(2, -1, -1), *args2)
+    rows_same = []
+    for i in range(2):
+        alone = parity(frame2[i:i + 1], embeds, *([a2[i]] for a2 in args2))
+        rows_same.append(_same([x[i:i + 1] for x in got], alone))
+    dp_launches = dp_prog.last_launches["flash_attention"]
+    _mesh_rows_vs_eager("6h (b)", dp_prog, got)
+    counted()
+    print(f"6h (b) bf16 sd15 512x512 4-step CN+TAESD batch 2 on a (2 x 1) mesh: each row equal bit "
+          f"for bit to the single-device program on that row alone: {rows_same}; replay = eager "
+          f"in each row; K1 {dp_launches} launches per batch at capture (84 a row)")
+    if not all(rows_same) or dp_launches != 2 * K1_PER_FRAME or dp_prog.graphs != 2:
+        fail("6h (b): a data row differs from the single-device program, or its graph")
+
+    # (c) bf16 tensor parallelism on (1 x 2)
+    tp = ShardedFrameEngine(bundle, devices=MESH_SLOTS[:2], model_parallel=2)
+    tp_prog = tp.program(parity.spec)
+    out_tp = tp_prog(frame, embeds, *args)
+    tp_k1 = tp_prog.last_launches["flash_attention"]
+    psnr_tp = _psnr(out_tp[0], img)
+    _mesh_rows_vs_eager("6h (c)", tp_prog, out_tp)
+    counted()
+    turns = []
+    for _ in range(MESH_TURNS):
+        row = {}
+        for name, prog in (("single", parity), ("tp2", tp_prog)):
+            ms = []
+            for _ in range(MESH_TURN_FRAMES):
+                t0 = time.perf_counter()
+                prog(frame, embeds, *args)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[name] = statistics.median(ms)
+        turns.append(row)
+    res["tp_ms"] = statistics.median(r["tp2"] for r in turns)
+    res["single_ms"] = statistics.median(r["single"] for r in turns)
+    print(f"6h (c) bf16 sd15 512x512 4-step CN+TAESD on a (1 x 2) mesh on {card}: K1 {tp_k1} "
+          f"launches per frame at capture (84 x 2); image PSNR vs the single-device image "
+          f"{psnr_tp:.2f} dB (bound {FRAME_PSNR_DB:g}); replay = eager; replayed ms/frame in "
+          f"{MESH_TURNS} turns of {MESH_TURN_FRAMES} (single-device, tp2): "
+          + ", ".join(f"({r['single']:.2f}, {r['tp2']:.2f})" for r in turns))
+    if tp_k1 != 2 * K1_PER_FRAME or psnr_tp < FRAME_PSNR_DB or tp_prog.graphs != 1:
+        fail("6h (c): the tensor-parallel frame's K1 launches, image or graph")
+    del dp, dp_prog, tp, tp_prog
+    gc.collect()
+
+    # (d) the pipeline: fp32 verify, then bf16 on the phase-5 bundle
+    _zero_counts()
+    d = verify_pipeline_parallel(devices=MESH_SLOTS[:2], model_parallel=1, family="sd15",
+                                 size=512, steps=4, dtype=torch.float32)
+    counted()
+    print(f"6h (d) verify_pipeline_parallel fp32 sd15 512x512 4-step CN+TAESD, 2 stages of "
+          f"{d['stage_mesh']}: image max|d| {d['max_diff']} levels (bar 2), mean|d| "
+          f"{d['mean_diff']:.4f}; latents within 1e-4: {d['latents_allclose']}, rel L2 "
+          f"{d['latents_rel_l2']:.3e}; stage weight bytes {d['stage_bytes']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = PipelinedFrameEngine(bundle, devices=MESH_SLOTS[:2])
+    stage_bytes = [sum(p.nbytes() for p in pipe.placements(st)) for st in (0, 1)]
+    out_p = pipe.run(parity.spec, frame, embeds, *args)
+    pipe_k1 = fa.launches
+    psnr_p = _psnr(out_p[0], img)
+    ms = []
+    for _ in range(PIPE_FRAMES):
+        t0 = time.perf_counter()
+        pipe.run(parity.spec, frame, embeds, *args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counted()
+    res["pipe_ms"] = statistics.median(ms)
+    mb = [dict(frame_u8=frame2[i:i + 1], embeds=embeds, strength=[args2[0][i]],
+               guidance=[args2[1][i]], cn=[args2[2][i]], seed=[args2[3][i]]) for i in range(2)]
+    inter = pipe.run_pipelined(parity.spec, mb)
+    solo = [pipe.run(parity.spec, **m) for m in mb]
+    counted()
+    same_pp = [_same(x, y) for x, y in zip(inter, solo)]
+    print(f"6h (d) bf16 pipeline, 2 stages of (1 x 1), sd15 512x512 4-step CN+TAESD on {card}: "
+          f"image PSNR vs the single-device image {psnr_p:.2f} dB (bound {FRAME_PSNR_DB:g}); "
+          f"eager ms/frame median {res['pipe_ms']:.2f} over {PIPE_FRAMES} (min {min(ms):.2f}); "
+          f"K1 {pipe_k1} launches a frame; run_pipelined over 2 microbatches equal to run: "
+          f"{same_pp}; stage weight bytes (placement record) {stage_bytes} "
+          f"({stage_bytes[0] / 2**30:.3f} / {stage_bytes[1] / 2**30:.3f} GiB)")
+    if psnr_p < FRAME_PSNR_DB or not all(same_pp) or pipe_k1 != K1_PER_FRAME:
+        fail("6h (d): the pipelined bf16 frame, its K1 launches, or run_pipelined")
+    del pipe, inter, solo
+    gc.collect()
+
+    # (e) the engine over two slots, and gpus=2 without devices= on one card
+    eng = Engine(ServerConfig(gpus=2), bundle=bundle, max_streams=1, max_batch=2,
+                 frame_hw=(512, 512), devices=MESH_SLOTS[:2])
+    eng.warmup(batch_sizes=(1,), steps=(4,), height=512, width=512)  # the batch-2 bucket
+    cam = frame[0].cpu().numpy()
+
+    async def serve():
+        eng.start()
+        try:
+            st = eng.open_stream({"height": 512, "width": 512, "prompt": "portrait, pixar, cg"})
+            outs = [await asyncio.wait_for(eng.submit_frame(st.stream_id, cam), 120)
+                    for _ in range(3)]
+            return st, outs
+        finally:
+            await eng.stop()
+
+    st, outs = asyncio.run(serve())
+    counted()
+    e_embeds, _ = eng._encode_prompt("portrait, pixar, cg")
+    direct = ShardedFrameEngine(bundle, devices=MESH_SLOTS[:2])
+    spec = FrameSpec(batch=2, height=512, width=512, in_height=512, in_width=512, steps=4)
+    want = direct.run(spec, frame.expand(2, -1, -1, -1), e_embeds.expand(2, -1, -1),
+                      [0.6] * 2, [5.0] * 2, [2.0] * 2, [st.options["seed"]] * 2,
+                      warm_latents=torch.zeros((2, 64, 64, 4), device="cuda"),
+                      warm_alpha=[0.0] * 2, src_box=[[0, 0, 512, 512]] * 2)[0]
+    _zero_counts()  # the direct call's launches compare; they are not counted
+    same_e = bool(np.array_equal(outs[-1], want[0].cpu().numpy()))
+    devices_e = eng.stats()["devices"]
+
+    class _Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    seen = _Warnings()
+    logging.getLogger("videosd_tpu_torch.engine").addHandler(seen)
+    try:
+        short = Engine(ServerConfig(gpus=2), frame_hw=(512, 512))
+        fallback = (short.mesh, short.stats()["devices"])
+    finally:
+        logging.getLogger("videosd_tpu_torch.engine").removeHandler(seen)
+    warned = any("gpus=2 but only 1 device(s) exist; serving on 1" in m for m in seen.messages)
+    print(f"6h (e) Engine(ServerConfig(gpus=2), devices=[cuda:0, cuda:0]) on {card}: "
+          f"{eng.telemetry.frames_out} frames generated, stats devices {devices_e}, the reply "
+          f"equal bit for bit to a direct ShardedFrameEngine call: {same_e}; "
+          f"Engine(ServerConfig(gpus=2)) on {torch.cuda.device_count()} card(s): mesh "
+          f"{fallback[0]}, stats devices {fallback[1]}, warned: {warned} ({seen.messages})")
+    if (not same_e or devices_e != {"data": 2, "model": 1} or not eng.telemetry.frames_out
+            or fallback != (None, {"data": 1, "model": 1}) or not warned):
+        fail("6h (e): the engine over the mesh, or its fallback on one card")
+    del eng, direct, want, short
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6h took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     import faulthandler
 
@@ -3875,6 +4142,7 @@ def main() -> None:
     train = phase_train(card)
     phase_toy(card)
     g = phase_6g(card, main, sdxl)
+    mesh = phase_6h(card, main)
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k1_prime = phase_k1_prime(card, clock)
     k2_res = phase_k2(card, clock)
@@ -3894,11 +4162,12 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
          "launches": (k1_launches + ref_launches + server_launches + sd21["launches"]
-                      + sdxl["launches"] + g["launches"]),
+                      + sdxl["launches"] + g["launches"] + mesh["launches"]),
          "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
-         "launches": fp32_frame["launches"], "max_abs_err": k1_fp32_err, **k1_fp32_times},
+         "launches": fp32_frame["launches"] + mesh["fp32_launches"],
+         "max_abs_err": k1_fp32_err, **k1_fp32_times},
         {"name": "flash_attention_wide", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_wide.cu", "replaces": k1_src,
          "launches": kl["launches"], "max_abs_err": k1_wide_err, **k1_wide_times},

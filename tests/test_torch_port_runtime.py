@@ -993,15 +993,29 @@ def test_registry_model_swaps_its_weights_in_and_out(rng):
     asyncio.run(run())
 
 
-def test_unported_configurations_raise():
-    """More than one device waits for its port (``gpus`` > 1 and
-    ``mesh_pipe``); LoRA and int8 weights are served (their cases are in
-    ``test_torch_port_lora.py`` and ``test_torch_port_quant.py``): a LoRA
-    file that is not there fails as a missing file, not as unported."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(ServerConfig(gpus=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(ServerConfig(mesh_pipe=2), device="cpu")
+def test_unported_configurations_raise(caplog):
+    """More than one device is served (``tests/test_torch_port_parallel.py``
+    and ``test_torch_port_pipe.py``): on one device ``gpus=2`` and
+    ``mesh_pipe=2`` warn and serve on that device, as the JAX engine does.
+    The sharded train step is still to come and raises.  LoRA and int8
+    weights are served (their cases are in ``test_torch_port_lora.py`` and
+    ``test_torch_port_quant.py``): a LoRA file that is not there fails as a
+    missing file, not as unported."""
+    import logging
+
+    from videosd_tpu_torch.train.step import make_train_step
+
+    with caplog.at_level(logging.WARNING, logger="videosd_tpu_torch.engine"):
+        eng = Engine(ServerConfig(gpus=2), device="cpu", frame_hw=(32, 32))
+        assert eng.mesh is None and eng.data_axis == 1
+        assert eng.stats()["devices"] == {"data": 1, "model": 1}
+        assert any("gpus=2 but only 1 device(s) exist; serving on 1" in r.getMessage()
+                   for r in caplog.records)
+        eng = Engine(ServerConfig(mesh_pipe=2), device="cpu", frame_hw=(32, 32))
+        assert eng.pipe_engine is None and eng.mesh is None and eng.data_axis == 1
+        assert any("serving unpipelined" in r.getMessage() for r in caplog.records)
+    with pytest.raises(NotImplementedError, match="sharded train step"):
+        make_train_step(None, mesh=object())
     with pytest.raises(FileNotFoundError):
         Engine(ServerConfig(family="tiny", weights="random", lora=[("a.safetensors", 1.0)]),
                device="cpu").bundle

@@ -4,8 +4,9 @@ over ``videosd_tpu_torch.server`` with a tiny fp32 engine (``device="cpu"``,
 transport-free protocol (``server/protocol.py``) and the wire pieces held
 against the JAX server's on the same bytes.
 
-Left out (ROADMAP.md): ``test_ws_full_stack_on_8_device_mesh`` (one engine
-drives one card; mesh serving is queue 1 item 4) and
+``test_ws_full_stack_on_8_device_mesh`` drives the engine over a mesh of
+eight repeated CPU slots (``Engine(devices=...)``, as the JAX test runs on
+eight virtual CPU devices).  Left out (ROADMAP.md):
 ``test_warm_spec_subprocess_cache_handoff`` (``tools/warm_spec.py`` is not
 ported).
 
@@ -280,6 +281,41 @@ def test_reload_weights_live_swap_from_checkpoint(tmp_path, rng):
             out_b = await real_reply()
             assert np.abs(out_b.astype(int) - out_a.astype(int)).max() > 0
             assert len(engine._programs) == compiled
+            await ws.close()
+        finally:
+            await client.close()
+
+    asyncio.run(run())
+
+
+def test_ws_full_stack_on_8_device_mesh(rng):
+    """The whole serving stack (WS transport -> batcher -> the program over
+    the mesh's data rows -> reply), driven by config (``gpus=8``) over eight
+    CPU slots: one stream still runs a batch of 8, one row a slot."""
+    async def run():
+        cfg = ServerConfig(gpus=8)
+        engine = _tiny_engine(cfg, max_batch=8, devices=[torch.device("cpu")] * 8)
+        client = await _make_client(engine, cfg)
+        try:
+            ws = await client.ws_connect("/ws")
+            await ws.send_str(_init())
+            frame = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+            out = None
+            for _ in range(400):  # cold start: black until the bucket warms
+                await ws.send_bytes(_raw(frame))
+                msg = await asyncio.wait_for(ws.receive(), timeout=120)
+                assert msg.type.name == "BINARY", msg
+                h, w = struct.unpack("<HH", msg.data[:4])
+                out = np.frombuffer(msg.data[4:], np.uint8).reshape(h, w, 3)
+                if engine.telemetry.frames_out >= 1:
+                    break
+                await asyncio.sleep(0.2)
+            assert engine.telemetry.frames_out >= 1
+            assert out.shape == (32, 32, 3)
+            r = await client.get("/stats")
+            stats = await r.json()
+            assert stats["devices"] == {"data": 8, "model": 1}
+            assert all(s.batch % 8 == 0 for s, _rm in engine._ready_specs)
             await ws.close()
         finally:
             await client.close()

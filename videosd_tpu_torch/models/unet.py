@@ -190,13 +190,19 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, query_dim: int, context_dim: int, heads: int):
+    """``inner_dim`` (default ``query_dim``) is the width of the heads; a
+    tensor-parallel rank's shard holds ``heads / m`` heads, ``inner_dim =
+    query_dim / m``, and no output bias (``parallel/tensor.py``)."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int,
+                 inner_dim: int | None = None, out_bias: bool = True):
         super().__init__()
+        inner = inner_dim or query_dim
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(context_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(context_dim, query_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
     def forward(self, x, context=None):
         """Projections in int8 (``ops/quant.py``) fuse as the plain ones do:
@@ -231,10 +237,15 @@ class _GEGLUProj(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int):
+    """GEGLU over ``inner`` hidden units (default ``4 * dim``); a
+    tensor-parallel rank's shard holds ``inner / m`` of them and no output
+    bias (``parallel/tensor.py``)."""
+
+    def __init__(self, dim: int, inner: int | None = None, out_bias: bool = True):
         super().__init__()
-        inner = dim * 4
-        self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        inner = inner or dim * 4
+        self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim, bias=out_bias)])
 
     def forward(self, x):
         return geglu(x, self.net[0].proj, self.net[2])
@@ -492,13 +503,19 @@ class UNetEncoder(nn.Module):
     def encode(self, x, temb, context, **hooks):
         """Down and mid blocks; ``hooks`` (``bank``, ``bank_out``, ``adain``)
         reach every block."""
+        x, down_res = self.encode_down(x, temb, context, **hooks)
+        with _scope("mid", self.block_scopes):
+            x = self.mid_block(x, temb, context, **hooks)
+        return x, down_res
+
+    def encode_down(self, x, temb, context, **hooks):
+        """The down blocks: the feature at the UNet's waist and the skip
+        stack (``conv_in``'s output first)."""
         down_res = [x]
         for i, blk in enumerate(self.down_blocks):
             with _scope(f"down{i}", self.block_scopes):
                 x, res = blk(x, temb, context, **hooks)
             down_res.extend(res)
-        with _scope("mid", self.block_scopes):
-            x = self.mid_block(x, temb, context, **hooks)
         return x, down_res
 
 
@@ -568,8 +585,20 @@ class UNet2DConditionModel(UNetEncoder):
                 x = self.up_blocks[-1](deep_feature, down_res, temb, context)
             return self._head(x)
         hooks = dict(bank=bank, bank_out=bank_out, adain=adain)
-        x, down_res = self.encode(x, temb, context, **hooks)
+        x, down_res = self.encode_down(x, temb, context, **hooks)
         down_res = self._add_residuals(down_res, down_block_additional_residuals)
+        return self.decode(x, down_res, temb, context, mid_block_additional_residual,
+                           return_deep_feature=return_deep_feature, **hooks)
+
+    def decode(self, x, down_res, temb, context, mid_block_additional_residual=None, *,
+               return_deep_feature: bool = False, **hooks):
+        """The UNet from its waist on: the mid block (plus the ControlNet's
+        mid residual), the up blocks over the skip stack ``down_res`` (the
+        ControlNet's down residuals already added) and the output head.
+        The full pass is :meth:`encode_down` then this; the 2-stage
+        pipeline (``parallel/pipe.py``) runs the two on two stages."""
+        with _scope("mid", self.block_scopes):
+            x = self.mid_block(x, temb, context, **hooks)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(x.dtype)
         n = self.cfg.layers_per_block + 1

@@ -57,6 +57,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import itertools
 import os
 import threading
 import time
@@ -578,16 +579,13 @@ def _added_cond(bundle: ModelBundle, spec: FrameSpec, pooled):
     return {"text_embeds": pooled, "time_ids": time_ids}
 
 
-def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, guidance,
-                cn_scale, noise, warm_latents=None, warm_alpha=None, src_box=None,
-                deep_caches=None, pooled=None):
-    """The device side of :func:`frame_program`: a function of staged device
-    tensors that makes no host sync, no host-to-device copy and allocates no
-    host constant, so a CUDA graph can capture it."""
-    dtype, S = bundle.dtype, spec.steps
-    unet, models = bundle.models["unet"], bundle.models
-    cfg = bundle.unet_cfg
-
+def _prelude(bundle: ModelBundle, spec: FrameSpec, frame, strength, guidance, noise0,
+             warm_latents=None, warm_alpha=None, src_box=None, pooled=None):
+    """The frame body up to its denoising loop: preprocess, the control
+    image, the VAE encode, the warm start, the ladders, the forward noise
+    (``noise0`` [B, h, w, 4]) and the conditioning embeddings.  Returns
+    ``(latents, latents0, ctrl, ts, valid, w_emb, added_cond)``."""
+    dtype, cfg = bundle.dtype, bundle.unet_cfg
     # the stages carry the JAX program's named scopes, as profiler ranges
     # (record_function adds no kernel): the trace by block reads them
     with record_function("preprocess"):
@@ -611,18 +609,64 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
             a = warm_alpha[:, None, None, None]
             latents0 = ((1.0 - a) * latents0.float() + a * warm_latents).to(latents0.dtype)
 
-        ts, valid = timestep_schedule(bundle.sched_cfg, S, strength, spec.lcm_origin_steps)
+        ts, valid = timestep_schedule(bundle.sched_cfg, spec.steps, strength,
+                                      spec.lcm_origin_steps)
 
         # forward-noise to the first VALID ladder step
-        alphas = bundle.alphas_cumprod
         first_idx = valid.to(torch.int32).argmax(dim=1)
         t_first = ts.gather(1, first_idx[:, None])[:, 0]
-        latents = add_noise(alphas, latents0, noise[0], t_first)
+        latents = add_noise(bundle.alphas_cumprod, latents0, noise0, t_first)
 
         w_emb = None
         if cfg.time_cond_proj_dim is not None:
             w_emb = guidance_embedding(guidance, cfg.time_cond_proj_dim).to(dtype)
         added_cond = _added_cond(bundle, spec, pooled)
+    return latents, latents0, ctrl, ts, valid, w_emb, added_cond
+
+
+def _step_update(bundle: ModelBundle, spec: FrameSpec, s: int, eps, t, t_prev, valid, latents,
+                 denoised, noise_next):
+    """Step ``s``'s LCM update from the UNet's NCHW ``eps``, kept only where
+    the element's ladder has step ``s`` (``noise_next``: the re-noise, used
+    when the spec has more than one step)."""
+    multi = spec.steps > 1
+    with record_function("scheduler"):
+        new_lat, new_den = step(
+            bundle.sched_cfg, bundle.alphas_cumprod, eps.permute(0, 2, 3, 1), t, t_prev,
+            latents, noise=noise_next if multi else None, multistep=multi,
+        )
+        m = valid[:, s][:, None, None, None]
+        return torch.where(m, new_lat, latents), torch.where(m, new_den, denoised)
+
+
+def _finale(bundle: ModelBundle, spec: FrameSpec, denoised):
+    """The VAE decode, the safety hook and the uint8 images."""
+    with record_function("vae_decode"):
+        out = _decode_latents(bundle, spec, denoised)
+    if bundle.safety_hook is not None:
+        with record_function("safety"):
+            out = _apply_hook(bundle.safety_hook, out)
+    with record_function("postprocess"):
+        return postprocess_image(out)
+
+
+def _cn_keep(spec: FrameSpec, s: int) -> bool:
+    """The ControlNet keep-window: all or nothing per step."""
+    return not (s / spec.steps < spec.control_guidance_start
+                or (s + 1) / spec.steps > spec.control_guidance_end)
+
+
+def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, guidance,
+                cn_scale, noise, warm_latents=None, warm_alpha=None, src_box=None,
+                deep_caches=None, pooled=None):
+    """The device side of :func:`frame_program`: a function of staged device
+    tensors that makes no host sync, no host-to-device copy and allocates no
+    host constant, so a CUDA graph can capture it."""
+    S = spec.steps
+    unet, models = bundle.models["unet"], bundle.models
+    latents, latents0, ctrl, ts, valid, w_emb, added_cond = _prelude(
+        bundle, spec, frame, strength, guidance, noise[0], warm_latents, warm_alpha, src_box,
+        pooled)
     denoised = latents0
 
     cn_interval = max(1, int(spec.controlnet_interval))
@@ -643,10 +687,7 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
         down_res = mid_res = None
         # the keep-window is all-or-nothing per step, so keep is 1 wherever
         # the ControlNet runs and the base-scale cache is used as it is
-        keep = 1.0 - float(
-            s / S < spec.control_guidance_start or (s + 1) / S > spec.control_guidance_end
-        )
-        if spec.use_controlnet and keep > 0.0:
+        if spec.use_controlnet and _cn_keep(spec, s):
             if cn_interval == 1 or cn_cache is None or refresh(s, cn_interval):
                 with record_function("controlnet"):
                     cn_cache = models["controlnet"](
@@ -672,25 +713,15 @@ def _frame_body(bundle: ModelBundle, spec: FrameSpec, frame, context, strength, 
                 eps = unet(x, t, context, deep_feature=dc_cache, **unet_kw)
             else:
                 eps = unet(x, t, context, mid_block_additional_residual=mid_res, **unet_kw)
-        with record_function("scheduler"):
-            new_lat, new_den = step(
-                bundle.sched_cfg, alphas, eps.permute(0, 2, 3, 1), t, t_prev, latents,
-                noise=noise[s + 1] if S > 1 else None, multistep=S > 1,
-            )
-            m = valid[:, s][:, None, None, None]
-            latents = torch.where(m, new_lat, latents)
-            denoised = torch.where(m, new_den, denoised)
+        latents, denoised = _step_update(bundle, spec, s, eps, t, t_prev, valid, latents,
+                                         denoised, noise[s + 1] if S > 1 else None)
 
-    with record_function("vae_decode"):
-        out = _decode_latents(bundle, spec, denoised)
-    if bundle.safety_hook is not None:
-        with record_function("safety"):
-            out = _apply_hook(bundle.safety_hook, out)
-    with record_function("postprocess"):
-        if temporal_produce:
+    images = _finale(bundle, spec, denoised)
+    if temporal_produce:
+        with record_function("postprocess"):
             caches = torch.stack([f.permute(0, 2, 3, 1) for f in new_caches], dim=1)
-            return postprocess_image(out), denoised, caches
-        return postprocess_image(out), denoised
+        return images, denoised, caches
+    return images, denoised
 
 
 @torch.inference_mode()
@@ -794,20 +825,34 @@ def _graph_pool(device: torch.device):
     return entry[0]
 
 
+def _graphed(bundle: ModelBundle) -> bool:
+    """Whether a program over ``bundle`` runs as CUDA graphs: on a CUDA
+    bundle whose models all live on one device.  Models split over
+    distinct cards (a tensor-parallel data row, ``parallel/``) run
+    eagerly."""
+    devices = {t.device for m in bundle.models.values()
+               for t in itertools.chain(m.parameters(), m.buffers())}
+    return bundle.device.type == "cuda" and len(devices) == 1
+
+
 class _Bucket:
     """One call signature of a program: its static input buffers and, on a
-    CUDA bundle, the CUDA graph of ``body(**buffers)`` captured over them
-    and its static outputs."""
+    CUDA bundle on one device, the CUDA graph of ``body(**buffers)``
+    captured over them and its static outputs (:func:`_graphed`); else the
+    body runs eagerly on each call, its launches counted per call."""
 
-    def __init__(self, bundle: ModelBundle, buffers: dict, body):
-        self.bundle, self.buffers, self.body = bundle, buffers, body
+    def __init__(self, bundle: ModelBundle, buffers: dict, body, graphed: bool):
+        self.bundle, self.buffers, self.body, self.graphed = bundle, buffers, body, graphed
         self.graph = self.outputs = None
         self.launches = dict.fromkeys(kernel_launches(), 0)
         self.capture_s = 0.0  # wall time of the warm-up and the capture
 
     def run(self) -> tuple:
-        if self.bundle.device.type != "cuda":
-            return self.body(**self.buffers)
+        if not self.graphed:
+            before = kernel_launches()
+            outputs = self.body(**self.buffers)
+            self.launches = {k: n - before[k] for k, n in kernel_launches().items()}
+            return outputs
         if self.graph is None:
             self._capture()
         self.graph.replay()
@@ -862,6 +907,12 @@ class _Program:
         self.bundle, self.spec = bundle, spec
         self.buckets: dict = {}
         self.last_launches: dict | None = None
+        self.graphed = _graphed(bundle)
+
+    @property
+    def graphs(self) -> int:
+        """The CUDA graphs held, one per captured call signature."""
+        return sum(b.graph is not None for b in self.buckets.values())
 
     def _run(self, inputs: dict, seed) -> tuple:
         """``inputs``: a call's checked inputs, named as the body's arguments."""
@@ -872,7 +923,7 @@ class _Program:
             rows = self.spec.steps + 1 + self.extra_noise_rows
             bucket = self.buckets[key] = _Bucket(
                 self.bundle, _new_buffers(self.bundle, self.spec, inputs, rows),
-                functools.partial(self._body, self.bundle, self.spec))
+                functools.partial(self._body, self.bundle, self.spec), self.graphed)
         with record_function("stage"):
             _stage(bucket.buffers, inputs, seed, self.spec.batch)
         outputs = bucket.run()

@@ -21,8 +21,19 @@ LoRA adapters (config ``lora``) fuse into the bundle's weights and
 ``quant: int8`` puts the denoisers' transformer linears in w8a8 form, in
 that order, before any program is built (``io/lora.py``,
 ``ops/quant.py``); a swapped-in checkpoint goes through the same two
-steps.  Not ported yet: mesh and ``mesh_pipe`` serving (more than one
-device); each raises.
+steps.
+
+More than one device (config ``gpus``, ``mesh_model``, ``mesh_pipe``;
+``parallel/``): the engine stays one process with one dispatch thread.
+Under a ("data","model") mesh each program is a ``ShardedProgram`` (one
+frame program per data row, the attention and feed-forward split over the
+row's model slots) and batch buckets are multiples of the data axis; under
+``mesh_pipe=2`` the programs come from ``PipelinedFrameEngine`` (parity
+only: the batcher coerces the interval and temporal options, and reference
+mode serves unpipelined on the engine's device).  The mesh's devices are
+``Engine(devices=...)``'s (repeated entries allowed), else every device of
+the engine's device type; when ``gpus`` exceeds them the engine warns and
+serves on what there is, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -121,20 +132,32 @@ class Engine(
         deadline_ms: float | None = None,
         frame_hw: tuple[int, int] | None = None,
         device="cuda",
+        devices=None,
     ):
         """``bundle``: the serving ``ModelBundle`` (its device is the
         engine's); without one the bundle is built from ``config`` on
         ``device`` at first use (the card unless the caller asks for the
-        CPU)."""
+        CPU).  ``devices``: the devices a mesh (``gpus`` > 1) is cut from,
+        repeats allowed (the counterpart of the JAX tests' virtual
+        devices); default every device of the engine's device type."""
         self.config = config or ServerConfig()
-        if int(self.config.gpus or 1) > 1 or int(self.config.mesh_pipe or 1) > 1:
-            raise NotImplementedError(
-                "mesh and mesh_pipe serving (gpus > 1) is not ported yet: one card per engine")
         self._bundle = bundle
         self.device = torch.device(bundle.device if bundle is not None else device)
-        # batch multiple of the data axis (the JAX engine's mesh size): one
-        # engine drives one card
-        self.data_axis = 1
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        self.devices = [torch.device(d) for d in devices]
+        # multi-device serving (parallel/), resolved lazily at first use so
+        # an engine on one device pays nothing: the flat mesh (and the
+        # sharded engine holding its placed copies) or the pipeline
+        self._sharded = None
+        self._mesh_checked = False
+        self._pipe_engine = None
+        self._pipe_checked = False
+        # the event loop (bucket sizes), the dispatch thread and warm-up
+        # threads (programs) may each be first to resolve them
+        self._placement_lock = threading.RLock()
+        self._pipe_turbo_warned = False  # the batcher's one warning under mesh_pipe
         # provenance of the serving weights (None = random init); set by
         # the bundle resolver and swap_params, surfaced via stats()
         self.weights_source: dict | str | None = None
@@ -316,6 +339,85 @@ class Engine(
         return self._bundle
 
     @property
+    def mesh(self):
+        """The ("data","model") mesh when config asks for more than one
+        device (``gpus``/``mesh_model``), else None.  Falls back with a
+        warning when fewer devices exist than requested."""
+        with self._placement_lock:
+            if not self._mesh_checked:
+                self._resolve_mesh()
+        return None if self._sharded is None else self._sharded.mesh
+
+    def _resolve_mesh(self) -> None:
+        """Build the mesh's placements (a failure raises at each use: no
+        silent single-device serving)."""
+        n = int(self.config.gpus or 1)
+        if self.pipe_engine is not None:
+            n = 1  # the pipeline owns the devices; no flat mesh
+        if n > 1:
+            mp = max(1, int(self.config.mesh_model or 1))
+            avail = len(self.devices)
+            if avail < n:
+                n_eff = max(1, (avail // mp) * mp)
+                logging.getLogger("videosd_tpu_torch.engine").warning(
+                    "config requests gpus=%d but only %d device(s) "
+                    "exist; serving on %d", n, avail, n_eff,
+                )
+                n = n_eff
+            if n > 1:
+                from videosd_tpu_torch.parallel.serving import ShardedFrameEngine
+
+                self._sharded = ShardedFrameEngine(
+                    self.bundle, devices=self.devices[:n], model_parallel=mp)
+        self._mesh_checked = True
+
+    @property
+    def pipe_engine(self):
+        """``PipelinedFrameEngine`` when config asks for pipeline-parallel
+        serving (``mesh_pipe=2``), else None.  Degrades loudly to
+        unpipelined serving when the devices cannot hold 2 x mesh_model."""
+        with self._placement_lock:
+            if not self._pipe_checked:
+                self._resolve_pipe()
+        return self._pipe_engine
+
+    def _resolve_pipe(self) -> None:
+        pipe = max(1, int(getattr(self.config, "mesh_pipe", 1) or 1))
+        if pipe > 1:
+            n = int(self.config.gpus or 1)
+            mp = max(1, int(self.config.mesh_model or 1))
+            avail = len(self.devices)
+            if avail < n or n % (pipe * mp):
+                logging.getLogger("videosd_tpu_torch.engine").warning(
+                    "mesh_pipe=%d x mesh_model=%d needs gpus=%d devices "
+                    "(%d available); serving unpipelined", pipe, mp, n, avail,
+                )
+            else:
+                from videosd_tpu_torch.parallel.pipe import PipelinedFrameEngine
+
+                self._pipe_engine = PipelinedFrameEngine(
+                    self.bundle, devices=self.devices[:n], model_parallel=mp)
+        self._pipe_checked = True
+
+    @property
+    def data_axis(self) -> int:
+        """Batch buckets are multiples of this (rows split evenly)."""
+        if self.pipe_engine is not None:
+            return self.pipe_engine.data_size
+        return self.mesh.shape["data"] if self.mesh is not None else 1
+
+    @property
+    def params(self):
+        """What the programs read: under a mesh the placed copies, one
+        ``parallel.mesh.Placement`` per data row; under ``mesh_pipe`` each
+        stage's ({0: [...], 1: [...]}); else the bundle's models."""
+        if self.pipe_engine is not None:
+            return {s: self.pipe_engine.placements(s) for s in (0, 1)}
+        if self.mesh is not None:
+            return self._sharded.placements
+        return self.bundle.models
+
+    @property
     def _quant_int8(self) -> bool:
         return str(getattr(self.config, "quant", "none")).lower() == "int8"
 
@@ -353,7 +455,9 @@ class Engine(
 
         The state dicts are a base checkpoint's: the configured LoRA
         adapters fuse into them, and under ``quant: int8`` they quantize,
-        before they are matched against the serving modules.
+        before they are matched against the serving modules.  Under a mesh
+        or a pipeline the placed copies are re-placed from them in place
+        (``_load_weights``).
         """
         state_dicts = self._serving_form(state_dicts)
         self._check_like_serving(state_dicts)
@@ -513,12 +617,15 @@ class Engine(
             ),
         )
         s["dispatch_threads"] = dict(self._dispatch_threads)
-        s["devices"] = {"data": 1, "model": 1}
-        # CUDA graphs held by the programs, and the card's memory
-        s["graphs"] = sum(
-            b.graph is not None
-            for p in list(self._programs.values()) for b in list(p.buckets.values())
-        )
+        if self.pipe_engine is not None:
+            m0 = self.pipe_engine.pipe.mesh0
+            s["devices"] = {"data": m0.shape["data"], "model": m0.shape["model"], "pipe": 2}
+        elif self.mesh is not None:
+            s["devices"] = {"data": self.mesh.shape["data"], "model": self.mesh.shape["model"]}
+        else:
+            s["devices"] = {"data": 1, "model": 1}
+        # CUDA graphs held by the programs (every data row's), and the card's memory
+        s["graphs"] = sum(p.graphs for p in list(self._programs.values()))
         if self.device.type == "cuda":
             s["memory_gib"] = {
                 "allocated": torch.cuda.memory_allocated(self.device) / 2**30,

@@ -159,12 +159,14 @@ class BatcherMixin:
         return self._finalize_bucket(self._dispatch_bucket(*args, **kwargs))
 
     def _bucket_batch(self, n: int, buckets=(1, 2, 4, 8, 16)) -> int:
-        """Smallest batch bucket holding n frames (padding rows are
-        discarded)."""
+        """Smallest batch bucket holding n frames.  Under a mesh, buckets
+        are multiples of the data-axis size so every data row gets equal
+        rows (padding rows are discarded)."""
+        d = self.data_axis
         for b in buckets:
-            if n <= b:
-                return b
-        return buckets[-1]
+            if n <= b * d:
+                return b * d
+        return buckets[-1] * d
 
     def _collect_ready(self):
         """Pull the freshest frame of every stream with pending work."""
@@ -315,6 +317,20 @@ class BatcherMixin:
                     if ref_mode
                     else max(0, int(st.options.get("deepcache_temporal", 0) or 0))
                 )
+                if self.pipe_engine is not None and (
+                    cn_i > 1 or dc_i > 1 or tmp_n > 0
+                ):
+                    # the pipelined engine is parity-only (the interval
+                    # caches are single-program state); coerce rather than
+                    # let a public live option crash the dispatch loop
+                    if not self._pipe_turbo_warned:
+                        self._pipe_turbo_warned = True
+                        logging.getLogger("videosd_tpu_torch.engine").warning(
+                            "controlnet/deepcache intervals ignored under "
+                            "mesh_pipe (pipelined serving is parity-only)"
+                        )
+                    cn_i = dc_i = 1
+                    tmp_n = 0
                 if tmp_n > 0:
                     # temporal trunk reuse supersedes the per-step interval
                     # (mutually exclusive inside the program)

@@ -2,12 +2,15 @@
 
 The port's counterpart of ``videosd_tpu/runtime/engine_programs.py``: one
 program per ``(spec, ref_mode)`` key (a ``FrameProgram``, or the reference
-program for a ``ref_mode`` bucket), each holding a CUDA graph per call
-signature on the card, and the per-(model, prompt) embedding cache with
-its embedding-space crossfade.
+program for a ``ref_mode`` bucket, each holding a CUDA graph per call
+signature on the card; over a mesh one of each per data row, behind a
+``ShardedProgram``; under ``mesh_pipe`` the pipelined program), and the
+per-(model, prompt) embedding cache with its embedding-space crossfade.
 """
 
 from __future__ import annotations
+
+import logging
 
 __all__ = ["ProgramCacheMixin"]
 
@@ -99,13 +102,29 @@ class ProgramCacheMixin:
         prof.export_chrome_trace(path)
 
     def _get_program(self, spec, *, ref_mode: bool = False):
+        """The program of a (spec, ref_mode) bucket: single-device, sharded
+        over the mesh (``ShardedFrameEngine.program``) or pipelined
+        (``PipelinedFrameEngine.serving_program``).  A reference-mode
+        bucket has no stage split: under ``mesh_pipe`` it serves
+        unpipelined on the engine's device, with a warning."""
         key = (spec, ref_mode)
         prog = self._programs.get(key)
         if prog is None:
-            if ref_mode:
+            if self.mesh is not None:
+                prog = self._sharded.program(spec, ref_mode=ref_mode)
+            elif ref_mode:
                 from videosd_tpu_torch.pipelines.reference_attn import build_reference_program
 
                 prog = build_reference_program(self.bundle, spec)
+                if self.pipe_engine is not None:
+                    # loud, once per spec, so ops can see the gap
+                    logging.getLogger("videosd_tpu_torch.engine").warning(
+                        "ref_mode bucket %s serves UNPIPELINED under "
+                        "mesh_pipe (reference-attention has no stage split)",
+                        spec,
+                    )
+            elif self.pipe_engine is not None:
+                prog = self.pipe_engine.serving_program(spec)
             else:
                 from videosd_tpu_torch.pipelines.lcm_img2img import build_frame_program
 

@@ -58,10 +58,15 @@ class ModelRegistryMixin:
 
     def _load_weights(self, state_dicts: dict) -> None:
         """Copy ``state_dicts`` into the serving modules in place, on the
-        current stream (callers hold ``_weights_lock``)."""
+        current stream (callers hold ``_weights_lock``), then, under a mesh
+        or a pipeline, into every placed copy (each `models:` entry is
+        placed as the default is, JAX's ``params_for``)."""
         with torch.no_grad():
             for name, sd in state_dicts.items():
                 self.bundle.models[name].load_state_dict(sd, strict=True)
+        for placed in (self._sharded, self._pipe_engine):
+            if placed is not None:
+                placed.refresh_params()
 
     @staticmethod
     def _clone_weights(state_dicts: dict) -> dict:

@@ -29,7 +29,8 @@ class WarmupMixin:
         refresh_last: bool | None = None, temporal: bool | None = None,
         ref: bool = False,
     ):
-        """Warm the hot buckets ahead of serving.  ``cn_interval``/
+        """Warm the hot buckets ahead of serving.  ``batch_sizes`` are per
+        data row: the warmed batch is b * data_axis.  ``cn_interval``/
         ``dc_interval`` default to the config's option_defaults values so
         the warmed programs match what new streams will actually request.
         ``ref=True`` ADDITIONALLY warms each bucket's reference-attention
@@ -48,6 +49,10 @@ class WarmupMixin:
             refresh_last = bool(defaults.get("interval_refresh_last", False))
         if temporal is None:
             temporal = int(defaults.get("deepcache_temporal", 0) or 0) > 0
+        if self.pipe_engine is not None:
+            # pipelined serving is parity-only; warm what will be served
+            cn_interval = dc_interval = 1
+            temporal = False
         if temporal:
             dc_interval = 1  # mutually exclusive; temporal wins (batcher rule)
         refresh_last = refresh_last and (
@@ -57,7 +62,7 @@ class WarmupMixin:
         for b in batch_sizes:
             for s in steps:
                 spec = FrameSpec(
-                    batch=b, height=height, width=width,
+                    batch=b * self.data_axis, height=height, width=width,
                     in_height=ih, in_width=iw, steps=s,
                     in_format=self.input_format,
                     controlnet_interval=max(1, cn_interval),

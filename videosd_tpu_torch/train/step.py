@@ -18,8 +18,9 @@ Pallas forward under ``_attention_pallas_diff``.  Inputs made under
 ``torch.inference_mode()`` (the prompt encoder's embeddings) cannot be saved
 for backward; the steps take a plain copy of such a tensor.
 
-Only one device: ``mesh`` (the JAX step's tensor-sharded variant) raises
-until the port runs on several (ROADMAP queue 1, item 5).
+Only one device: ``mesh`` (the JAX step's sharded variant) raises; serving
+runs over a mesh (``parallel/``), and the sharded step, with its data-axis
+gradient reduction, is ROADMAP queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def make_train_step(sched_cfg: LCMSchedulerConfig, mesh=None):
     are drawn over the full schedule.
     """
     if mesh is not None:
-        raise NotImplementedError("the port trains on one device: a sharded train step "
-                                  "comes with ROADMAP queue 1, item 5 (parallel/mesh.py)")
+        raise NotImplementedError("the port trains on one device: the sharded train step "
+                                  "(a data-axis gradient reduction over parallel/mesh.py) is "
+                                  "ROADMAP queue 1, item 6")
     alphas = torch.from_numpy(make_alphas_cumprod(sched_cfg))
 
     def train_step(state, batch, *, generator=None, t=None, noise=None):
