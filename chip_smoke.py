@@ -178,6 +178,34 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``{"data": 2, "model": 1}``, and ``Engine(ServerConfig(gpus=2))`` without
    ``devices=`` logging the fallback and serving on ``{"data": 1, "model":
    1}``;
+6i. the sharded train step in one process, inside 6e after the UNet
+   steps: ``make_train_step(sched_cfg, mesh=...)`` on a (2 data x 2 model)
+   mesh of ``cuda:0`` slots, sd15 fp32 512x512 batch 2, AdamW, TF32 off,
+   three steps from the single-device step's start and draws: 60 fp32 K1
+   launches a step (2 rows x 2 model ranks x 15), the first step's
+   gradients within 1e-3 per tensor of the plain-attention pass's, every
+   parameter with a finite gradient, the weights after each step within
+   1e-5 relative L2 of the single-device step's, step ms and peak memory,
+   then two more steps with their parts timed (placement loads, forwards,
+   gradient reduction, optimizer, the rest);
+   after the K1 timings, K1' in fp32 at the sharded step's shapes
+   ([4,4096,40], [4,1024,80], [4,256,160]) timed beside its bound, the
+   plain version's and SDPA's;
+6j. two processes (``chip_smoke.py --mesh-child``), each on ``cuda:0`` with
+   4 slots, joined by ``init_distributed`` over ``gloo`` (NCCL refuses two
+   ranks on one card; the backend printed), each under a timeout: (a)
+   JAX's psum case over the (4 x 2) mesh across them ([12, 16]; a model
+   row across the processes raises); (b) the sd15 bf16 512x512 4-step
+   CN+TAESD serving program at batch 2 on a (2 x 1) mesh of one slot a
+   process, each process's row equal bit for bit to the single-device
+   program on it; (c) the sharded train step across the processes at sd15
+   fp32 256x256 batch 2 (AdamW, two steps, each step's parts timed): both
+   processes' weights equal, and in rank 0 the one-process step on a
+   (2 x 1) mesh from the same start and draws (first step's gradients
+   within 1e-4 of each tensor's largest, weights within 1e-5 relative L2),
+   the one-process step against itself (under the same bar) and under
+   ``cudnn.deterministic``, and the step with its all-reduce skipped (a
+   planted fault, which must miss the bar); each process's peak memory;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
@@ -608,6 +636,18 @@ TRAIN_GRAD_REL = 1e-3
 # K1 launches per train step: the UNet's 15 routed self-attentions; with the
 # ControlNet, its 6 beside them (the backward launches none)
 K1_PER_UNET_STEP, K1_PER_CN_STEP = 15, 21
+# the sharded UNet step (6i) on a (2 data x 2 model) mesh of cuda:0 slots:
+# each data row runs the UNet on its half of the batch, and every routed
+# attention splits over the 2 model ranks (8 heads, 4 a rank): 2 x 2 x 15
+# launches a step, 20 at each of [4,4096,40], [4,1024,80] and [4,256,160].
+# Its weights after each step against the single-device step's, by relative
+# L2 over the whole model: the two sum the same products in other orders
+# (row-split GEMMs, the ranks' partial sums, the rows' gradient mean), and
+# AdamW's first steps are ~lr * sign(g), so an element whose gradient cancels
+# to rounding size may move by ~lr either way: 1e-5 of the weights' norm
+K1_PER_MESH_STEP, K1P_PER_MESH_SHAPE, MESH_TRAIN_REL_L2 = 60, 20, 1e-5
+# then this many more steps, each with its parts timed (_step_parts)
+MESH_PART_STEPS = 2
 # the routed self-attentions' projections, by block: down 0-2 x 2 and up 1-3 x
 # 3 transformer blocks in the UNet, down 0-2 x 2 in the ControlNet (the mid
 # block's 64 tokens stay on the plain route)
@@ -625,6 +665,26 @@ _T0 = time.perf_counter()
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+# lines of a failed child process's output repeated on standard error
+CHILD_TAIL_LINES = 40
+
+
+def fail_child(label: str, rc: int, lines: list) -> None:
+    """Fails the run for a child process that exited ``rc``: its last
+    CHILD_TAIL_LINES lines of output (stdout and stderr merged) go to this
+    process's standard error, whose end is what a reader of a failed run
+    sees first, and the failure names the reason the child gave (its own
+    FAIL line, else faulthandler's timeout, else its last line: a
+    traceback's exception)."""
+    tail = [ln.rstrip("\n") for ln in lines if ln.strip()][-CHILD_TAIL_LINES:]
+    sys.stderr.write("".join(f"  [{label}] {ln}\n" for ln in tail))
+    said = [ln for ln in tail if ln.startswith("chip_smoke: FAIL:")]
+    hung = [ln for ln in tail if ln.startswith("Timeout (")]  # faulthandler's stacks follow
+    reason = (said[-1] if said else f"{hung[-1]} (its stacks are above)" if hung
+              else tail[-1] if tail else "no output")
+    fail(f"{label} exited {rc}: {reason}")
 
 
 def _note(msg: str) -> None:
@@ -1984,10 +2044,11 @@ def phase_server_process(card: str, engine_res: dict) -> int:
         child.kill()
         child.wait()
         reader.join(timeout=10)
-        fail(f"the server phase's process ran past {SERVER_CHILD_S} s and was killed")
+        fail_child(f"the server phase's process (killed after {SERVER_CHILD_S} s)",
+                   child.returncode, lines)
     reader.join(timeout=10)
     if rc != 0:
-        fail(f"the server phase's process exited {rc}")
+        fail_child("the server phase's process", rc, lines)
     result = [ln for ln in lines if ln.startswith('{"server_launches"')]
     if not result:
         fail("the server phase's process printed no result")
@@ -3155,11 +3216,19 @@ def phase_k1_prime(card: str, clock: float) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows = {kind: [_k1p_case(gen, h, s, d, dtype, clock) for h, s, d in K1_SHAPES]
             for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    # the sharded step's shapes (phase 6i: 4 of the 8 heads a model rank)
+    rows["fp32_tp2"] = [_k1p_case(gen, h, sq, d, torch.float32, clock)
+                        for _, h, sq, _, d in K1_TP2]
     total = _k1_totals(rows["fp32"])
     print(f"K1' fp32 forward + backward, one call at each main shape ({card}): "
           + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
-    return {**total, "max_abs_err": max(r["max_abs_err"] for r in rows["fp32"]),
-            "per_shape": rows["fp32"], "bf16_per_shape": rows["bf16"]}
+    tp2 = _k1_totals(rows["fp32_tp2"])
+    print(f"K1' fp32 forward + backward at the tensor-parallel shapes, one call each, "
+          f"{K1P_PER_MESH_SHAPE} of each a (2 x 2) sharded step ({card}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tp2.items() if k != "bound_by"))
+    return {**total, "max_abs_err": max(r["max_abs_err"] for k in rows for r in rows[k]),
+            "per_shape": rows["fp32"], "bf16_per_shape": rows["bf16"],
+            "tp2_per_shape": rows["fp32_tp2"]}
 
 
 @contextlib.contextmanager
@@ -3192,13 +3261,14 @@ def _plain_grads(model, run) -> dict:
 
 
 def _train_steps(label: str, card: str, model, run, plain: dict, per_step: int,
-                 routed: int) -> dict:
+                 routed: int, after=None) -> dict:
     """``TRAIN_STEPS`` calls of ``run(state, **draws)``: the first on the
     plain pass's t and noise (the warm-up), its gradients held to the plain
     pass's; then on a generator's draws, each timed by CUDA events.  Every
     step: a finite loss and ``per_step`` fp32 K1 launches; after the first,
     a finite gradient for every parameter and a nonzero one for each of the
-    ``routed`` projections of routed self-attentions (ROUTED_QKV)."""
+    ``routed`` projections of routed self-attentions (ROUTED_QKV).
+    ``after(i)``: called after step i, outside the timing."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     losses, ms, launches = [], [], 0
     torch.cuda.reset_peak_memory_stats()
@@ -3217,6 +3287,8 @@ def _train_steps(label: str, card: str, model, run, plain: dict, per_step: int,
         losses.append(loss.item())
         if i:
             ms.append(start.elapsed_time(end))
+        if after is not None:
+            after(i)
         if i == 0:
             worst, zero, bad = (0.0, ""), [], []
             for n, p in model.named_parameters():
@@ -3273,10 +3345,17 @@ def phase_train(card: str) -> dict:
     draws = {"t": torch.randint(0, 1000, (b,), generator=gen, device="cuda"), "noise": noise}
     plain = _plain_grads(unet, lambda st: step(st, batch, **draws))
     plain["draws"] = draws
+    start = _host_copy(unet)
+    record = []
     state = train_step.init_train_state(unet, optim.adamw(TRAIN_LR))
     res = {"unet": _train_steps("UNet", card, unet, lambda **kw: step(state, batch, **kw),
-                                plain, K1_PER_UNET_STEP, 45)}
-    del state, plain
+                                plain, K1_PER_UNET_STEP, 45,
+                                after=lambda i: record.append(_host_copy(unet)))}
+    del state
+    unet.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    res["mesh"] = phase_6i(card, unet, batch, bundle.sched_cfg, plain, start, record)
+    del plain, start, record
     unet.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
@@ -3304,6 +3383,117 @@ def phase_train(card: str) -> dict:
     return res
 
 
+def _host_copy(model) -> dict:
+    """Every parameter of ``model``, copied to host memory."""
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+
+def phase_6i(card: str, unet, batch: dict, sched_cfg, plain: dict, start: dict,
+             record: list) -> dict:
+    """6i: the sharded UNet train step in one process
+    (``make_train_step(sched_cfg, mesh=...)``) on a (2 x 2) mesh of
+    ``cuda:0`` slots, from the single-device step's start (``start``) with
+    its draws and optimizer (AdamW), held by :func:`_train_steps` (60 fp32 K1
+    launches a step: 2 rows x 2 model ranks x 15; the first step's
+    gradients to the plain-attention pass's) and, after each step, the
+    whole model against the single-device step's (``record``) by relative
+    L2, every parameter with a finite gradient.  Returns the readings."""
+    from videosd_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        for n, p in unet.named_parameters():
+            p.copy_(start[n])
+    mesh = make_mesh(devices=MESH_SLOTS, model_parallel=2)
+    step = train_step.make_train_step(sched_cfg, mesh=mesh)
+    state = train_step.init_train_state(unet, optim.adamw(TRAIN_LR))
+    rel, missing = [], []
+
+    def against_single(i):
+        num = den = 0.0
+        for n, p in unet.named_parameters():
+            want = record[i][n].to(p.device).double()
+            num = num + (p.detach().double() - want).pow(2).sum()
+            den = den + want.pow(2).sum()
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                missing.append((i, n))
+        rel.append(math.sqrt((num / den).item()))
+
+    res = _train_steps("UNet on a (2 x 2) mesh", card, unet,
+                       lambda **kw: step(state, batch, **kw), plain, K1_PER_MESH_STEP, 45,
+                       after=against_single)
+    print(f"6i sharded step, sd15 fp32 {TRAIN_SIDE}x{TRAIN_SIDE} batch {TRAIN_BATCH} AdamW on a "
+          f"{mesh.shape} mesh of {[str(d) for d in MESH_SLOTS]} ({card}): whole-model relative "
+          f"L2 to the single-device step's weights after each step "
+          + ", ".join(f"{x:.3e}" for x in rel) + f" (bar {MESH_TRAIN_REL_L2:g}); "
+          f"{len(missing)} (step, parameter) without a finite gradient; "
+          f"{K1_PER_MESH_STEP} fp32 K1 launches a step ({res['launches']} in all); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if missing or max(rel) > MESH_TRAIN_REL_L2:
+        fail(f"6i: the sharded step's weights are {max(rel):.3e} off the single-device step's, "
+             f"or parameters without a gradient {missing[:3]}")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    parts = [_timed_step(lambda: step(state, batch, generator=gen), state["optimizer"])[1]
+             for _ in range(MESH_PART_STEPS)]
+    print(f"6i the sharded step's parts, {MESH_PART_STEPS} more steps ({card}; host ms, each "
+          f"part between two synchronizations): " + "; ".join(map(_parts_text, parts)))
+    del state, step
+    return {**res, "rel_l2": rel, "parts": parts}
+
+
+@contextlib.contextmanager
+def _step_parts(opt, parts: dict):
+    """While inside, the sharded train step's parts are timed on the host
+    clock, each between two synchronizations of the card, and their ms
+    added into ``parts``: the placement loads (``load``), the rows'
+    forwards (``forward``), the gradient reduction with its all-reduce
+    (``reduce_grads``) and ``opt``'s step (``optimizer``)."""
+    from videosd_tpu_torch.parallel import mesh as pmesh
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    saved = pmesh.Placement.load, train_step.unet_apply, train_step.reduce_grads
+    pmesh.Placement.load = timed("load", saved[0])
+    train_step.unet_apply = timed("forward", saved[1])
+    train_step.reduce_grads = timed("reduce_grads", saved[2])
+    opt.step = timed("optimizer", opt.step)
+    try:
+        yield parts
+    finally:
+        pmesh.Placement.load, train_step.unet_apply, train_step.reduce_grads = saved
+        del opt.step
+
+
+def _timed_step(run, opt) -> tuple[float, dict]:
+    """One sharded train step ``run()`` with its parts timed by
+    :func:`_step_parts`: its loss and {part: host ms}, with ``wall`` and
+    ``backward and rest`` (the wall time less the timed parts: the rows'
+    backwards, the draws and the batch split)."""
+    parts = {}
+    with _step_parts(opt, parts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run()["loss"].item()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    parts["backward and rest"] = wall - sum(parts.values())
+    parts["wall"] = wall
+    return loss, parts
+
+
+def _parts_text(parts: dict) -> str:
+    return f"wall {parts['wall']:.1f} (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items() if k != "wall") + ")"
+
+
 def _run_tool(args: list, label: str, timeout: float = TOY_CHILD_S) -> list:
     """``python -m`` one of the port's tools in a process of its own; its
     output is passed on (and its lines returned), and a nonzero exit or a
@@ -3318,8 +3508,7 @@ def _run_tool(args: list, label: str, timeout: float = TOY_CHILD_S) -> list:
     print("\n".join(f"   {ln}" for ln in lines[-14:]))
     print(f"{label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
     if proc.returncode:
-        print(proc.stderr[-4000:])
-        fail(f"{label} exited {proc.returncode}")
+        fail_child(label, proc.returncode, lines + proc.stderr.splitlines())
     return lines
 
 
@@ -3894,6 +4083,24 @@ def phase_6g(card: str, main, sdxl: dict) -> dict:
 # frame's; the pipelined bf16 frames timed alone (they run eagerly)
 MESH_SLOTS = [torch.device("cuda", 0)] * 4
 MESH_TURNS, MESH_TURN_FRAMES, PIPE_FRAMES = 3, 4, 4
+# phase 6j: two processes on cuda:0, each given this long; the group's
+# rendezvous and collectives wait at most MESH_DIST_TIMEOUT_S; the train
+# step across them at sd15 fp32 256x256, batch 2, two steps; its first
+# step's gradients against the one-process step's, as max |d| over each
+# tensor's largest.  The two sum the rows' gradients alike (g0 + g1, once
+# through host memory), but the rows' gradients are not reproducible:
+# cuDNN's default convolution backward algorithms sum in another order from
+# run to run.  Readings (H100): the one-process step against itself
+# 4.573e-6, the step across processes against it 4.6e-6 to 4.9e-6, both 0
+# with cudnn.deterministic (re-read every run); the all-reduce skipped (a
+# planted fault, re-read every run) 1.078.  The bar sits 20x above the
+# first and 1e4x below the second
+MESH_CHILD_S, MESH_DIST_TIMEOUT_S = 240, 120
+MESH_CHILD_TRAIN_SIDE, MESH_CHILD_STEPS, MESH_CHILD_GRAD_REL = 256, 2, 1e-4
+# K1 launches a process makes a step at 256^2 (one data row, one model
+# rank): the routed self-attentions at 1024 and 256 tokens (down 0-1 x 2,
+# up 2-3 x 3); the 64-token stage stays on the plain route
+MESH_CHILD_K1_PER_STEP = 10
 
 
 def _mesh_rows_vs_eager(name: str, program, got) -> None:
@@ -4112,6 +4319,259 @@ def phase_6h(card: str, main) -> dict:
     return res
 
 
+def _gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_child_main(rank: int, addr: str) -> None:
+    """One of phase 6j's two processes (``chip_smoke.py --mesh-child RANK
+    ADDR``), both on ``cuda:0``: it joins the group at ``tcp://ADDR`` with 4
+    local slots, then runs (a) JAX's psum case, (b) the sd15 bf16 512x512
+    4-step CN+TAESD serving program at batch 2 on a (2 x 1) mesh of one
+    slot a process, its row against the single-device program on that row
+    bit for bit, (c) the sharded UNet train step at sd15 fp32 256x256 batch
+    2 (AdamW) on that mesh across the processes, then, in rank 0, the
+    one-process step on a (2 x 1) mesh of cuda:0 slots from the same start
+    and draws, that step against itself (cuDNN free, then deterministic),
+    and the step across processes with its all-reduce skipped (a planted
+    fault).  Prints one ``MESH_CHILD_RESULT {json}`` line; any failure
+    exits nonzero."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from videosd_tpu_torch.parallel import mesh as pmesh
+    from videosd_tpu_torch.parallel.serving import ShardedFrameEngine
+
+    faulthandler.dump_traceback_later(MESH_CHILD_S - 20, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    n = pmesh.init_distributed(addr, num_processes=2, process_id=rank, devices=[cuda] * 4,
+                               timeout=MESH_DIST_TIMEOUT_S)
+    world = pmesh.world()
+    out = {"rank": rank, "backend": world.backend, "slots": n}
+    print(f"6j rank {rank}: init_distributed over tcp://{addr}: {n} slots ({len(world.local)} "
+          f"local), data-axis reductions over {world.backend}", flush=True)
+
+    # (a) JAX's psum case (tests/test_multihost.py)
+    mesh8 = pmesh.make_mesh(8, model_parallel=2)
+    full = torch.arange(8.0, device=cuda)
+    psum = pmesh.reduce_data([full[2 * i:2 * i + 2] for i in mesh8.local_rows()], mesh8)
+    try:
+        pmesh.make_mesh(8, model_parallel=8)
+        spans = "no error"
+    except ValueError as e:
+        spans = str(e)
+    out["psum"] = psum.tolist()
+    if out["psum"] != [12.0, 16.0] or "span processes" not in spans:
+        fail(f"6j rank {rank}: psum over data {out['psum']} (want [12, 16]), a row across "
+             f"processes: {spans}")
+
+    # (b) serving, one row a process
+    mesh = pmesh.Mesh([slots[0] for slots in world.slots], processes=range(world.size))
+    bundle = ModelBundle.random("sd15", dtype=torch.bfloat16, device="cuda")
+    embeds, _ = build_prompt_encoder(bundle)(bundle.tokenizer(["portrait, pixar, cg"]))
+    rng = np.random.default_rng(61)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8)).cuda()
+    args = ([0.6, 0.45], [5.0, 4.0], [2.0, 1.5], [23, 41])
+    spec = FrameSpec(batch=2, height=512, width=512, steps=4)
+    eng = ShardedFrameEngine(bundle, mesh=mesh)
+    _zero_counts()
+    shards = eng.program(spec).shards(frames, embeds.expand(2, -1, -1), *args)
+    torch.cuda.synchronize()
+    out["serve_launches"] = fa.launches
+    _zero_counts()  # the single-device program below compares; it is not counted
+    ((rows, got),) = shards
+    alone = build_frame_program(bundle, dataclasses.replace(spec, batch=1))(
+        frames[rows], embeds, *(a[rows] for a in args))
+    out["serve_rows"] = [rows.start, rows.stop]
+    out["serve_same"] = _same(got, alone)
+    out["serve_peak_gib"] = _gib()
+    print(f"6j rank {rank}: serving rows {out['serve_rows']} of batch 2 equal bit for bit to the "
+          f"single-device program on them: {out['serve_same']}; {out['serve_launches']} K1 "
+          f"launches (warm-up and capture); peak {out['serve_peak_gib']:.2f} GiB", flush=True)
+    if (rows != slice(rank, rank + 1) or not out["serve_same"]
+            or out["serve_launches"] != 2 * K1_PER_FRAME):
+        fail(f"6j rank {rank}: the serving row, or its K1 launches (want {2 * K1_PER_FRAME}: "
+             f"{K1_PER_FRAME} a frame, warm-up and capture)")
+    del eng, shards, got, alone, bundle, embeds
+    torch.cuda.empty_cache()
+
+    # (c) the sharded train step across the two processes
+    side, b = MESH_CHILD_TRAIN_SIDE, TRAIN_BATCH
+    tb = ModelBundle.random("sd15", dtype=torch.float32, device="cuda", with_controlnet=False)
+    unet = tb.models["unet"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = tb.unet_cfg
+    batch = {"latents": torch.randn(b, side // 8, side // 8, 4, generator=gen, device="cuda"),
+             "context": torch.randn(b, 77, cfg.cross_attention_dim, generator=gen,
+                                    device="cuda"),
+             "w_cond": layers.guidance_embedding(torch.full((b,), 5.0, device="cuda"),
+                                                 cfg.time_cond_proj_dim)}
+    start = _host_copy(unet) if rank == 0 else None
+
+    def steps(step_mesh, n=MESH_CHILD_STEPS, keep="cpu"):
+        state = train_step.init_train_state(unet, optim.adamw(TRAIN_LR))
+        step = train_step.make_train_step(tb.sched_cfg, mesh=step_mesh)
+        draw = torch.Generator(device="cuda").manual_seed(11)
+        losses, parts, first = [], [], None
+        for i in range(n):
+            loss, timed = _timed_step(lambda: step(state, batch, generator=draw),
+                                      state["optimizer"])
+            losses.append(loss)
+            parts.append(timed)
+            if i == 0:
+                first = {n: p.grad.detach().to(keep, copy=True)
+                         for n, p in unet.named_parameters()}
+        del state, step
+        return losses, parts, first
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, parts, grads = steps(mesh)
+    torch.cuda.synchronize()
+    out.update(train_launches=fa.launches_fp32, train_losses=losses,
+               train_ms=[p["wall"] for p in parts], train_parts=parts, train_peak_gib=_gib())
+    digest = [float(p.detach().double().sum()) for p in unet.parameters()]
+    both = [None, None]
+    dist.all_gather_object(both, digest)
+    out["same_weights"] = both[0] == both[1]
+    print(f"6j rank {rank}: sharded step across 2 processes, sd15 fp32 {side}x{side} batch {b} "
+          f"AdamW: losses {losses}; host ms per step: {'; '.join(map(_parts_text, parts))}; "
+          f"{out['train_launches']} fp32 K1 launches, peak {out['train_peak_gib']:.2f} GiB; "
+          f"both processes' weights equal: {out['same_weights']}", flush=True)
+    if not out["same_weights"] or out["train_launches"] != MESH_CHILD_STEPS * MESH_CHILD_K1_PER_STEP:
+        fail(f"6j rank {rank}: the processes' weights differ, or the K1 launches")
+    # both processes give their memory back before rank 0 runs the
+    # one-process step alone (the card is shared with the parent)
+    after = _host_copy(unet) if rank == 0 else None
+    unet.zero_grad(set_to_none=True)
+    if rank:
+        del tb, unet, batch
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        def restore():
+            with torch.no_grad():
+                for n, p in unet.named_parameters():
+                    p.copy_(start[n])
+
+        def rel(got, want):
+            return max(((got[n] - g).abs().max().item() / g.abs().max().item(), n)
+                       for n, g in want.items())
+
+        restore()
+        one_mesh = pmesh.make_mesh(devices=[cuda] * 2)
+        one_losses, _, one_grads = steps(one_mesh)
+        grad_err = rel(grads, one_grads)
+        num = sum((p.detach().cpu().double() - after[n].double()).pow(2).sum().item()
+                  for n, p in unet.named_parameters())
+        den = sum(p.detach().cpu().double().pow(2).sum().item() for p in unet.parameters())
+        # the backward's own spread: the one-process step again from the same
+        # start and draws; then twice with cuDNN held to deterministic
+        # algorithms (these runs keep their start and gradients on the card)
+        start = {n: t.to(cuda) for n, t in start.items()}
+        want = {n: g.to(cuda) for n, g in one_grads.items()}
+        restore()
+        spread = rel(steps(one_mesh, 1, cuda)[2], want)
+        torch.backends.cudnn.deterministic = True
+        try:
+            restore()
+            det = steps(one_mesh, 1, cuda)[2]
+            restore()
+            det_spread = rel(steps(one_mesh, 1, cuda)[2], det)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del det
+        # a planted fault: the step across processes with its all-reduce
+        # skipped, so that this process keeps its own row's gradient
+        saved = pmesh._all_reduce
+        pmesh._all_reduce = lambda t: None
+        try:
+            restore()
+            fault = rel(steps(mesh, 1, cuda)[2], want)
+        finally:
+            pmesh._all_reduce = saved
+        del start, want
+        out.update(one_process_losses=one_losses, grad_rel_max=grad_err[0],
+                   weights_rel_l2=math.sqrt(num / den), repeat_rel_max=spread[0],
+                   deterministic_repeat_rel_max=det_spread[0], fault_rel_max=fault[0])
+        print(f"6j rank 0: against the one-process step on a (2 x 1) mesh of cuda:0 slots: "
+              f"losses {one_losses}; first step's gradients max |d| / max |g| {grad_err[0]:.3e} "
+              f"({grad_err[1]}; bar {MESH_CHILD_GRAD_REL:g}); weights after "
+              f"{MESH_CHILD_STEPS} steps relative L2 {out['weights_rel_l2']:.3e} "
+              f"(bar {MESH_TRAIN_REL_L2:g}); the one-process step against itself "
+              f"{spread[0]:.3e} ({spread[1]}), with cuDNN deterministic {det_spread[0]:.3e} "
+              f"({det_spread[1]}); the planted fault (the all-reduce skipped) {fault[0]:.3e} "
+              f"({fault[1]})", flush=True)
+        if (grad_err[0] > MESH_CHILD_GRAD_REL or out["weights_rel_l2"] > MESH_TRAIN_REL_L2
+                or spread[0] > MESH_CHILD_GRAD_REL or fault[0] <= MESH_CHILD_GRAD_REL):
+            fail("6j: the step across processes is off the one-process step, the one-process "
+                 "step off itself, or the planted fault passes")
+    dist.barrier()
+    pmesh.shutdown_distributed()
+    print("MESH_CHILD_RESULT " + json.dumps(out), flush=True)
+
+
+def phase_6j(card: str) -> dict:
+    """6j: two processes on ``cuda:0`` (:func:`mesh_child_main`), each under a
+    timeout; the parent frees its cache first.  A child's failure, a run
+    past its time or a missing result fails the run.  Returns the
+    children's results and the K1 launches of their main paths."""
+    import socket
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() / 2**30, torch.cuda.memory_reserved() / 2**30)
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    addr = f"localhost:{sock.getsockname()[1]}"
+    sock.close()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--mesh-child", str(r), addr],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=os.path.dirname(here)) for r in range(2)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=MESH_CHILD_S)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text = p.communicate()[0]  # a retried communicate loses no output
+                fail_child(f"6j rank {r} (killed after {MESH_CHILD_S} s)", p.returncode,
+                           text.splitlines())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = text.splitlines()
+        print("\n".join(f"   [6j rank {r}] {ln}" for ln in lines[-40:]
+                        if not ln.startswith("MESH_CHILD_RESULT ")))
+        found = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                 if ln.startswith("MESH_CHILD_RESULT ")]
+        if p.returncode:
+            fail_child(f"6j rank {r}", p.returncode, lines)
+        if not found:
+            fail(f"6j: rank {r} exited 0 without its result")
+        results.append(found[0])
+    res = {"children": results,
+           "launches": sum(c["serve_launches"] for c in results),
+           "fp32_launches": sum(c["train_launches"] for c in results)}
+    print(f"6j two processes on {card}, backend {results[0]['backend']}: psum {results[0]['psum']}; "
+          f"serving rows bit for bit {[c['serve_same'] for c in results]}; train step ms per "
+          f"process {[c['train_ms'] for c in results]}; peak GiB per process (serving, training) "
+          f"{[(round(c['serve_peak_gib'], 2), round(c['train_peak_gib'], 2)) for c in results]} "
+          f"beside the parent's {held[0]:.2f} GiB allocated, {held[1]:.2f} reserved; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     import faulthandler
 
@@ -4143,6 +4603,7 @@ def main() -> None:
     phase_toy(card)
     g = phase_6g(card, main, sdxl)
     mesh = phase_6h(card, main)
+    processes = phase_6j(card)
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k1_prime = phase_k1_prime(card, clock)
     k2_res = phase_k2(card, clock)
@@ -4162,7 +4623,8 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
          "launches": (k1_launches + ref_launches + server_launches + sd21["launches"]
-                      + sdxl["launches"] + g["launches"] + mesh["launches"]),
+                      + sdxl["launches"] + g["launches"] + mesh["launches"]
+                      + processes["launches"]),
          "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,
@@ -4177,7 +4639,9 @@ def main() -> None:
         {"name": "flash_attention_recompute", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu",
          "function": "videosd_tpu_torch/models/layers.py::FlashAttentionRecompute",
-         "replaces": "videosd_tpu/models/layers.py:283", "launches": train["launches"],
+         "replaces": "videosd_tpu/models/layers.py:283",
+         "launches": (train["launches"] + train["mesh"]["launches"]
+                      + processes["fp32_launches"]),
          **k1_prime},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",
@@ -4200,5 +4664,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--server"]:
         server_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-child"]:
+        mesh_child_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -997,12 +997,17 @@ def test_unported_configurations_raise(caplog):
     """More than one device is served (``tests/test_torch_port_parallel.py``
     and ``test_torch_port_pipe.py``): on one device ``gpus=2`` and
     ``mesh_pipe=2`` warn and serve on that device, as the JAX engine does.
-    The sharded train step is still to come and raises.  LoRA and int8
+    The sharded train step and ``init_distributed`` are ported (their cases
+    are in ``test_torch_port_train_mesh.py`` and
+    ``test_torch_port_multiprocess.py``): a step over a mesh is built, and
+    one process drives its local slots.  LoRA and int8
     weights are served (their cases are in ``test_torch_port_lora.py`` and
     ``test_torch_port_quant.py``): a LoRA file that is not there fails as a
     missing file, not as unported."""
     import logging
 
+    from videosd_tpu_torch.parallel.mesh import init_distributed, make_mesh, world
+    from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig
     from videosd_tpu_torch.train.step import make_train_step
 
     with caplog.at_level(logging.WARNING, logger="videosd_tpu_torch.engine"):
@@ -1014,8 +1019,10 @@ def test_unported_configurations_raise(caplog):
         eng = Engine(ServerConfig(mesh_pipe=2), device="cpu", frame_hw=(32, 32))
         assert eng.pipe_engine is None and eng.mesh is None and eng.data_axis == 1
         assert any("serving unpipelined" in r.getMessage() for r in caplog.records)
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        make_train_step(None, mesh=object())
+    # the sharded train step and init_distributed are ported: a step over a
+    # mesh, and one process driving its local slots
+    assert callable(make_train_step(LCMSchedulerConfig(), mesh=make_mesh(devices=["cpu"] * 2)))
+    assert init_distributed(devices=["cpu"] * 4) == 4 and world() is None
     with pytest.raises(FileNotFoundError):
         Engine(ServerConfig(family="tiny", weights="random", lora=[("a.safetensors", 1.0)]),
                device="cpu").bundle

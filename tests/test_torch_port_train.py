@@ -35,6 +35,7 @@ from videosd_tpu.train import step as JT
 from videosd_tpu_torch.io import weights as PW
 from videosd_tpu_torch.models import layers as PL
 from videosd_tpu_torch.ops.cuda import preprocess_kernel, taesd_conv
+from videosd_tpu_torch.parallel.mesh import make_mesh
 from videosd_tpu_torch.pipelines import lcm_img2img as P
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig
 from videosd_tpu_torch.train import step as PT
@@ -283,8 +284,20 @@ def test_steps_need_draws_and_one_device(setup):
         step(state, batch)
     with pytest.raises(ValueError, match="together"):
         step(state, batch, t=torch.zeros(B, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        PT.make_train_step(setup["sched"], mesh=object())
+    # the sharded step (tests/test_torch_port_train_mesh.py) on a (2 x 1) mesh
+    # of CPU slots: the single-device step's loss and gradients on JAX's draws
+    t, noise = setup["draws"]["unet"]
+    draws = {"t": torch.tensor(t), "noise": torch.tensor(noise)}
+    one = {k: batch[k] for k in ("latents", "context", "w_cond")}
+    single = step(state, one, **draws)["loss"]
+    want = {n: p.grad.clone() for n, p in bundle.models["unet"].named_parameters()}
+    mesh_unet = _port(setup)[0].models["unet"]
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    sharded = PT.make_train_step(setup["sched"], mesh=mesh)(
+        PT.init_train_state(mesh_unet, _no_update), one, **draws)["loss"]
+    assert abs(sharded.item() - single.item()) <= LOSS_RTOL * abs(single.item())
+    assert all(_close_to_max(p.grad.numpy(), want[n].numpy())
+               for n, p in mesh_unet.named_parameters())
     # a generator's draws: a finite loss, and the same draws give the same loss
     losses = [step(state, batch, generator=torch.Generator().manual_seed(5))["loss"]
               for _ in range(2)]

@@ -23,6 +23,13 @@ nothing).  A row that spans distinct cards runs eagerly: its launches go to
 each card's queue in order and the cards overlap, but no graph is captured
 across them (``lcm_img2img._graphed``).  The text towers stay on the
 engine's device (``mesh.py``); the embeddings move to each row at staging.
+
+Over a mesh that spans processes (``mesh.py::init_distributed``), each
+process holds and runs only its own data rows: every process passes the
+whole batch to :meth:`ShardedProgram.shards`, which gives the outputs of
+this process's rows with their global batch rows (JAX's
+``out.addressable_shards``); a plain call, which would return fewer rows
+than the batch, raises.  Nothing crosses processes while serving.
 """
 
 from __future__ import annotations
@@ -55,13 +62,16 @@ class ShardedProgram:
     its batch dim), runs each row's program, and concatenates each output
     on the first row's device.
 
-    ``buckets``: the first row's (every row has the same signatures);
-    ``last_launches``: the kernel launches of the last call over every row.
+    ``programs``: one per data row this process runs (every row of a
+    one-process mesh); ``rows``: their slices of the batch.  ``buckets``:
+    the first row's (every row has the same signatures); ``last_launches``:
+    the kernel launches of the last call over every row.
     """
 
     def __init__(self, programs: list, mesh: Mesh, batch: int):
         self.programs, self.mesh, self.batch = programs, mesh, batch
-        self.rows = data_sharding(mesh, batch)
+        every = data_sharding(mesh, batch)
+        self.rows = [every[i] for i in mesh.local_rows()]
         self.device = programs[0].bundle.device
 
     @property
@@ -89,19 +99,34 @@ class ShardedProgram:
             return [x] * len(self.rows)  # not batch-leading: every row takes it whole
         return [x[(slice(None),) * dim + (rows,)] for rows in self.rows]
 
-    def __call__(self, *args, noise=None, **kwargs):
+    def shards(self, *args, noise=None, **kwargs) -> list:
+        """``[(rows, outputs)]`` for each data row this process runs: its
+        slice of the whole batch and its program's outputs on its row's
+        device (JAX's ``out.addressable_shards``)."""
         args = [self._split(a) for a in args]
         kwargs = {k: self._split(v) for k, v in kwargs.items()}
         if noise is not None:
             kwargs["noise"] = self._split(noise, 1)
-        outs = [prog(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()})
-                for i, prog in enumerate(self.programs)]
+        return [(rows, prog(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()}))
+                for i, (rows, prog) in enumerate(zip(self.rows, self.programs))]
+
+    def __call__(self, *args, noise=None, **kwargs):
+        """The whole batch's outputs, in batch order.  Over a mesh that
+        spans processes this process holds only its rows' outputs, so a
+        call raises: :meth:`shards` gives them with their batch rows."""
+        if self.mesh.spans_processes:
+            raise RuntimeError(
+                "ShardedProgram: the mesh spans processes and this process runs only its own "
+                f"data rows ({self.mesh.local_rows()}); call shards(...) for them with their "
+                "batch rows")
+        outs = [o for _, o in self.shards(*args, noise=noise, **kwargs)]
         return tuple(torch.cat([o[j].to(self.device) for o in outs]) for j in range(len(outs[0])))
 
 
 def shard_program(build, row_bundles: list, spec: FrameSpec, mesh: Mesh) -> ShardedProgram:
     """``build(bundle, spec)`` (``build_frame_program`` or
-    ``build_reference_program``) for each data row's bundle at its share of
+    ``build_reference_program``) for each of this process's data rows'
+    bundles (``row_bundles``, :meth:`Mesh.local_rows` order) at its share of
     ``spec.batch``, behind one :class:`ShardedProgram`."""
     rows = data_sharding(mesh, spec.batch)
     row_spec = dataclasses.replace(spec, batch=rows[0].stop - rows[0].start)
@@ -112,13 +137,14 @@ class ShardedFrameEngine:
     """Owns mesh-placed models and per-bucket sharded frame programs.
 
     ``devices``: the mesh's slots (default: every visible CUDA device, the
-    first ``n_devices``); batch sizes must be multiples of the data-axis
-    size so each row gets equal work."""
+    first ``n_devices``, or every process's after ``init_distributed``);
+    ``mesh``: a mesh made already, in their place.  Batch sizes must be
+    multiples of the data-axis size so each row gets equal work."""
 
     def __init__(self, bundle: ModelBundle, *, n_devices: int | None = None,
-                 model_parallel: int = 1, devices=None):
+                 model_parallel: int = 1, devices=None, mesh: Mesh | None = None):
         self.bundle = bundle
-        self.mesh = make_mesh(n_devices, model_parallel=model_parallel, devices=devices)
+        self.mesh = mesh or make_mesh(n_devices, model_parallel=model_parallel, devices=devices)
         models = {k: bundle.models[k] for k in FRAME_MODELS if k in bundle.models}
         self.placements = shard_params(models, self.mesh)
         self.row_bundles = [row_bundle(bundle, p.models, p.device) for p in self.placements]
@@ -154,6 +180,8 @@ class ShardedFrameEngine:
             **kw):
         """``build_frame_program``'s call over the mesh; ``kw``:
         ``warm_latents``/``warm_alpha``, ``pooled_embeds``, ``src_box``,
-        ``deep_caches``, each split over the data axis."""
+        ``deep_caches``, each split over the data axis.  Over a mesh that
+        spans processes it raises: ``program(spec).shards(...)`` gives this
+        process's rows."""
         return self.program(spec)(frame_u8, embeds, strength, guidance, cn, seed, noise=noise,
                                   **kw)

@@ -149,8 +149,9 @@ def run(*, family: str = "sdxl", size: int = 1024, steps: int = 4, frames: int =
 
     best = max([report[f"fps_temporal_n{n}"] for n in every] + [report["fps_parity"]])
     report["chips_for_20fps_dp"] = math.ceil(20.0 / best)
-    report["note"] = ("dp replicates the program per card (frames/s per card add); the "
-                      "multi-device serving paths are not ported yet")
+    report["note"] = ("dp replicates the program per card (frames/s per card add); "
+                      "mesh_pipe=2 halves a card's weights and activations "
+                      "(parallel/pipe.py); throughput across cards not measured")
     report.update(device=dev.type, card=card, power_limit_w=power_limit)
     return report
 

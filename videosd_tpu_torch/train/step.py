@@ -18,17 +18,31 @@ Pallas forward under ``_attention_pallas_diff``.  Inputs made under
 ``torch.inference_mode()`` (the prompt encoder's embeddings) cannot be saved
 for backward; the steps take a plain copy of such a tensor.
 
-Only one device: ``mesh`` (the JAX step's sharded variant) raises; serving
-runs over a mesh (``parallel/``), and the sharded step, with its data-axis
-gradient reduction, is ROADMAP queue 1, item 6.
+The sharded UNet step (``make_train_step(sched_cfg, mesh=mesh)``, JAX's
+``mesh`` variant) keeps the single-device step's state and call.  It draws
+t and noise for the whole batch first (the single-device step's draws),
+splits the batch over the data rows, and runs each row's forward and
+backward on the row's placed copy of the model
+(``parallel/mesh.py::shard_params``: attention and feed-forward split over
+the row's model slots).  The gradient of the global mean loss is the mean
+over rows of each row's mean-loss gradient: ``reduce_grads`` forms it in
+the caller's model (the master; across processes with one all-reduce),
+the optimizer steps the whole master, and the placements are loaded from
+it again before the next step.  Stepping whole tensors keeps Adafactor's
+statistics over each whole tensor, as GSPMD forms them in JAX; it costs
+one whole copy of the model and its optimizer state (``mesh.py``'s list of
+placement differences).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
 from videosd_tpu_torch.models.controlnet import controlnet_apply
 from videosd_tpu_torch.models.unet import unet_apply
+from videosd_tpu_torch.parallel.mesh import data_sharding, reduce_data, reduce_grads, shard_params
 from videosd_tpu_torch.schedulers.lcm import LCMSchedulerConfig, add_noise, make_alphas_cumprod
 
 __all__ = [
@@ -83,12 +97,17 @@ def make_train_step(sched_cfg: LCMSchedulerConfig, mesh=None):
     (NHWC, the JAX layout), ``context`` [B,S,D] and, when the config has LCM
     guidance conditioning, ``w_cond`` [B, time_cond_proj_dim].  Timesteps
     are drawn over the full schedule.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh``): the batch is split over its
+    data rows (B a multiple of the data axis) and each row runs on its own
+    placed copy of the model; the loss returned is the global mean.  Over a
+    mesh that spans processes every process passes the whole batch and the
+    same draws (the same generator seed, or the same ``t``/``noise``) and
+    runs its own rows; every process ends the step with the same model.
     """
-    if mesh is not None:
-        raise NotImplementedError("the port trains on one device: the sharded train step "
-                                  "(a data-axis gradient reduction over parallel/mesh.py) is "
-                                  "ROADMAP queue 1, item 6")
     alphas = torch.from_numpy(make_alphas_cumprod(sched_cfg))
+    if mesh is not None:
+        return _sharded_train_step(sched_cfg, mesh, alphas)
 
     def train_step(state, batch, *, generator=None, t=None, noise=None):
         unet, opt = state["model"], state["optimizer"]
@@ -103,6 +122,45 @@ def make_train_step(sched_cfg: LCMSchedulerConfig, mesh=None):
         opt.step()
         return {"loss": loss.detach()}
 
+    return train_step
+
+
+def _sharded_train_step(sched_cfg: LCMSchedulerConfig, mesh, alphas):
+    """:func:`make_train_step` over ``mesh``: the placements are made at
+    the first call on a model and loaded from it in place at each later
+    one; ``step.placements()`` gives this process's rows' placements."""
+    placed = {"model": lambda: None, "rows": None}
+
+    def train_step(state, batch, *, generator=None, t=None, noise=None):
+        unet, opt = state["model"], state["optimizer"]
+        latents = _plain(batch["latents"])
+        t, noise = _draws(latents, sched_cfg.num_train_timesteps, generator, t, noise)
+        split = data_sharding(mesh, latents.shape[0])
+        if placed["model"]() is not unet:
+            placed["model"], placed["rows"] = weakref.ref(unet), shard_params({"unet": unet},
+                                                                              mesh)
+        else:
+            for row in placed["rows"]:
+                row.load({"unet": unet})
+        context, w_cond = _plain(batch["context"]), _plain(batch.get("w_cond"))
+        opt.zero_grad(set_to_none=True)
+        losses = []
+        for row in placed["rows"]:
+            dev, rows = row.device, split[row.row]
+            t_r, noise_r = t[rows].to(dev), noise[rows].to(dev)
+            noisy = add_noise(alphas.to(dev), latents[rows].to(dev), noise_r, t_r)
+            pred = unet_apply(row.models["unet"], noisy, t_r, context[rows].to(dev),
+                              timestep_cond=None if w_cond is None else w_cond[rows].to(dev))
+            loss = _eps_mse(pred, noise_r)
+            loss.backward()
+            losses.append(loss.detach())
+        reduce_grads(placed["rows"], {"unet": unet}, mesh)
+        for row in placed["rows"]:
+            row.models["unet"].zero_grad(set_to_none=True)
+        opt.step()
+        return {"loss": (reduce_data(losses, mesh) / mesh.shape["data"]).to(latents.device)}
+
+    train_step.placements = lambda: placed["rows"]
     return train_step
 
 
