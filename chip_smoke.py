@@ -618,13 +618,20 @@ CROP_ATOL = 1e-5
 GRAPH_TURNS, GRAPH_TURN_FRAMES = 4, 5
 
 
-# the training phase (6e).  K1' (models/layers.py::FlashAttentionRecompute, K1
-# forward, the plain math recomputed backward) at the main path's three shapes
-# in bf16 and fp32: its output held to K1's bars, dq/dk/dv to the plain
-# version's by autograd (fp32: within 1e-3 of each one's largest |value|;
-# bf16: K1's own bar).  The backward is the plain version's own, recomputed on
-# the same q, k and v, so the gradients differ only where the kernels do
-K1P_GRAD_REL_FP32 = 1e-3
+# the training phase (6e).  K1' (models/layers.py::FlashAttentionRecompute: K1
+# forward writing each row's log-sum-exp, then the backward kernel pair of
+# csrc/flash_attention_bwd.cu / flash_attention_bwd_fp32.cu, which recompute
+# the logits from it) at the main path's three shapes, the sharded step's and
+# K1P_EXTRA, in bf16 and fp32: its output held to K1's bars; dq/dk/dv, fp32,
+# to the function's gradient in fp64 within 1e-3 of each one's largest |value|
+# (3xTF32 products, fp32 sums: ~1e-5 on the card), bf16 to the plain
+# version's gradient on the inputs in fp32 within 2^-6 of it (two bf16 ulps
+# at the top binade: P and dS are rounded to bf16 before their products, as
+# the plain version rounds its weights, and the gradients once)
+K1P_GRAD_REL_FP32, K1P_GRAD_REL_BF16 = 1e-3, 2.0 ** -6
+# further K1' shapes, as (B, H, Sq, Sk, d): the banked keys of the reference
+# pass at d = 40 (Sk != Sq) and the sd21/SDXL heads of 64
+K1P_EXTRA = [(1, 8, 4096, 8192, 40), (1, 10, 1024, 1024, 64)]
 # the sd15 train steps: 512^2 frames (64^2 latents), batch 2, fp32, AdamW (the
 # UNet) and Adafactor (the ControlNet against the frozen UNet) at lr 2e-4,
 # three steps each (the first, the warm-up, on explicit t and noise, its
@@ -634,7 +641,8 @@ K1P_GRAD_REL_FP32 = 1e-3
 TRAIN_SIDE, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_T_MAX = 512, 2, 3, 2e-4, 600
 TRAIN_GRAD_REL = 1e-3
 # K1 launches per train step: the UNet's 15 routed self-attentions; with the
-# ControlNet, its 6 beside them (the backward launches none)
+# ControlNet, its 6 beside them.  Each that is K1' (its q, k or v wants a
+# gradient) launches the backward kernel pair once (_k1p_applied)
 K1_PER_UNET_STEP, K1_PER_CN_STEP = 15, 21
 # the sharded UNet step (6i) on a (2 data x 2 model) mesh of cuda:0 slots:
 # each data row runs the UNet on its half of the batch, and every routed
@@ -1140,6 +1148,7 @@ def phase_tiny() -> int:
 def _zero_counts() -> None:
     """Sets every kernel wrapper's launch count (and the int8 products') to 0."""
     fa.launches = fa.launches_fp32 = fa.launches_wide = fa.launches_wide_fp32 = 0
+    fa.launches_bwd = fa.launches_bwd_fp32 = 0
     k2.launches = k3.launches = k3.launches_fp32 = layers.int_mm_launches = 0
 
 
@@ -3141,15 +3150,58 @@ def _profile_frames(card: str, label: str, call, replay_ms: float, want: dict) -
         fail(f"the profiler saw {seen} K1 kernels per {label} frame, expected {want}")
 
 
-def _k1p_case(gen, h: int, s: int, d: int, dtype, clock: float) -> dict:
-    """K1' at [h, s, d] (batch 1, keys = queries) in ``dtype``: autograd
-    through ``layers.attention`` (the Function, one K1 launch a forward)
-    against autograd through the plain version, then both and one
-    ``scaled_dot_product_attention`` forward + backward timed (SDPA: the
-    library call for the same function, used nowhere in the port)."""
-    q0, k0, v0, do = (torch.randn(1, s, h * d, generator=gen, device="cuda").to(dtype)
-                      for _ in range(4))
-    name, kind = f"[{h},{s},{d}]", "bf16" if dtype == torch.bfloat16 else "fp32"
+@contextlib.contextmanager
+def _k1p_applied(seen: list):
+    """While inside, each application of K1' (layers.FlashAttentionRecompute)
+    appends its head dim to ``seen``, and a call of the backward's plain
+    version (``flash_attention_bwd_reference``) fails the run."""
+    cls, apply, reference = layers.FlashAttentionRecompute, layers.FlashAttentionRecompute.apply, \
+        fa.flash_attention_bwd_reference
+
+    def counting(q, k, v, num_heads):
+        seen.append(q.shape[-1] // num_heads)
+        return apply(q, k, v, num_heads)
+
+    def refused(*a, **kw):
+        fail("the backward of K1' took its plain version on the card")
+
+    cls.apply, fa.flash_attention_bwd_reference = counting, refused
+    try:
+        yield seen
+    finally:
+        del cls.apply  # torch.autograd.Function's own again
+        fa.flash_attention_bwd_reference = reference
+
+
+def _attention_grads_fp64(q, k, v, do, h: int):
+    """The gradients of softmax(q k^T d^-1/2) v for q, k, v ([B, S, H*d]),
+    by autograd in fp64."""
+    b, d = q.shape[0], q.shape[-1] // h
+
+    def fold(x):
+        return x.detach().double().reshape(b, x.shape[1], h, d).transpose(1, 2)
+
+    qd, kd, vd = (fold(x).requires_grad_(True) for x in (q, k, v))
+    out = torch.matmul(torch.softmax(torch.matmul(qd, kd.transpose(-1, -2)) * d ** -0.5, -1), vd)
+    return [g.transpose(1, 2).reshape(x.shape) for g, x in
+            zip(torch.autograd.grad(out, (qd, kd, vd), fold(do)), (q, k, v))]
+
+
+def _k1p_case(gen, b: int, h: int, sq: int, sk: int, d: int, dtype, clock: float) -> dict:
+    """K1' on [b, sq, h*d] queries and [b, sk, h*d] keys in ``dtype``:
+    autograd through ``layers.attention`` (the Function: one K1 launch a
+    forward, one launch of the backward kernel pair of its dtype, no plain
+    backward) against the function's gradient (fp32: in fp64; bf16: the
+    plain version's on the inputs in fp32), then timed: forward + backward,
+    the backward alone (``flash_attention_bwd``), the plain recompute, and
+    one ``scaled_dot_product_attention`` forward + backward (the library
+    call for the same function, used nowhere in the port), beside the
+    bound."""
+    q0, do = (torch.randn(b, sq, h * d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k0, v0 = (torch.randn(b, sk, h * d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    fp32 = dtype == torch.float32
+    name, kind = f"[{h},{sq}{'' if sk == sq else f'->{sk}'},{d}]{'' if b == 1 else f' batch {b}'}", \
+        "fp32" if fp32 else "bf16"
 
     def k1p(q, k, v):
         return layers.attention(q, k, v, num_heads=h)
@@ -3157,69 +3209,87 @@ def _k1p_case(gen, h: int, s: int, d: int, dtype, clock: float) -> dict:
     def plain(q, k, v):
         return layers._attention_plain(q, k, v, h)
 
-    def grads(fn):
-        q, k, v = (x.detach().clone().requires_grad_(True) for x in (q0, k0, v0))
+    def grads(fn, cast=dtype):
+        q, k, v = (x.detach().to(cast).requires_grad_(True) for x in (q0, k0, v0))
         out = fn(q, k, v)
-        return out, out.grad_fn, torch.autograd.grad(out, (q, k, v), do)
+        return out, out.grad_fn, torch.autograd.grad(out, (q, k, v), do.to(cast))
 
     _zero_counts()
-    out, grad_fn, got = grads(k1p)
-    torch.cuda.synchronize()
-    launched = fa.launches + fa.launches_fp32
-    if type(grad_fn) is not layers.FlashAttentionRecompute._backward_cls or launched != 1:
-        fail(f"K1' at {name} {kind}: grad_fn {grad_fn}, {launched} K1 launches (want the "
-             f"Function's and 1)")
-    ref_out, _, want = grads(plain)
-    if dtype == torch.float32:
-        fold = [x.reshape(1, s, h, d).transpose(1, 2)[0] for x in (q0, k0, v0)]
-        exact = _attention_fp64(*fold, d ** -0.5).transpose(0, 1).reshape(1, s, h * d)
+    with _k1p_applied([]) as seen:
+        out, grad_fn, got = grads(k1p)
+        torch.cuda.synchronize()
+    launched = (fa.launches + fa.launches_fp32, fa.launches_bwd_fp32 if fp32 else fa.launches_bwd,
+                fa.launches_bwd if fp32 else fa.launches_bwd_fp32)
+    if type(grad_fn) is not layers.FlashAttentionRecompute._backward_cls or launched != (1, 1, 0) \
+            or seen != [d]:
+        fail(f"K1' at {name} {kind}: grad_fn {grad_fn}, (K1, {kind} backward, other backward) "
+             f"launches {launched} (want the Function's and (1, 1, 0)), applications {seen}")
+    if fp32:
+        fold = [x.reshape(b, -1, h, d).transpose(1, 2) for x in (q0, k0, v0)]
+        exact = _attention_fp64(*fold, d ** -0.5).transpose(1, 2).reshape(out.shape)
         ok_out = fp32_within_bar(out, exact)
+        want = _attention_grads_fp64(q0, k0, v0, do, h)
+        own = None
     else:
+        ref_out, _, own = grads(plain)  # own: the plain version's bf16 gradients, for scale
         ok_out = k1_within_bar(out, ref_out)
+        want = grads(plain, torch.float32)[2]
     errs = []
     for label, g, w in zip("qkv", got, want):
-        err = (g.float() - w.float()).abs().max().item()
-        if dtype == torch.float32:
-            bar = K1P_GRAD_REL_FP32 * w.abs().max().item()
-            ok = bool(torch.isfinite(g).all()) and err <= bar
-        else:
-            ok, err, _, bar, _ = k1_within_bar(g, w)
-        errs.append((label, err, bar, ok, torch.equal(g, w)))
+        err = (g.double() - w.double()).abs().max().item()
+        bar = (K1P_GRAD_REL_FP32 if fp32 else K1P_GRAD_REL_BF16) * w.abs().max().item()
+        errs.append((label, err, bar, bool(torch.isfinite(g).all()) and err <= bar))
+    plain_err = "" if own is None else "; the plain version's own bf16 gradients: " + ", ".join(
+        f"d{lb} {(o.double() - w.double()).abs().max().item():.3e}"
+        for lb, o, w in zip("qkv", own, want))
     print(f"K1' {name} {kind}: output max|d| {ok_out[1]:.3e} (bar {ok_out[3]:.3e}); "
-          + "; ".join(f"d{lb} max|d| {e:.3e} (bar {b:.3e}, bit-equal {eq})"
-                      for lb, e, b, _, eq in errs))
-    if not ok_out[0] or not all(ok for _, _, _, ok, _ in errs):
-        fail(f"K1' at {name} {kind} misses a bar against autograd through the plain version")
+          + "; ".join(f"d{lb} max|d| {e:.3e} (bar {b_:.3e})" for lb, e, b_, _ in errs)
+          + f" from the {'fp64' if fp32 else 'fp32 plain'} gradient{plain_err}")
+    if not ok_out[0] or not all(ok for _, _, _, ok in errs):
+        fail(f"K1' at {name} {kind} misses a bar against the function's gradient")
+    del want, own
 
     q, k, v = (x.detach().clone().requires_grad_(True) for x in (q0, k0, v0))
-    q4, k4, v4, do4 = (x.reshape(1, s, h, d).transpose(1, 2) for x in (q, k, v, do))
+    q4, k4, v4, do4 = (x.reshape(b, x.shape[1], h, d).transpose(1, 2) for x in (q, k, v, do))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        o, lse = fa.flash_attention_lse(q, k, v, num_heads=h)
     t_k = timed(lambda: torch.autograd.grad(k1p(q, k, v), (q, k, v), do))
+    t_b = timed(lambda: fa.flash_attention_bwd(q0, k0, v0, o, lse, do, h, d ** -0.5))
     t_p = cuda_ms(lambda: torch.autograd.grad(plain(q, k, v), (q, k, v), do), iters=5)
     t_l = timed(lambda: torch.autograd.grad(sdpa(q4, k4, v4), (q, k, v), do4))
-    elem = 2.0 if dtype == torch.bfloat16 else 4.0
-    # q, k, v, o and dO read, dq, dk and dv written; 2 products forward and 5
-    # backward (the recompute's 2, dV, dP, dQ/dK's 2 ... as 14 Sq Sk d a head)
-    bound, by, term = bound_ms(elem * h * d * 8 * s, 14.0 * h * s * s * d, kind, clock)
+    elem = 4.0 if fp32 else 2.0
+    # q, o, dO read and dq written (4 Sq rows), k, v read and dk, dv written
+    # (4 Sk rows), lse read; forward + backward 2 + 5 products (the
+    # recomputed logits counted once: 14 Sq Sk d a head), the backward 5
+    nbytes = elem * b * h * d * (4 * sq + 4 * sk) + 4.0 * b * h * sq
+    bound, by, term = bound_ms(nbytes, 14.0 * b * h * sq * sk * d, kind, clock)
+    bwd_bound = bound_ms(nbytes, 10.0 * b * h * sq * sk * d, kind, clock)[0]
     print(f"   forward + backward: device {t_k[1]:.4f} ms (CUDA events {t_k[0]:.4f}), bound "
-          f"{bound * 1e3:.2f} us by {term} (reached {bound / t_k[1]:.1%}), plain {t_p:.4f} ms, "
-          f"SDPA device {t_l[1]:.4f} ms (events {t_l[0]:.4f})")
-    return {"shape": [h, s, d], "ms": t_k[0], "device_ms": t_k[1], "plain_ms": t_p,
-            "library_ms": t_l[1], "bound_ms": bound, "bound_by": by, "bound_term": term,
-            "max_abs_err": max([ok_out[1]] + [e for _, e, _, _, _ in errs])}
+          f"{bound * 1e3:.2f} us by {term} (reached {bound / t_k[1]:.1%}); backward kernels "
+          f"device {t_b[1]:.4f} ms (events {t_b[0]:.4f}), bound {bwd_bound * 1e3:.2f} us "
+          f"(reached {bwd_bound / t_b[1]:.1%}); plain {t_p:.4f} ms, SDPA device {t_l[1]:.4f} ms "
+          f"(events {t_l[0]:.4f})")
+    return {"shape": [h, sq, d] if b == 1 and sq == sk else [b, h, sq, sk, d], "ms": t_k[0],
+            "device_ms": t_k[1], "bwd_ms": t_b[0], "bwd_device_ms": t_b[1], "plain_ms": t_p,
+            "library_ms": t_l[1], "bound_ms": bound, "bwd_bound_ms": bwd_bound, "bound_by": by,
+            "bound_term": term,
+            "max_abs_err": max([ok_out[1]] + [e for _, e, _, _ in errs])}
 
 
 def phase_k1_prime(card: str, clock: float) -> dict:
-    """6e (a): K1' at the main path's shapes in bf16 and fp32, held and timed
-    (forward + backward; after the first profiler sessions of the run).
-    Returns the fp32 rows' totals (the train steps' dtype) with every row."""
+    """6e (a): K1' at the main path's shapes, K1P_EXTRA and (fp32) the
+    sharded step's, in bf16 and fp32, held and timed (forward + backward;
+    after the first profiler sessions of the run).  Returns the fp32 main
+    shapes' totals (the train steps' dtype) with every row."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    rows = {kind: [_k1p_case(gen, h, s, d, dtype, clock) for h, s, d in K1_SHAPES]
+    shapes = [(1, h, s, s, d) for h, s, d in K1_SHAPES] + K1P_EXTRA
+    rows = {kind: [_k1p_case(gen, *shape, dtype, clock) for shape in shapes]
             for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
     # the sharded step's shapes (phase 6i: 4 of the 8 heads a model rank)
-    rows["fp32_tp2"] = [_k1p_case(gen, h, sq, d, torch.float32, clock)
-                        for _, h, sq, _, d in K1_TP2]
-    total = _k1_totals(rows["fp32"])
+    rows["fp32_tp2"] = [_k1p_case(gen, *shape, torch.float32, clock) for shape in K1_TP2]
+    main = len(K1_SHAPES)
+    total = _k1_totals(rows["fp32"][:main])
     print(f"K1' fp32 forward + backward, one call at each main shape ({card}): "
           + ", ".join(f"{k} {v:.4f}" for k, v in total.items() if k != "bound_by"))
     tp2 = _k1_totals(rows["fp32_tp2"])
@@ -3253,8 +3323,8 @@ def _plain_grads(model, run) -> dict:
     with _plain_attention():
         loss = run(state)["loss"]
     torch.cuda.synchronize()
-    if fa.launches + fa.launches_fp32:
-        fail("the plain-attention train step launched K1")
+    if fa.launches + fa.launches_fp32 + fa.launches_bwd + fa.launches_bwd_fp32:
+        fail("the plain-attention train step launched K1 or its backward")
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return {"loss": loss.item(), "grads": grads}
@@ -3267,23 +3337,33 @@ def _train_steps(label: str, card: str, model, run, plain: dict, per_step: int,
     pass's; then on a generator's draws, each timed by CUDA events.  Every
     step: a finite loss and ``per_step`` fp32 K1 launches; after the first,
     a finite gradient for every parameter and a nonzero one for each of the
-    ``routed`` projections of routed self-attentions (ROUTED_QKV).
-    ``after(i)``: called after step i, outside the timing."""
+    ``routed`` projections of routed self-attentions (ROUTED_QKV), and one
+    launch of the fp32 backward kernel pair for each application of K1'
+    (no plain backward; the forward's other K1 launches are attentions whose
+    inputs want no gradient).  ``after(i)``: called after step i, outside
+    the timing."""
     gen = torch.Generator(device="cuda").manual_seed(11)
-    losses, ms, launches = [], [], 0
+    losses, ms, launches, bwd_launches = [], [], 0, 0
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_STEPS):
         kw = plain["draws"] if i == 0 else {"generator": gen}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         _zero_counts()
-        start.record()
-        loss = run(**kw)["loss"]
-        end.record()
-        torch.cuda.synchronize()
+        with _k1p_applied([]) as applied:
+            start.record()
+            loss = run(**kw)["loss"]
+            end.record()
+            torch.cuda.synchronize()
         launches += fa.launches_fp32
+        bwd_launches += fa.launches_bwd_fp32
         if fa.launches_fp32 != per_step or fa.launches:
             fail(f"{label} train step {i}: {fa.launches_fp32} fp32 K1 launches (want "
                  f"{per_step}) and {fa.launches} bf16")
+        if not applied or fa.launches_bwd_fp32 != len(applied) or fa.launches_bwd \
+                or max(applied) > fa.MAX_HEAD_DIM:
+            fail(f"{label} train step {i}: {fa.launches_bwd_fp32} fp32 and {fa.launches_bwd} "
+                 f"bf16 launches of the backward kernels for {len(applied)} applications of K1' "
+                 f"(head dims {sorted(set(applied))})")
         losses.append(loss.item())
         if i:
             ms.append(start.elapsed_time(end))
@@ -3315,11 +3395,13 @@ def _train_steps(label: str, card: str, model, run, plain: dict, per_step: int,
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} train step, sd15 fp32 {TRAIN_SIDE}x{TRAIN_SIDE} batch {TRAIN_BATCH} "
           f"({card}): losses " + ", ".join(f"{x:.5f}" for x in losses)
-          + f"; {per_step} fp32 K1 launches a step; step ms after the warm-up (CUDA events) "
+          + f"; {per_step} fp32 K1 launches and {bwd_launches // TRAIN_STEPS} of the backward "
+          f"kernels a step; step ms after the warm-up (CUDA events) "
           + ", ".join(f"{x:.2f}" for x in ms) + f"; peak memory {peak:.2f} GiB")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label} train step: a loss is not finite")
-    return {"losses": losses, "step_ms": ms, "peak_gib": peak, "launches": launches}
+    return {"losses": losses, "step_ms": ms, "peak_gib": peak, "launches": launches,
+            "bwd_launches": bwd_launches}
 
 
 def phase_train(card: str) -> dict:
@@ -3380,6 +3462,7 @@ def phase_train(card: str) -> dict:
     del state, plain, bundle
     torch.cuda.empty_cache()
     res["launches"] = res["unet"]["launches"] + res["controlnet"]["launches"]
+    res["bwd_launches"] = res["unet"]["bwd_launches"] + res["controlnet"]["bwd_launches"]
     return res
 
 
@@ -4431,7 +4514,8 @@ def mesh_child_main(rank: int, addr: str) -> None:
     _zero_counts()
     losses, parts, grads = steps(mesh)
     torch.cuda.synchronize()
-    out.update(train_launches=fa.launches_fp32, train_losses=losses,
+    out.update(train_launches=fa.launches_fp32, train_bwd_launches=fa.launches_bwd_fp32,
+               train_losses=losses,
                train_ms=[p["wall"] for p in parts], train_parts=parts, train_peak_gib=_gib())
     digest = [float(p.detach().double().sum()) for p in unet.parameters()]
     both = [None, None]
@@ -4439,10 +4523,15 @@ def mesh_child_main(rank: int, addr: str) -> None:
     out["same_weights"] = both[0] == both[1]
     print(f"6j rank {rank}: sharded step across 2 processes, sd15 fp32 {side}x{side} batch {b} "
           f"AdamW: losses {losses}; host ms per step: {'; '.join(map(_parts_text, parts))}; "
-          f"{out['train_launches']} fp32 K1 launches, peak {out['train_peak_gib']:.2f} GiB; "
+          f"{out['train_launches']} fp32 K1 launches, {out['train_bwd_launches']} of the "
+          f"backward kernels, peak {out['train_peak_gib']:.2f} GiB; "
           f"both processes' weights equal: {out['same_weights']}", flush=True)
-    if not out["same_weights"] or out["train_launches"] != MESH_CHILD_STEPS * MESH_CHILD_K1_PER_STEP:
-        fail(f"6j rank {rank}: the processes' weights differ, or the K1 launches")
+    # every routed attention of a UNet train step is K1': one backward launch each
+    want = MESH_CHILD_STEPS * MESH_CHILD_K1_PER_STEP
+    if not out["same_weights"] or out["train_launches"] != want \
+            or out["train_bwd_launches"] != want:
+        fail(f"6j rank {rank}: the processes' weights differ, or the K1 launches, or its "
+             f"backward's")
     # both processes give their memory back before rank 0 runs the
     # one-process step alone (the card is shared with the parent)
     after = _host_copy(unet) if rank == 0 else None
@@ -4562,7 +4651,8 @@ def phase_6j(card: str) -> dict:
         results.append(found[0])
     res = {"children": results,
            "launches": sum(c["serve_launches"] for c in results),
-           "fp32_launches": sum(c["train_launches"] for c in results)}
+           "fp32_launches": sum(c["train_launches"] for c in results),
+           "bwd_launches": sum(c["train_bwd_launches"] for c in results)}
     print(f"6j two processes on {card}, backend {results[0]['backend']}: psum {results[0]['psum']}; "
           f"serving rows bit for bit {[c['serve_same'] for c in results]}; train step ms per "
           f"process {[c['train_ms'] for c in results]}; peak GiB per process (serving, training) "
@@ -4637,11 +4727,17 @@ def main() -> None:
          "source": "videosd_tpu_torch/csrc/flash_attention_wide_fp32.cu", "replaces": k1_src,
          "launches": kl["fp32_launches"], "max_abs_err": k1_wide_fp32_err, **k1_wide_fp32_times},
         {"name": "flash_attention_recompute", "route": "cuda",
-         "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu",
+         "source": "videosd_tpu_torch/csrc/flash_attention_bwd_fp32.cu",
+         "sources": ["videosd_tpu_torch/csrc/flash_attention_fp32.cu",
+                     "videosd_tpu_torch/csrc/flash_attention_bwd_fp32.cu",
+                     "videosd_tpu_torch/csrc/flash_attention_bwd.cu"],
          "function": "videosd_tpu_torch/models/layers.py::FlashAttentionRecompute",
          "replaces": "videosd_tpu/models/layers.py:283",
-         "launches": (train["launches"] + train["mesh"]["launches"]
-                      + processes["fp32_launches"]),
+         # the backward kernel pair's launches on the train paths (6e, 6i, 6j)
+         "launches": (train["bwd_launches"] + train["mesh"]["bwd_launches"]
+                      + processes["bwd_launches"]),
+         "forward_launches": (train["launches"] + train["mesh"]["launches"]
+                              + processes["fp32_launches"]),
          **k1_prime},
         {"name": "fused_preprocess_sobel", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/preprocess.cu",

@@ -109,15 +109,19 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.videosd_flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, ci, vp,
     ]
     lib.videosd_flash_attention_fwd.restype = ci
     lib.videosd_flash_attention_fp32_fwd.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp,
     ]
     lib.videosd_flash_attention_fp32_fwd.restype = ci
+    for fn in (lib.videosd_flash_attention_bwd, lib.videosd_flash_attention_bwd_fp32):
+        fn.argtypes = [vp] * 10 + [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                              ctypes.c_float, ci, vp]
+        fn.restype = ci
     for fn in (lib.videosd_flash_attention_wide_fwd, lib.videosd_flash_attention_wide_fp32_fwd):
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ci, vp]

@@ -5,7 +5,10 @@
 // videosd_tpu/models/layers.py::attention.  Same numerics: fp32 logits, fp32
 // running max / sum / accumulator (online softmax), the probabilities rounded
 // to bf16 before P.V (the reference's `p.astype(v.dtype)`), and a guard that
-// leaves a row with l == 0 unscaled.
+// leaves a row with l == 0 unscaled.  Where the caller passes `lse`, the
+// epilogue also writes each row's log-sum-exp of the scaled logits (natural
+// log, fp32): what the backward (flash_attention_bwd.cu) recomputes P from.
+// Serving passes null; o does not depend on it.
 //
 // Layout: heads in place.  q and o are [B, Sq, H*d], k and v [B, Sk, H*d],
 // bf16, the last axis contiguous; batch and row strides are arguments, so a
@@ -87,12 +90,14 @@ constexpr int kBlockN = 64;      // keys per K/V tile
 constexpr int kRowsPerWg = 64;   // q rows per consumer warpgroup (wgmma M)
 constexpr int kMaxDevices = 16;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // [B*H, Sq] natural-log row log-sum-exp of the scaled logits, or null
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // strides in elements
   int heads, sq, sk, d;  // d: the head dim, a multiple of 8 up to the instance width
   float scale_log2;  // sm_scale * log2(e)
@@ -475,6 +480,11 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
     const int row = row0 + (warp % 4) * 16 + g;  // and row + 8
+    if (p.lse != nullptr && tq == 0) {
+      float* lg = p.lse + (long long)bh * p.sq + row;
+      lg[0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+      lg[8] = (m_run[1] + log2f(l_run[1])) * kLn2;
+    }
     const float inv0 = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
     const float inv1 = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
     __nv_bfloat16* og =
@@ -550,12 +560,13 @@ cudaError_t launch_d(const Params& p, int batch, int block_m, int device, cudaSt
 extern "C" {
 
 // q, o: [batch, sq, heads*d]; k, v: [batch, sk, heads*d]; bf16 with unit inner
-// stride, every row 16-byte aligned; d a multiple of 8 up to 256; `strides`
+// stride, every row 16-byte aligned; lse: null, or [batch*heads, sq] fp32 for
+// the rows' log-sum-exp; d a multiple of 8 up to 256; `strides`
 // holds the batch and row strides of q, k, v, o in elements.  block_m is 64,
 // 128 (d <= 160) or 256 (d <= 40) query rows per block and divides sq.
 // Returns a cudaError_t: 0 on a successful launch.
-int videosd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
-                                int heads, int sq, int sk, int d, const long long* strides,
+int videosd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                int batch, int heads, int sq, int sk, int d, const long long* strides,
                                 float sm_scale, int block_m, int device, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || device < 0 || device >= kMaxDevices ||
       block_m <= 0 || sq % block_m != 0 || sk % kBlockN != 0 || !(sm_scale > 0.f) || d <= 0 ||
@@ -567,6 +578,7 @@ int videosd_flash_attention_fwd(const void* q, const void* k, const void* v, voi
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.q_bs = strides[0], p.q_rs = strides[1];
   p.k_bs = strides[2], p.k_rs = strides[3];
   p.v_bs = strides[4], p.v_rs = strides[5];

@@ -8,7 +8,10 @@
 // flash_attention_wide_fp32.cu the fp32 one above d = 256.  Same numerics as
 // those: fp32 logits, running max, sum and accumulator (online softmax), P V
 // on the unnormalized probabilities, ex2.approx in the log2 domain (p =
-// 2^(s * scale * log2 e - m)), and a row with l == 0 left unscaled.
+// 2^(s * scale * log2 e - m)), and a row with l == 0 left unscaled.  Where
+// the caller passes `lse`, the epilogue also writes each row's log-sum-exp of
+// the scaled logits (natural log): what flash_attention_bwd_fp32.cu recomputes
+// P from.  Serving passes null; o does not depend on it.
 //
 // Layout: heads in place.  q and o are [B, Sq, H*d], k and v [B, Sk, H*d],
 // fp32, the last axis contiguous; batch and row strides are arguments.  d is
@@ -90,6 +93,7 @@ constexpr int kMaxStages = 8;
 constexpr int kMaxDevices = 16;
 constexpr int kSmLimit = 232448;  // shared memory a block may use
 constexpr int kSmPerSm = 233472;  // an SM's, of which 1 KB per resident block is reserved
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int W>
 struct Shape {
@@ -126,6 +130,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // [B*H, Sq] natural-log row log-sum-exp of the scaled logits, or null
   long long o_bs, o_rs;  // o's batch and row strides in elements (q, k, v: tensor maps)
   int heads, sq, sk, d;
   float scale_log2;  // sm_scale * log2(e)
@@ -442,6 +447,7 @@ __global__ void __launch_bounds__(Shape<W>::kThreads, Shape<W>::kBlocks)
       const float m = fmaxf(m_run[r], m_o[r]);
       mine[r] = ex2(m_run[r] - m), theirs[r] = ex2(m_o[r] - m);
       l_run[r] = fmaf(l_o[r], theirs[r], l_run[r] * mine[r]);
+      m_run[r] = m;  // the merged row's max, for lse
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -461,6 +467,11 @@ __global__ void __launch_bounds__(Shape<W>::kThreads, Shape<W>::kBlocks)
 #pragma unroll
       for (int w = 1; w < kCG; ++w) l_run[r] += red[w][g + 8 * r];
     }
+  }
+  if (p.lse != nullptr && t == 0 && cg == 0) {
+    float* lg = p.lse + (long long)bh * p.sq + m0 + 16 * rg + g;
+    lg[0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+    lg[8] = (m_run[1] + log2f(l_run[1])) * kLn2;
   }
   float inv[2];
 #pragma unroll
@@ -530,9 +541,10 @@ extern "C" {
 // q, o: [batch, sq, heads*d]; k, v: [batch, sk, heads*d]; fp32 with unit inner
 // stride, every row 16-byte aligned; d a multiple of 4 up to 256; sq and sk
 // multiples of 64; `strides` holds the batch and row strides of q, k, v, o in
-// elements.  Returns a cudaError_t: 0 on a successful launch.
+// elements; lse: null, or [batch*heads, sq] fp32 for the rows' log-sum-exp.
+// Returns a cudaError_t: 0 on a successful launch.
 int videosd_flash_attention_fp32_fwd(const void* q, const void* k, const void* v, void* o,
-                                     int batch, int heads, int sq, int sk, int d,
+                                     void* lse, int batch, int heads, int sq, int sk, int d,
                                      const long long* strides, float sm_scale, int device,
                                      void* stream) {
   if (!(batch > 0 && heads > 0 && sq > 0 && sk > 0 && device >= 0 && device < kMaxDevices &&
@@ -544,6 +556,7 @@ int videosd_flash_attention_fp32_fwd(const void* q, const void* k, const void* v
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.o_bs = strides[6], p.o_rs = strides[7];
   p.heads = heads, p.sq = sq, p.sk = sk, p.d = d;
   p.scale_log2 = sm_scale * 1.4426950408889634f;

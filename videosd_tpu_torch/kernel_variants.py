@@ -1,17 +1,22 @@
-"""Ablation timings of the 3xTF32 fp32 kernels of K1 (d <= 256) and K3, and
-of K1's wide bf16 kernel (d > 256): copies of a kernel's source with parts
-changed, built side by side and timed in turns on one card.
+"""Ablation timings of the 3xTF32 fp32 kernels of K1 (d <= 256) and K3, of
+K1's wide bf16 kernel (d > 256) and of the backward kernels of K1' (the
+train steps' attention): copies of a kernel's source with parts changed,
+built side by side and timed in turns on one card.
 
-    python3 videosd_tpu_torch/kernel_variants.py
+    python3 videosd_tpu_torch/kernel_variants.py [k1] [k3] [wide] [bwd]
 
-K1's copies, then K3's, then the wide kernel's.  The card's machine has no
+K1's copies, then K3's, then the wide kernel's, then the backward's (all
+four without arguments, else the ones named).  The card's machine has no
 ``ncu``, so what holds a kernel back is found by timing copies of it that
 drop or change one part.  Each entry of :data:`VARIANTS` (K1:
 ``csrc/flash_attention_fp32.cu``), :data:`K3_VARIANTS` (K3:
 ``csrc/taesd_conv_fp32.cu``) or :data:`WIDE_VARIANTS` (K1 wide bf16:
 ``csrc/flash_attention_wide.cu``) is a list of text replacements applied to
 the source (a replacement whose text is missing fails the run: the list
-follows the source).  Every copy is compiled by its own ``nvcc`` into its
+follows the source); :data:`BWD_VARIANTS` and :data:`BWD_FP32_VARIANTS` do
+the same to ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_fp32.cu``, timed at :data:`BWD_SHAPES` (one
+launch: the dQ kernel, then the dK/dV kernel).  Every copy is compiled by its own ``nvcc`` into its
 own library (a kernel's copies all started together), loaded with ctypes
 and launched through its C entry: K1's on fp32 ``[1, S, 8*d]`` tensors at
 the sd15 512x512 frame's three shapes, K3's on fp32 ``[1, H, W/2, 128]`` at
@@ -86,6 +91,39 @@ VARIANTS = {
     "split chains P V": _SEP_PV,
     "split chains both": _SEP_QK + _SEP_PV,
     "no ex2": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));', "y = x;")],
+}
+
+# the backward kernels of K1' at the train steps' shapes: the A fragments of
+# K and V (Q and dO) held in registers at d = 80 too, blocks of 16 rows
+# (keys) from d = 160 (128 blocks at 256 tokens), blocks of 8 warps, 32
+# queries a step in the dK/dV kernel, 32 keys in the dQ kernel, the exp unit
+# dropped, launch bounds without a count of blocks an SM, 1xTF32
+BWD_SHAPES = [(8, 4096, 40), (8, 1024, 80), (8, 256, 160), (10, 1024, 64)]  # (heads, S, d)
+BWD_VARIANTS = {
+    "as committed": [],
+    "hoist up to 80": [("kHoist = W <= 64", "kHoist = W <= 80")],
+    "16 rows a block from 160": [("kKvRW = 4;", "kKvRW = W >= 160 ? 1 : 4;"),
+                                 ("kQRW = 4;", "kQRW = W >= 160 ? 1 : 4;")],
+    "dK/dV 8 warps": [("kKvRW = 4;", "kKvRW = W <= 80 ? 8 : 4;")],
+    "dQ 8 warps": [("kQRW = 4;", "kQRW = W <= 80 ? 8 : 4;")],
+    "dK/dV 32 queries": [("static constexpr int kKvQ = W >= 256 ? 32 : 64;",
+                          "static constexpr int kKvQ = 32;")],
+    "no ex2": [("ex2(fmaf(", "(fmaf(")],  # every exponential of the pair
+}
+BWD_FP32_VARIANTS = {
+    "as committed": [],
+    "16 rows a block from 160": [("kKvRW = W >= 256 ? 2 : 4", "kKvRW = W >= 160 ? 1 : 4"),
+                                 ("kQRW = W >= 256 ? 2 : 4", "kQRW = W >= 160 ? 1 : 4")],
+    "1 block an SM": [("__launch_bounds__(Cfg<W>::kKvThreads, Cfg<W>::kMinBlocks)",
+                       "__launch_bounds__(Cfg<W>::kKvThreads)"),
+                      ("__launch_bounds__(Cfg<W>::kQThreads, Cfg<W>::kMinBlocks)",
+                       "__launch_bounds__(Cfg<W>::kQThreads)")],
+    "dK/dV 32 queries": [("static constexpr int kKvQ = W >= 160 ? 32 : 64;",
+                          "static constexpr int kKvQ = 32;")],
+    "dQ 32 keys": [("static constexpr int kQKeys = W >= 160 ? 32 : 64;",
+                    "static constexpr int kQKeys = 32;")],
+    "1xTF32": [("  mma_tf32(d, as, bb0, bb1);\n  mma_tf32(d, ab, bs0, bs1);\n  mma_tf32(d, ab, bb0, bb1);",
+                "  mma_tf32(d, ab, bb0, bb1);")],
 }
 
 K3_SHAPES = [(1, 512, 256, 128), (1, 256, 128, 128), (1, 128, 64, 128), (1, 64, 32, 128)]
@@ -166,7 +204,7 @@ def _build(csrc: str, out: str, source: str, variants: dict, extra: str = "") ->
             text = text.replace(old, new)
         text += extra
         path = os.path.join(out, f"v{i}.cu")
-        for header in ("tma_sm90.cuh", "wgmma_sm90.cuh"):
+        for header in ("tma_sm90.cuh", "wgmma_sm90.cuh", "flash_bwd_common.cuh"):
             shutil.copy(os.path.join(csrc, header), out)
         with open(path, "w") as f:
             f.write(text)
@@ -248,8 +286,8 @@ def _k1(torch, csrc: str, out: str) -> None:
     libs = _build(csrc, out, "flash_attention_fp32.cu", VARIANTS)
     for name, (lib, regs, spills) in libs.items():
         lib.videosd_flash_attention_fp32_fwd.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-            ci, vp]
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_float, ci, vp]
         print(f"{name}: registers {regs}, spill bytes {spills} (instances 256 .. 8)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for h, s, d in SHAPES:
@@ -264,7 +302,7 @@ def _k1(torch, csrc: str, out: str) -> None:
 
         def run(lib):
             err = lib.videosd_flash_attention_fp32_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, h, s, s, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, 1, h, s, s, d,
                 strides, d ** -0.5, 0, stream)
             if err:
                 raise SystemExit(f"kernel_variants: launch failed: cudaError {err}")
@@ -348,15 +386,65 @@ def _wide(torch, csrc: str, out: str) -> None:
                   f"from the plain version {err:.2e}")
 
 
-def main() -> None:
+def _bwd(torch, csrc: str, out: str) -> None:
+    """BWD_VARIANTS and BWD_FP32_VARIANTS at BWD_SHAPES: each copy's dq, dk
+    and dv against the committed wrapper's."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from videosd_tpu_torch.ops.cuda import flash_attention as fa
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, source, variants, entry in (
+            (torch.bfloat16, "flash_attention_bwd.cu", BWD_VARIANTS, "videosd_flash_attention_bwd"),
+            (torch.float32, "flash_attention_bwd_fp32.cu", BWD_FP32_VARIANTS,
+             "videosd_flash_attention_bwd_fp32")):
+        os.makedirs(os.path.join(out, source[:-3]))
+        libs = _build(csrc, os.path.join(out, source[:-3]), source, variants)
+        for name, (lib, regs, spills) in libs.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [vp] * 10 + [ci] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                                  ctypes.c_float, ci, vp]
+            print(f"{source} {name}: registers {regs}, spill bytes {spills} (dK/dV and dQ, "
+                  f"instances 256 .. 8)")
+        for h, s, d in BWD_SHAPES:
+            q, k, v, do = (torch.randn(1, s, h * d, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_lse(q, k, v, num_heads=h)
+            want = fa.flash_attention_bwd(q, k, v, o, lse, do, h, d ** -0.5)
+            delta = torch.empty_like(lse)
+            got = [torch.empty_like(x) for x in (q, k, v)]
+            strides = (ctypes.c_longlong * 10)(*(x for t in (q, k, v, o, do)
+                                                 for x in (t.stride(0), t.stride(1))))
+            args = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, *got)]
+            args += [1, h, s, s, d, strides, d ** -0.5, 0, torch.cuda.current_stream().cuda_stream]
+
+            def run(lib):
+                err = getattr(lib, entry)(*args)
+                if err:
+                    raise SystemExit(f"kernel_variants: launch failed: cudaError {err}")
+
+            ms = _turns(torch, libs, run)
+            for name, (lib, _, _) in libs.items():
+                run(lib)
+                torch.cuda.synchronize()
+                err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                          for a, b in zip(got, want))
+                print(f"{dtype} [{h},{s},{d}] {name}: {statistics.median(ms[name]):.4f} ms per "
+                      f"backward (turns {', '.join(f'{t:.4f}' for t in ms[name])}), max |d| / "
+                      f"max |g| from the committed kernels {err:.2e}")
+
+
+def main(argv=None) -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-    for ablation in (_k1, _k3, _wide):
+    ablations = {"k1": _k1, "k3": _k3, "wide": _wide, "bwd": _bwd}
+    names = sys.argv[1:] if argv is None else argv
+    for name in names or ablations:
         with tempfile.TemporaryDirectory() as out:
-            ablation(torch, csrc, out)
+            ablations[name](torch, csrc, out)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")

@@ -11,8 +11,9 @@ reference's precision points:
 * attention routes exactly the shapes the JAX package sends to its Pallas
   flash kernel to kernel K1 (``ops/cuda/flash_attention.py``); the rest is
   the plain ``_attention_xla`` math.  Under autograd a routed attention
-  goes through :class:`FlashAttentionRecompute` (K1 forward, a backward
-  that recomputes the plain math: the JAX ``_attention_pallas_diff``),
+  goes through :class:`FlashAttentionRecompute` (K1 forward, the backward
+  kernels that recompute the logits tile by tile: the JAX
+  ``_attention_pallas_diff``),
 * the int8 w8a8 linear (:func:`quantize_linear`, :func:`linear_w8a8`,
   :class:`LinearW8A8`, chosen per layer by ``ops/quant.py``) follows JAX's
   ``quantize_linear``/``linear_w8a8`` operation for operation, with the
@@ -32,7 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from videosd_tpu_torch.ops.cuda.flash_attention import (
+    MAX_HEAD_DIM,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_lse,
     flash_attention_reference,
 )
 from videosd_tpu_torch.ops.sobel import div_rn
@@ -117,33 +121,50 @@ def attention(q, k, v, *, num_heads: int, mask=None):
 
 
 class FlashAttentionRecompute(torch.autograd.Function):
-    """K1 forward with a backward that recomputes the plain attention.
+    """K1 forward with a backward that recomputes the logits.
 
     The port's counterpart of ``videosd_tpu/models/layers.py::
-    _attention_pallas_diff`` (a ``jax.custom_vjp``): the forward is
-    :func:`flash_attention` (the kernel on CUDA, the plain version on the
-    CPU), only q, k and v are saved, and the backward differentiates
-    :func:`_attention_plain` on detached copies of them, recomputing its
-    forward, as JAX's backward runs ``jax.vjp`` of ``_attention_xla``.
-    The gradients are those of the plain function; the forward differs
-    from it only by the kernel's order of sums.  No kernel runs in the
-    backward: the JAX package has no backward kernel either.
+    _attention_pallas_diff`` (a ``jax.custom_vjp`` whose backward runs
+    ``jax.vjp`` of ``_attention_xla``, recomputed).  The forward is
+    :func:`flash_attention_lse` (K1 on CUDA, the plain version on the CPU),
+    which also gives each row's log-sum-exp; q, k, v, the output and that
+    lse are saved.  The backward is :func:`flash_attention_bwd`: on CUDA the
+    backward kernels (``csrc/flash_attention_bwd.cu`` in bf16,
+    ``csrc/flash_attention_bwd_fp32.cu`` in fp32), which recompute the
+    logits tile by tile from lse and never hold them whole, on the CPU the
+    same formula in plain PyTorch.  The gradients are the plain function's
+    up to the order of sums and where P and dS round to the input dtype.
+
+    Above :data:`MAX_HEAD_DIM` (only the KL VAE's attention, which no train
+    step trains) there is no backward kernel: by the head dim, q, k and v
+    alone are saved and the backward differentiates :func:`_attention_plain`
+    on them, recomputed.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int):
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v, num_heads=num_heads)
+        if q.shape[-1] // num_heads > MAX_HEAD_DIM:
+            ctx.save_for_backward(q, k, v)
+            return flash_attention(q, k, v, num_heads=num_heads)
+        out, lse = flash_attention_lse(q, k, v, num_heads=num_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            qkv = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
-            out = _attention_plain(*qkv, ctx.num_heads)
-            grads = iter(torch.autograd.grad(out, [x for x in qkv if x.requires_grad], grad_out))
-        return (*(next(grads) if n else None for n in need), None)
+        if len(ctx.saved_tensors) == 3:  # d > MAX_HEAD_DIM: the plain math, recomputed
+            with torch.enable_grad():
+                qkv = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+                out = _attention_plain(*qkv, ctx.num_heads)
+                grads = iter(torch.autograd.grad(out, [x for x in qkv if x.requires_grad],
+                                                 grad_out))
+            return (*(next(grads) if n else None for n in need), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        scale = 1.0 / math.sqrt(q.shape[-1] // ctx.num_heads)
+        grads = flash_attention_bwd(q, k, v, out, lse, grad_out.contiguous(), ctx.num_heads, scale)
+        return (*(g if n else None for g, n in zip(grads, need)), None)
 
 
 def _attention_plain(q, k, v, num_heads: int, mask=None):

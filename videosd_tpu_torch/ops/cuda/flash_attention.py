@@ -20,6 +20,15 @@ d = 512 the logits are formed once; both products on the tensor cores in
 rounding).  :func:`wide_slices` gives the column slices per query tile.  The
 kernels' own TF32 arithmetic does not read torch's TF32 flags.
 
+The backward of K1' (``models/layers.py::FlashAttentionRecompute``) up to
+d = 256: ``videosd_tpu_torch/csrc/flash_attention_bwd.cu`` (bf16, mma.sync
+m16n8k16) and ``videosd_tpu_torch/csrc/flash_attention_bwd_fp32.cu`` (fp32,
+3xTF32), each a dQ kernel and a dK/dV kernel that recompute P tile by tile
+from the forward's row log-sum-exp (:func:`flash_attention_lse`: the d <= 256
+forward kernels write it when asked) and never form the [S, S] logits in
+device memory.  The JAX package has no backward kernel to replace: its
+``custom_vjp`` differentiates the plain attention, recomputed.
+
 * :func:`flash_attention_reference` is the plain PyTorch version: the
   ``_attention_xla`` math of the JAX package (fp32 logits and softmax, the
   probabilities cast to the input dtype before P.V).
@@ -28,11 +37,16 @@ kernels' own TF32 arithmetic does not read torch's TF32 flags.
   inner stride are taken as they are (a slice of a fused projection works).
 * :func:`flash_attention_bhsd` takes folded ``[B*H, S, D]`` tensors: the
   same kernels with one head.
+* :func:`flash_attention_lse` is :func:`flash_attention` that also returns
+  each row's log-sum-exp; :func:`flash_attention_bwd` the gradients for q, k
+  and v from q, k, v, o, that lse and dO; :func:`flash_attention_bwd_reference`
+  its formula in plain PyTorch.
 * A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
   raises.  Each attention that launches the bf16 kernel adds one to
   :data:`launches`, each that launches the fp32 kernel to
   :data:`launches_fp32`, and above d = 256 to :data:`launches_wide` and
-  :data:`launches_wide_fp32`.
+  :data:`launches_wide_fp32`; each backward that launches the bf16 pair to
+  :data:`launches_bwd`, the fp32 pair to :data:`launches_bwd_fp32`.
 * :func:`block_rows` picks the bf16 kernel's query rows per block from the
   shape, among :func:`row_plans`; the keys of one query tile are never split
   over blocks.  :func:`instance_width` is the kernel instance a head dim
@@ -63,12 +77,17 @@ __all__ = [
     "block_rows",
     "flash_attention",
     "flash_attention_bhsd",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
+    "flash_attention_lse",
     "flash_attention_reference",
     "fp32_block_rows",
     "fp32_instance_width",
     "fp32_stages",
     "instance_width",
     "launches",
+    "launches_bwd",
+    "launches_bwd_fp32",
     "launches_fp32",
     "launches_wide",
     "launches_wide_fp32",
@@ -126,25 +145,54 @@ FP32_MIN_STAGES, FP32_MAX_STAGES = 3, 8
 SMEM_PER_SM = 233472  # bytes of an SM's shared memory, 1 KB of it reserved per block
 
 # attentions sent to the bf16 kernel, to the fp32 one, and to the wide
-# kernel's two dtypes, since the count was last set to 0 (read by chip_smoke.py)
+# kernel's two dtypes, and backwards sent to the bf16 and the fp32 backward
+# kernels, since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
 launches_fp32 = 0
 launches_wide = 0
 launches_wide_fp32 = 0
+launches_bwd = 0
+launches_bwd_fp32 = 0
 
 
-def flash_attention_reference(q, k, v, sm_scale: float, mask=None):
+def flash_attention_reference(q, k, v, sm_scale: float, mask=None, *, with_lse: bool = False):
     """softmax(q k^T * sm_scale [+ mask]) v on ``[..., S, D]`` tensors.
 
     Logits and softmax in fp32; the probabilities are cast to ``q.dtype``
     and multiplied with ``v`` in fp32, then the result is cast back: the
     precision points of ``videosd_tpu.models.layers._attention_xla``.
+    ``with_lse``: also return each row's log-sum-exp of the logits, fp32
+    ``[..., Sq]`` (what :func:`flash_attention_bwd_reference` takes).
     """
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if mask is not None:
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(weights.float(), v.float()).to(q.dtype)
+    out = torch.matmul(weights.float(), v.float()).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if with_lse else out
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, sm_scale: float):
+    """The gradients of softmax(q k^T * sm_scale) v for q, k and v on
+    ``[..., S, D]`` tensors, from the forward's output ``o`` and row
+    log-sum-exp ``lse`` (``[..., Sq]``) and the output's gradient ``do``:
+    the backward kernels' formula.  Products and sums in fp32; P and dS are
+    rounded to ``q.dtype`` before their products (as the forward rounds its
+    weights), the gradients cast to it once::
+
+        D = rowsum(dO o)      P = exp(q k^T * sm_scale - lse)
+        dV = P^T dO           dS = P (dO v^T - D)
+        dQ = dS k * sm_scale  dK = dS^T q * sm_scale
+    """
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale - lse.float()[..., None])
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).to(dt).float()
+    dq = torch.matmul(ds, kf) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * sm_scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def instance_width(d: int) -> int:
@@ -290,9 +338,25 @@ def wide_fp32_q_resident(d: int) -> bool:
             + WIDE_FP32_MIN_SLOTS * WIDE_FP32_CHUNK_BYTES <= SMEM_LIMIT - 1024)
 
 
+def _on_cpu(*xs) -> bool:
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def _split_heads(x, heads: int):
+    """``[B, S, H*D]`` -> ``[B, H, S, D]`` (a view)."""
+    b, s, dm = x.shape
+    return x.reshape(b, s, heads, dm // heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    """``[B, H, S, D]`` -> ``[B, S, H*D]``."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
 def flash_attention_bhsd(q, k, v, sm_scale: float):
     """q ``[BH, Sq, D]``, k/v ``[BH, Sk, D]`` -> ``[BH, Sq, D]``."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, sm_scale)
     return _launch(q, k, v, 1, sm_scale)
 
@@ -302,15 +366,53 @@ def flash_attention(q, k, v, *, num_heads: int):
     if q.ndim != 3 or q.shape[-1] % num_heads:
         raise ValueError(f"expected [B,S,H*D] with H = {num_heads}, got {tuple(q.shape)}")
     dh = q.shape[-1] // num_heads
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        b, sq, dm = q.shape
-
-        def split(x):
-            return x.reshape(b, x.shape[1], num_heads, dh).transpose(1, 2)
-
-        out = flash_attention_reference(split(q), split(k), split(v), 1.0 / math.sqrt(dh))
-        return out.transpose(1, 2).reshape(b, sq, dm)
+    if _on_cpu(q, k, v):
+        out = flash_attention_reference(*(_split_heads(x, num_heads) for x in (q, k, v)),
+                                        1.0 / math.sqrt(dh))
+        return _merge_heads(out)
     return _launch(q, k, v, num_heads, 1.0 / math.sqrt(dh))
+
+
+def flash_attention_lse(q, k, v, *, num_heads: int):
+    """:func:`flash_attention` that also returns each row's log-sum-exp of
+    the scaled logits (natural log), fp32 ``[B*H, Sq]``: the forward of K1'.
+    Head dims up to :data:`MAX_HEAD_DIM` (the wide kernels write no lse)."""
+    if q.ndim != 3 or q.shape[-1] % num_heads:
+        raise ValueError(f"expected [B,S,H*D] with H = {num_heads}, got {tuple(q.shape)}")
+    dh = q.shape[-1] // num_heads
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh}: the kernels above {MAX_HEAD_DIM} write no lse")
+    b, sq = q.shape[:2]
+    if _on_cpu(q, k, v):
+        out, lse = flash_attention_reference(
+            *(_split_heads(x, num_heads) for x in (q, k, v)), 1.0 / math.sqrt(dh), with_lse=True)
+        return _merge_heads(out), lse.reshape(b * num_heads, sq)
+    lse = torch.empty((b * num_heads, sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, num_heads, 1.0 / math.sqrt(dh), lse=lse), lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, heads: int, sm_scale: float):
+    """The gradients (dq, dk, dv) of ``flash_attention_lse(q, k, v)`` for q,
+    k and v, given its output ``o``, its ``lse`` and the output's gradient
+    ``do``: ``[B, S, H*D]`` tensors of one dtype, ``lse`` fp32 ``[B*H, Sq]``.
+    The CPU takes :func:`flash_attention_bwd_reference`; CUDA tensors launch
+    the backward kernels of their dtype (bf16 or fp32, d <= 256, sequence
+    lengths multiples of 64, every row with a unit inner stride) or raise."""
+    if q.ndim != 3 or q.shape[-1] % heads:
+        raise ValueError(f"expected [B,S,H*D] with H = {heads}, got {tuple(q.shape)}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must be shaped as q "
+                         f"{tuple(q.shape)}")
+    b, sq = q.shape[:2]
+    if lse.shape != (b * heads, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [{b * heads}, {sq}], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if _on_cpu(q, k, v, o, lse, do):
+        grads = flash_attention_bwd_reference(
+            *(_split_heads(x, heads) for x in (q, k, v, o)), lse.reshape(b, heads, sq),
+            _split_heads(do, heads), sm_scale)
+        return tuple(_merge_heads(g) for g in grads)
+    return _launch_bwd(q, k, v, o, lse, do, heads, sm_scale)
 
 
 def _check(q, k, v, heads: int):
@@ -344,10 +446,10 @@ def _check(q, k, v, heads: int):
     return b, sq, sk, d
 
 
-def _check_aligned(q, k, v):
-    """Raise unless every row of q, k and v starts 16 bytes aligned."""
+def _check_aligned(q, k, v, **more):
+    """Raise unless every row of q, k, v (and of ``more``) starts 16 bytes aligned."""
     align = _ALIGN[q.dtype]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         # torch allocates storage at 16-byte multiples, so the offset decides
         if t.stride(0) % align or t.stride(1) % align or t.storage_offset() % align:
             raise ValueError(f"{name} must be 16-byte aligned in every row: strides "
@@ -370,20 +472,29 @@ def _unfold_cut(out, b: int, heads: int, d: int):
     return out[..., :d].reshape(b, heads, sq, d).transpose(1, 2).reshape(b, sq, heads * d)
 
 
-def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
+def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None, lse=None):
     """Launches the kernel of q's dtype and head dim; ``block_m`` overrides
     :func:`block_rows` with another of :func:`row_plans` (``chip_smoke.py``
     times them all; the fp32 kernel runs :func:`fp32_block_rows`, the bf16
-    wide kernel 64 rows per block, the fp32 wide kernel 32)."""
+    wide kernel 64 rows per block, the fp32 wide kernel 32).  ``lse``: an
+    fp32 ``[B*H, Sq]`` tensor the d <= 256 kernels fill with each row's
+    log-sum-exp."""
     b, sq, sk, d = _check(q, k, v, heads)
     align = _ALIGN[q.dtype]
     if d % align:
         # rows of d elements are not 16-byte aligned: pad d as the TPU wrapper does
+        # (the folded [B*H, S, dp] rows keep lse's [B*H, Sq] order)
         dp = -(-d // align) * align
-        out = _launch(*(_fold_padded(x, heads, dp) for x in (q, k, v)), 1, sm_scale, block_m)
+        out = _launch(*(_fold_padded(x, heads, dp) for x in (q, k, v)), 1, sm_scale, block_m,
+                      lse)
         return _unfold_cut(out, b, heads, d)
     fp32 = q.dtype == torch.float32
     wide = d > MAX_HEAD_DIM
+    if lse is not None and (wide or lse.shape != (b * heads, sq) or lse.dtype != torch.float32
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse: a contiguous fp32 [{b * heads}, {sq}] tensor on {q.device} for "
+                         f"d <= {MAX_HEAD_DIM}, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device} at d = {d}")
     if fp32:
         plans = (WIDE_ROWS_FP32,) if wide else (fp32_block_rows(d),)
     else:
@@ -395,10 +506,10 @@ def _launch(q, k, v, heads: int, sm_scale: float, block_m: int | None = None):
                          f"dim {d} in {q.dtype}")
     if (wide or fp32) and b * heads > 65535:
         raise ValueError(f"{b * heads} heads exceed the kernel's grid (65535)")
-    return _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide)
+    return _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide, lse)
 
 
-def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide):
+def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide, lse=None):
     global launches, launches_fp32, launches_wide, launches_wide_fp32
     from videosd_tpu_torch._build import load_library
 
@@ -410,8 +521,10 @@ def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide):
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
     )
     lib = load_library()
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, heads, sq, sk, d, strides, float(sm_scale)]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not wide:
+        args.append(None if lse is None else lse.data_ptr())
+    args += [b, heads, sq, sk, d, strides, float(sm_scale)]
     if not (fp32 or wide):
         args.append(block_m)
     args += [q.device.index, torch.cuda.current_stream(q.device).cuda_stream]
@@ -419,13 +532,7 @@ def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide):
           (True, False): lib.videosd_flash_attention_fp32_fwd,
           (False, True): lib.videosd_flash_attention_wide_fwd,
           (True, True): lib.videosd_flash_attention_wide_fp32_fwd}[fp32, wide]
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(q.device):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"flash attention launch failed: cudaError {err}")
+    _call(fn, args, q.device, "flash attention")
     if wide and fp32:
         launches_wide_fp32 += 1
     elif wide:
@@ -435,3 +542,64 @@ def _run(q, k, v, heads, d, sm_scale, block_m, fp32, wide):
     else:
         launches += 1
     return out
+
+
+def _call(fn, args, device, what: str) -> None:
+    """``fn(*args)`` with ``device`` current; raises on a nonzero cudaError."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def _launch_bwd(q, k, v, o, lse, do, heads: int, sm_scale: float):
+    """Checks what the backward kernels take and launches them; a head dim
+    that is not a multiple of the dtype's alignment goes through padded,
+    folded copies, as the forward's does."""
+    b, sq, sk, d = _check(q, k, v, heads)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: no backward kernel above {MAX_HEAD_DIM}")
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.device != q.device or t.stride(2) != 1:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device} with a unit inner stride, "
+                             f"got {t.dtype} on {t.device}, strides {t.stride()}")
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous on {q.device}, got {lse.device}")
+    align = _ALIGN[q.dtype]
+    if d % align:
+        dp = -(-d // align) * align
+        grads = _launch_bwd(*(_fold_padded(x, heads, dp) for x in (q, k, v, o)), lse,
+                            _fold_padded(do, heads, dp), 1, sm_scale)
+        return tuple(_unfold_cut(g, b, heads, d) for g in grads)
+    _check_aligned(q, k, v, o=o, do=do)
+    if b * heads > 65535:
+        raise ValueError(f"{b * heads} heads exceed the kernels' grid (65535)")
+    return _run_bwd(q, k, v, o, lse, do, heads, d, sm_scale)
+
+
+def _run_bwd(q, k, v, o, lse, do, heads, d, sm_scale):
+    global launches_bwd, launches_bwd_fp32
+    from videosd_tpu_torch._build import load_library
+
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    dq = torch.empty((b, sq, heads * d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, sk, heads * d), dtype=q.dtype, device=q.device) for _ in range(2))
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 10)(*(x for t in (q, k, v, o, do)
+                                         for x in (t.stride(0), t.stride(1))))
+    fp32 = q.dtype == torch.float32
+    lib = load_library()
+    fn = lib.videosd_flash_attention_bwd_fp32 if fp32 else lib.videosd_flash_attention_bwd
+    args = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)]
+    args += [b, heads, sq, sk, d, strides, float(sm_scale), q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream]
+    _call(fn, args, q.device, "flash attention backward")
+    if fp32:
+        launches_bwd_fp32 += 1
+    else:
+        launches_bwd += 1
+    return dq, dk, dv

@@ -12,9 +12,10 @@ and noise from an explicit ``torch.Generator`` on the latents' device
 (``generator=``), or takes them as tensors (``t=`` [B] and ``noise=``, the
 latents' shape): the seam the tests pass JAX's own draws through.
 
-Routed self-attentions run kernel K1 forward and the plain math backward
-(``models/layers.py::FlashAttentionRecompute``), as the JAX step runs its
-Pallas forward under ``_attention_pallas_diff``.  Inputs made under
+Routed self-attentions run kernel K1 forward and the backward kernels
+(``models/layers.py::FlashAttentionRecompute``: the logits recomputed tile
+by tile from the forward's row log-sum-exp), as the JAX step runs its Pallas
+forward under ``_attention_pallas_diff`` and differentiates the plain math.  Inputs made under
 ``torch.inference_mode()`` (the prompt encoder's embeddings) cannot be saved
 for backward; the steps take a plain copy of such a tensor.
 
