@@ -206,6 +206,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the one-process step against itself (under the same bar) and under
    ``cudnn.deterministic``, and the step with its all-reduce skipped (a
    planted fault, which must miss the bar); each process's peak memory;
+6k. the last JAX modules, after 6j: (a) the phase-5 frame program again
+   after ``precat_attention_weights`` on its UNet and ControlNet: images
+   and latents equal bit for bit to the phase-5 graph's, 84 K1 launches a
+   frame at capture, the weight concatenations of an eager frame (aten.cat
+   calls whose inputs are all weights) 184 before and 0 after, the fused
+   weights' bytes, both graphs replayed in turns (the fused weights are
+   dropped again after); (b) ``upsample_conv2d`` at the sd15 and SDXL
+   up-block upsamplers' inputs in bf16, with ``f32_out`` on and off, and
+   the naive path, each against the naive path in fp32 (within
+   UPSAMPLE_ERR_RATIO of the naive path's max and mean |d|), CUDA-event
+   times in turns; (c) ``compile_subprocess``: an sd15 ``Engine`` on the
+   phase-5 bundle warms bucket 2 in the background, its child
+   (``tools/warm_spec.py``) must exit 0 on ``cuda:0``; its seconds, the
+   in-process warm's after it, the same warm on an engine without the
+   child, and the largest gap of an asyncio loop ticking every 5 ms during
+   each; then ``tools/warm_cache.py`` twice on a two-bucket config, each a
+   process of its own;
 6c. K1's device time per shape beside its bound, the plain version's time
    and one ``scaled_dot_product_attention`` call's (timed here, used
    nowhere in the port; the reference mode's banked shapes among them),
@@ -666,6 +683,23 @@ ROUTED_QKV = re.compile(r"^(down_blocks\.[012]|up_blocks\.[123])\.attentions\.\d
 TOY_ARGS = ["--family", "tiny", "--size", "64", "--ae-steps", "300", "--unet-steps", "300",
             "--cn-steps", "200", "--batch", "16"]
 TOY_CHILD_S = 300
+# phase 6k (a): the headline frame replayed without and with the
+# pre-concatenated attention weights, in turns of this many frames each
+PRECAT_TURNS, PRECAT_FRAMES = 3, 15
+# (b) upsample_conv2d at the up-block upsamplers' inputs (bf16): sd15 512^2,
+# then SDXL 1024^2.  Both it and the naive path (upsample, then the conv)
+# against the naive path in fp32 from the same bf16 values; the fused path
+# rounds each summed tap to bf16 (JAX sums them in the input's dtype) and,
+# with f32_out=False, rounds the conv before the bias: at most this many
+# times the naive path's max and mean |d| (CPU bf16 convs at the sd15
+# shapes, seeded: up to 1.4x max and 1.9x mean with f32_out, 2.2x both
+# without)
+UPSAMPLE_SHAPES = ((1, 1280, 8, 8), (1, 1280, 16, 16), (1, 640, 32, 32), (1, 1280, 32, 32),
+                   (1, 640, 64, 64))
+UPSAMPLE_ERR_RATIO = 3.0
+# (c) the warm-up: seconds a background warm (child included) and a
+# warm_cache run may take, and the event loop's tick while one runs
+WARM_BG_S, WARM_CACHE_S, WARM_TICK_S = 300, 300, 0.005
 
 
 _T0 = time.perf_counter()
@@ -713,6 +747,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 KernelTime = collections.namedtuple("KernelTime", "key count device_us")
+# a session ends with this many spin kernels (torch.cuda._sleep), left out
+# of its events: a session after a long one may lose its last few device
+# events (ROADMAP F7), and the tail takes that loss in place of fn's last
+# kernels
+PROFILE_TAIL, PROFILE_TAIL_CYCLES = 8, 1000
+
+
+def _session_kernels(prof) -> dict:
+    """A profiler session's device events (kernels, copies, sets) by name,
+    as {name: KernelTime}, summed from kineto's events as they come:
+    ``key_averages()`` gives the same counts and times but first builds a
+    Python event for every one, seconds for a frame's ~14k events."""
+    rows = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            row = rows[e.name()]
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e3
+    return {key: KernelTime(key, n, us) for key, (n, us) in rows.items()}
 
 
 def _profiled(fn, iters: int) -> list:
@@ -727,7 +780,7 @@ def _profiled(fn, iters: int) -> list:
     1000); of those two, each kernel is read from the session that saw more
     of it, since a loss only lowers a count.  Every session that pairs with
     no earlier one is printed, and ten sessions without a pair fail the
-    run."""
+    run.  Each session ends with PROFILE_TAIL spin kernels, not counted."""
     fn()
     torch.cuda.synchronize()
     earlier = []
@@ -735,9 +788,10 @@ def _profiled(fn, iters: int) -> list:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
+            for _ in range(PROFILE_TAIL):
+                torch.cuda._sleep(PROFILE_TAIL_CYCLES)
             torch.cuda.synchronize()
-        seen = {e.key: KernelTime(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages() if e.self_device_time_total > 0}
+        seen = {key: k for key, k in _session_kernels(prof).items() if "spin_kernel" not in key}
         total = sum(k.count for k in seen.values())
         for i, old in enumerate(earlier):
             old_total = sum(k.count for k in old.values())
@@ -4662,38 +4716,312 @@ def phase_6j(card: str) -> dict:
     return res
 
 
+def _weight_cats(bundle, run) -> tuple[int, int]:
+    """``run()`` eagerly under a dispatch mode counting ``aten.cat`` calls:
+    (all of them, those whose every input is a parameter of ``bundle``'s
+    models, that is a concatenation of weights)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ptrs = {p.data_ptr() for m in bundle.models.values() for p in m.parameters()}
+
+    class Cats(TorchDispatchMode):
+        every = weights = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.cat.default:
+                Cats.every += 1
+                Cats.weights += all(t.data_ptr() in ptrs for t in args[0])
+            return func(*args, **(kwargs or {}))
+
+    with Cats():
+        run()
+    torch.cuda.synchronize()
+    return Cats.every, Cats.weights
+
+
+def _6k_precat(card: str, main) -> dict:
+    """(a) The headline frame program on the phase-5 bundle without and with
+    ``precat_attention_weights``: the images and latents equal bit for bit,
+    84 K1 launches at capture, the weight concatenations a frame (eager,
+    counted by a dispatch mode) before and after, the bytes the fused
+    weights add, and both replayed in turns.  The fused weights are dropped
+    again at the end (later phases replay the phase-5 graph)."""
+    bundle, embeds, frame, args, _, plain = main
+    spec = plain.spec
+    blocks = sum(isinstance(m, unet_mod.BasicTransformerBlock)
+                 for name in ("unet", "controlnet") for m in bundle.models[name].modules())
+    before = _weight_cats(bundle, lambda: frame_program(bundle, spec, frame, embeds, *args))
+    for name in ("unet", "controlnet"):
+        unet_mod.precat_attention_weights(bundle.models[name])
+    added = sum(w.numel() * w.element_size() for name in ("unet", "controlnet")
+                for m in bundle.models[name].modules() if isinstance(m, unet_mod.Attention)
+                for w in (m.wqkv, m.wkv) if w is not None)
+    fused = build_frame_program(bundle, spec)
+    _zero_counts()
+    got = fused(frame, embeds, *args)  # warm-up and capture
+    torch.cuda.synchronize()
+    launches = fa.launches
+    per_frame = fused.last_launches["flash_attention"]
+    want = plain(frame, embeds, *args)
+    same = _same(got, want)
+    after = _weight_cats(bundle, lambda: frame_program(bundle, spec, frame, embeds, *args))
+    turns = []
+    for _ in range(PRECAT_TURNS):
+        row = {}
+        for kind, program in (("plain", plain), ("precat", fused)):
+            ms = []
+            for _ in range(PRECAT_FRAMES):
+                t0 = time.perf_counter()
+                program(frame, embeds, *args)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[kind] = round(statistics.median(ms), 2)
+        turns.append(row)
+    print(f"6k (a) precat on {card}: sd15 512x512 4-step CN+TAESD bf16, {blocks} transformer "
+          f"blocks (UNet + ControlNet); images and latents equal bit for bit to the frame without "
+          f"precat: {same}" + ("" if same else f" (max|d| {_spread(got, want)})")
+          + f"; K1 {per_frame}/frame at capture; fused weights add {added} bytes "
+          f"({added / 1e6:.1f} MB); aten.cat calls an eager frame (all, of weights) before "
+          f"{before}, after {after}; replayed ms/frame (median of {PRECAT_FRAMES}) in turns "
+          f"{turns}")
+    for name in ("unet", "controlnet"):
+        for m in bundle.models[name].modules():
+            if isinstance(m, unet_mod.Attention):
+                m.wqkv = m.wkv = None
+    del fused
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not same:
+        fail("6k: the precat frame differs from the frame without precat")
+    if per_frame != K1_PER_FRAME or launches != 2 * K1_PER_FRAME:
+        fail(f"6k: the precat frame launched K1 {per_frame} times a frame ({launches} in the "
+             f"warm-up and capture), expected {K1_PER_FRAME}")
+    if before[1] != 2 * blocks * spec.steps or after[1] != 0:
+        fail(f"6k: weight concatenations a frame {before[1]} before precat (expected "
+             f"{2 * blocks * spec.steps}) and {after[1]} after (expected 0)")
+    return {"launches": launches, "turns": turns, "added_bytes": added,
+            "cats": [before, after]}
+
+
+def _6k_upsample(card: str) -> list:
+    """(b) ``upsample_conv2d`` at UPSAMPLE_SHAPES in bf16, with ``f32_out`` on
+    and off, and the naive path, each against the naive path in fp32 from
+    the same bf16 values (UPSAMPLE_ERR_RATIO times the naive path's max
+    and mean |d|); CUDA-event times in turns (naive, fused, fused, naive)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(22)
+    rows = []
+    for shape in UPSAMPLE_SHAPES:
+        b, c, h, w = shape
+        conv = torch.nn.Conv2d(c, c, 3, padding=1).cuda().bfloat16().eval()
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device="cuda")
+                              / math.sqrt(9 * c))
+            conv.bias.copy_(torch.randn(c, generator=gen, device="cuda") * 0.1)
+            x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+            ref = F.conv2d(layers.upsample_nearest2d(x.float()), conv.weight.float(),
+                           conv.bias.float(), padding=1)
+            runs = {"naive": lambda: conv(layers.upsample_nearest2d(x)),
+                    "fused": lambda: layers.upsample_conv2d(conv, x),
+                    "fused_bf16_out": lambda: layers.upsample_conv2d(conv, x, f32_out=False)}
+            errs = {}
+            for kind, fn in runs.items():
+                d = (fn().float() - ref).abs()
+                errs[kind] = (d.max().item(), d.mean().item())
+            ms = {kind: [] for kind in runs}
+            for kind in ("naive", "fused", "fused_bf16_out", "fused_bf16_out", "fused", "naive"):
+                ms[kind].append(round(cuda_ms(runs[kind], iters=50), 4))
+        row = {"shape": list(shape), "max_abs_ref": ref.abs().max().item(), "errs": errs,
+               "ms": ms}
+        rows.append(row)
+        print(f"6k (b) upsample_conv2d {list(shape)} bf16 on {card}: max|ref| "
+              f"{row['max_abs_ref']:.3f}; (max, mean) |d| from the fp32 naive path: "
+              + ", ".join(f"{k} ({e[0]:.3e}, {e[1]:.3e})" for k, e in errs.items())
+              + "; CUDA-event ms in turns: " + ", ".join(f"{k} {v}" for k, v in ms.items()))
+        bar = [UPSAMPLE_ERR_RATIO * e for e in errs["naive"]]
+        for kind in ("fused", "fused_bf16_out"):
+            if not (errs[kind][0] <= bar[0] and errs[kind][1] <= bar[1]):
+                fail(f"6k: upsample_conv2d ({kind}) at {list(shape)}: (max, mean) |d| "
+                     f"{errs[kind]} beyond {UPSAMPLE_ERR_RATIO} x the naive path's {errs['naive']}")
+    return rows
+
+
+def _6k_background(engine, spec) -> dict:
+    """Warm ``spec`` through ``engine._compile_spec_background`` while an
+    asyncio loop ticks every WARM_TICK_S: the warm's seconds, the child's
+    result, seconds and JSON line (from the engine's INFO record, when it
+    runs one), the in-process warm's seconds, and the loop's largest gap
+    between ticks."""
+    import asyncio
+
+    seen = {}
+    child, warm = engine._warm_spec_subprocess, engine._warm_spec
+    logger = logging.getLogger("videosd_tpu_torch.engine")
+    level, child_lines = logger.level, []
+    grab = logging.Handler(logging.INFO)
+    grab.emit = lambda r: (child_lines.append(r.args[-1])
+                           if str(r.msg).startswith("subprocess-warmed") else None)
+
+    def timed_child(s, *, ref_mode):
+        t0 = time.perf_counter()
+        seen["child_ok"] = child(s, ref_mode=ref_mode)
+        seen["child_s"] = round(time.perf_counter() - t0, 2)
+        return seen["child_ok"]
+
+    def timed_warm(s, *, ref_mode):
+        t0 = time.perf_counter()
+        warm(s, ref_mode=ref_mode)
+        seen["in_process_s"] = round(time.perf_counter() - t0, 2)
+
+    engine._warm_spec_subprocess, engine._warm_spec = timed_child, timed_warm
+
+    async def run():
+        t0 = last = time.perf_counter()
+        gap = 0.0
+        engine._compile_spec_background(asyncio.get_running_loop(), spec, False)
+        while any(t.is_alive() for t in engine._bg_threads):
+            await asyncio.sleep(WARM_TICK_S)
+            now = time.perf_counter()
+            gap, last = max(gap, now - last), now
+            if now - t0 > WARM_BG_S:
+                fail(f"6k: the background warm of {spec} ran past {WARM_BG_S} s")
+        seen["total_s"] = round(time.perf_counter() - t0, 2)
+        seen["max_gap_ms"] = round(gap * 1e3, 1)
+
+    logger.setLevel(logging.INFO)
+    logger.addHandler(grab)
+    try:
+        asyncio.run(run())
+    finally:
+        engine._warm_spec_subprocess, engine._warm_spec = child, warm
+        logger.removeHandler(grab)
+        logger.setLevel(level)
+    if child_lines:
+        seen["child"] = json.loads(child_lines[-1])
+    if (spec, False) not in engine._ready_specs:
+        fail(f"6k: the background warm of {spec} did not make it ready")
+    return seen
+
+
+def _6k_warm(card: str, main) -> dict:
+    """(c) ``compile_subprocess`` on the card: an sd15 bf16 ``Engine`` on the
+    phase-5 bundle, warmed in-process at bucket 1, then bucket 2 warmed in
+    the background, first by an engine with the setting on (the child,
+    ``tools/warm_spec.py``, must exit 0 on ``cuda:0``), then by one without
+    it; then ``tools/warm_cache.py`` twice on a two-bucket config."""
+    from videosd_tpu_torch.config import ServerConfig
+    from videosd_tpu_torch.runtime.engine import Engine
+
+    bundle = main[0]
+    res = {}
+    with _ErrorLog("videosd_tpu_torch.engine") as log:
+        for label, flag in (("child", True), ("in_process", False)):
+            cfg = ServerConfig(family="sd15", dtype="bfloat16", weights="random",
+                               frame_hw=(512, 512), batch_buckets=(1, 2), compile_subprocess=flag)
+            engine = Engine(cfg, bundle=bundle, max_streams=2, max_batch=2)
+            t0 = time.perf_counter()
+            engine.warmup(batch_sizes=(1,), steps=(4,))
+            warm1 = round(time.perf_counter() - t0, 2)
+            spec = FrameSpec(batch=2, height=512, width=512, in_height=512, in_width=512,
+                             steps=4, in_format=engine.input_format)
+            seen = _6k_background(engine, spec)
+            seen["bucket1_s"] = warm1
+            res[label] = seen
+            del engine
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    if log.errors:
+        fail(f"6k: the engine logged {len(log.errors)} errors, first: {log.errors[0]}")
+    child = res["child"]
+    print(f"6k (c) compile_subprocess on {card}: bucket 2 (sd15 512x512 4-step, batch 2) warmed "
+          f"in the background with the child: {child}; without it: {res['in_process']}")
+    if not child.get("child_ok") or (child.get("child") or {}).get("device") != "cuda:0":
+        fail(f"6k: the warm-up child did not exit 0 on cuda:0: {child}")
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "warm.yaml")
+        with open(path, "w") as f:
+            f.write("family: sd15\ndtype: bfloat16\nweights: random\nbatch_buckets: [1, 2]\n"
+                    "frame_hw: [512, 512]\n")
+        for i in range(2):
+            lines = _run_tool(["videosd_tpu_torch.tools.warm_cache", "--config", path,
+                               "--device", "cuda"], f"6k warm_cache run {i + 1}", WARM_CACHE_S)
+            runs.append(json.loads(lines[-1]))
+    print(f"6k (c) warm_cache on {card}, two runs of a two-bucket sd15 config: {runs}")
+    if not all(r["kernel_library_built"] for r in runs) or any(
+            set(r["buckets"]) != {"b1_s4", "b2_s4"} for r in runs):
+        fail(f"6k: warm_cache did not warm both buckets over a built kernel library: {runs}")
+    res["warm_cache"] = runs
+    return res
+
+
+def phase_6k(card: str, main) -> dict:
+    """6k: the last JAX modules on the card: (a) pre-concatenated attention
+    weights on the headline frame, (b) ``upsample_conv2d`` at the up-block
+    upsamplers, (c) the subprocess warm-up and ``tools/warm_cache.py``.
+    Returns the phase's results and K1 launches (the precat capture's and
+    the engines' warm-ups)."""
+    t_phase = time.perf_counter()
+    precat = _6k_precat(card, main)
+    upsample = _6k_upsample(card)
+    _zero_counts()
+    warm = _6k_warm(card, main)
+    res = {"precat": precat, "upsample": upsample, "warm": warm,
+           "launches": precat["launches"] + fa.launches}
+    print(f"phase 6k took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     import faulthandler
 
-    faulthandler.dump_traceback_later(1100, exit=True)  # a hang shows where, then ends
+    # a hang shows where, then ends, inside the 1200 s a run may take
+    faulthandler.dump_traceback_later(1170, exit=True)
     card, clock = phase_card()
     # fp32 products stay fp32 on the card (the fp32 kernels' plain versions
     # and library calls); bf16 work is untouched by these flags
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    _note("built")
     k1_err, k1_fp32_err, k1_wide_err, k1_wide_fp32_err = phase_k1()
     print(f"K1 fp32 launches in the tiny paths (warm-ups and captures): "
           f"{phase_tiny() + phase_tiny_kl()}")
+    _note("K1 and the tiny paths done")
     k1_launches, main = phase_main(card)
     k3_launches, pallas_program = phase_taesd_pallas(card, main)
     programs, replay_ms = phase_graph(card, main, pallas_program)
+    _note("phases 5, 6 and 6a done")
     phase_production(card, main, programs)
     phase_engine_call(card, main)
     del programs, pallas_program
+    _note("phase 6b done")
     ref_launches, ref = phase_reference(card, main)
     engine_res = phase_engine(card, main)
+    _note("phases 6b' and 6b'' done")
     server_launches = phase_server_process(card, engine_res)
+    _note("phase 6b''' done")
     kl = phase_kl(card)
     fp32_frame = phase_fp32_frame(card)
+    _note("phases 6a' and 6a'' done")
     sd21 = phase_sd21(card)
     sdxl = phase_sdxl(card)
+    _note("phases 6d and 6f done")
     phase_bench(main[0])
     train = phase_train(card)
+    _note("the bench and phases 6e and 6i done")
     phase_toy(card)
+    _note("phase 6e (d) done")
     g = phase_6g(card, main, sdxl)
+    _note("phase 6g done")
     mesh = phase_6h(card, main)
+    _note("phase 6h done")
     processes = phase_6j(card)
+    _note("phase 6j done")
+    k6 = phase_6k(card, main)
+    _note("phase 6k done")
     k1_times, k1_fp32_times, k1_wide_times, k1_wide_fp32_times = phase_k1_times(card, clock)
     k1_prime = phase_k1_prime(card, clock)
     k2_res = phase_k2(card, clock)
@@ -4701,6 +5029,7 @@ def main() -> None:
     k3_fp32_res = phase_k3_fp32(card, clock)
     k2_launches = phase_k2_path(main[2])
     k3_fp32_launches = phase_taesd_routes(card, main[0])
+    _note("the kernel timings done")
     phase_profile(card, main, replay_ms)
     phase_kl_profile(card, kl)
     phase_fp32_profile(card, fp32_frame)
@@ -4708,13 +5037,14 @@ def main() -> None:
     phase_sd21_profile(card, sd21)
     phase_sdxl_profile(card, sdxl)
     phase_sdxl_int8_profile(card, g.pop("sdxl_int8"))
+    _note("the profiles done")
     k1_src, k3_src = "videosd_tpu/ops/pallas/flash_attention.py:83", "videosd_tpu/ops/pallas/taesd_conv.py:231"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention.cu", "replaces": k1_src,
          "launches": (k1_launches + ref_launches + server_launches + sd21["launches"]
                       + sdxl["launches"] + g["launches"] + mesh["launches"]
-                      + processes["launches"]),
+                      + processes["launches"] + k6["launches"]),
          "max_abs_err": k1_err, **k1_times},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": "videosd_tpu_torch/csrc/flash_attention_fp32.cu", "replaces": k1_src,

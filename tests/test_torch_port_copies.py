@@ -233,6 +233,7 @@ def test_port_imports_without_jax():
         "import videosd_tpu_torch.tools.flicker, videosd_tpu_torch.tools.temporal_gate\n"
         "import videosd_tpu_torch.tools.ref_gate, videosd_tpu_torch.tools.taesd_ab\n"
         "import videosd_tpu_torch.tools.soak\n"
+        "import videosd_tpu_torch.tools.warm_spec, videosd_tpu_torch.tools.warm_cache\n"
         "import videosd_tpu_torch.parallel.mesh, videosd_tpu_torch.parallel.tensor\n"
         "import videosd_tpu_torch.parallel.serving, videosd_tpu_torch.parallel.pipe\n"
         "import videosd_tpu_torch.parallel.verify\n"

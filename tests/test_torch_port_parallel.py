@@ -169,8 +169,8 @@ def test_param_rules_follow_jax(model):
             assert got == want, (key, got, want)
         sharded += "model" in got
     assert sharded > 0
-    # JAX's rules less the pre-concatenated wqkv/wkv one, plus the column biases
-    assert len(PARAM_RULES) == len(JM.PARAM_RULES) - 1 + 3
+    # JAX's rules (the pre-concatenated wqkv/wkv one included), plus the column biases
+    assert len(PARAM_RULES) == len(JM.PARAM_RULES) + 3
 
 
 def test_placement_by_slot(tiny):

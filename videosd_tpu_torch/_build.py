@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["BuildError", "build", "load_library"]
+__all__ = ["BuildError", "build", "library_path", "load_library"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -56,7 +56,8 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _library_path() -> str:
+def library_path() -> str:
+    """Where the library of the current sources and flags is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(path, "rb") as f:
@@ -71,7 +72,7 @@ def build() -> tuple[str, str]:
     register, shared-memory and spill report per kernel, and is empty when
     the library was already built.
     """
-    lib = _library_path()
+    lib = library_path()
     if os.path.isfile(lib):
         return lib, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)

@@ -233,19 +233,20 @@ class ServerConfig:
     # compiles wait their turn, streams keep getting nearest-ready or
     # passthrough frames meanwhile.
     compile_concurrency: int = 2
-    # warm each background bucket compile through a SUBPROCESS first: an
-    # isolated interpreter (tools/warm_spec.py) traces + compiles the
-    # spec into the shared persistent cache, then the serving process
-    # compiles the same spec from the warm cache.  Trace/lower holds the
-    # GIL in long C-extension calls — measured on the serving rig, an
-    # in-process cold bucket compile stretches event-loop HTTP latency
-    # to 60-80 s (a k8s liveness probe would kill the pod); with the
-    # subprocess warm, only the short cache-hit window remains
-    # in-process.  Costs one extra interpreter + model init (~RAM of
-    # one engine) per compile, bounded by compile_concurrency.  Needs a
-    # backend that allows a second process to attach (remote-attached
-    # TPU, CPU); PCIe libtpu is exclusive — leave off there and use the
-    # ops pre-roll (tools/warm_cache.py) instead.  Off by default.
+    # warm each background bucket through a SUBPROCESS first: a child
+    # interpreter (tools/warm_spec.py) builds an engine from this config
+    # on the parent's device and runs the spec once, then the serving
+    # process warms it in-process (a failed child only costs that
+    # fall-through, which runs the same kernels).  In the port the
+    # child's CUDA graphs die with it: what persists is the nvcc kernel
+    # library under videosd_tpu_torch/_build/ (built once, loaded by
+    # every later process) and the proof that the spec builds and runs on
+    # that device.  On the card the child loads a second copy of the
+    # weights beside the parent's (a few GiB for sd15 bf16), bounded by
+    # compile_concurrency; a child asked for a card that finds none exits
+    # non-zero and never runs on the CPU.  The JAX package's reason for
+    # it, GIL-holding XLA compiles stalling the event loop, is measured
+    # on the H100 in chip_smoke.py phase 6k.  Off by default.
     compile_subprocess: bool = False
     # micro-batcher deadline (ms) before a partial batch is cut
     batch_deadline_ms: float = 10.0

@@ -5,6 +5,7 @@ from videosd_tpu_torch.models.unet import (
     UNET_PRESETS,
     UNet2DConditionModel,
     UNetConfig,
+    precat_attention_weights,
     unet_apply,
 )
 from videosd_tpu_torch.models.vae import (
@@ -29,6 +30,7 @@ __all__ = [
     "VAEConfig",
     "VAE_PRESETS",
     "controlnet_apply",
+    "precat_attention_weights",
     "taesd_decode",
     "taesd_encode",
     "unet_apply",

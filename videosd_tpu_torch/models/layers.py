@@ -56,6 +56,7 @@ __all__ = [
     "quantize_linear",
     "routes_to_flash",
     "timestep_embedding",
+    "upsample_conv2d",
     "upsample_nearest2d",
 ]
 
@@ -328,3 +329,42 @@ def avg_pool2d(x, window: int = 2):
 
 def upsample_nearest2d(x, factor: int = 2):
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+# phase (a, b) of the 2x grid reads source rows (i-1+a, i+a) and columns
+# (j-1+b, j+b): F.pad's (left, right, top, bottom) for each
+_PHASE_PADS = ((1, 0, 1, 0), (0, 1, 1, 0), (1, 0, 0, 1), (0, 1, 0, 1))
+
+
+def upsample_conv2d(conv: nn.Conv2d, x, *, f32_out: bool = True):
+    """``conv(upsample_nearest2d(x))`` for a 3x3 SAME conv, as four 2x2 convs
+    at the source resolution whose outputs interleave into the 2x grid.
+    Counterpart of ``videosd_tpu/models/layers.py::upsample_conv2d``.
+
+    ``x``: NCHW; ``conv``'s weight OIHW.  Under nearest upsampling the 3x3
+    window at output phase (a, b) covers a 2x2 patch of source pixels, so
+    its kernel is the sum of the taps landing on each (rows: a=0 -> [k0,
+    k1+k2], a=1 -> [k0+k1, k2]; columns likewise), summed in ``x``'s dtype
+    as JAX sums them.  2.25x fewer MACs than the conv at the upsampled
+    size; the same additions re-associated.  ``f32_out``: the convs give
+    fp32 (JAX's ``preferred_element_type``) and the bias adds in fp32
+    before the cast to ``x``'s dtype; else both stay in ``x``'s dtype.
+    Library convs (``F.conv2d``), as JAX's are ``lax.conv``; not wired into
+    the UNet, as JAX does not wire it (it measured neutral on the TPU)."""
+    k = conv.weight.to(x.dtype)
+    kernels = []
+    for kr in (torch.stack([k[:, :, 0], k[:, :, 1] + k[:, :, 2]], dim=2),
+               torch.stack([k[:, :, 0] + k[:, :, 1], k[:, :, 2]], dim=2)):
+        kernels.append(torch.stack([kr[..., 0], kr[..., 1] + kr[..., 2]], dim=-1))
+        kernels.append(torch.stack([kr[..., 0] + kr[..., 1], kr[..., 2]], dim=-1))
+    acc = torch.float32 if f32_out else x.dtype
+    xa = x.to(acc)
+    outs = []
+    for kk, pad in zip(kernels, _PHASE_PADS):
+        y = F.conv2d(F.pad(xa, pad), kk.to(acc))
+        if conv.bias is not None:
+            y = y + conv.bias.to(acc)[:, None, None]
+        outs.append(y.to(x.dtype))
+    b, c, h, w = outs[0].shape
+    y = torch.stack([torch.stack(outs[:2], dim=-1), torch.stack(outs[2:], dim=-1)], dim=3)
+    return y.reshape(b, c, 2 * h, 2 * w)  # [B, C, h, 2, w, 2] -> the 2x grid

@@ -42,7 +42,14 @@ from videosd_tpu_torch.models.layers import (
     upsample_nearest2d,
 )
 
-__all__ = ["UNET_PRESETS", "BankReader", "UNet2DConditionModel", "UNetConfig", "unet_apply"]
+__all__ = [
+    "UNET_PRESETS",
+    "BankReader",
+    "UNet2DConditionModel",
+    "UNetConfig",
+    "precat_attention_weights",
+    "unet_apply",
+]
 
 
 class BankReader:
@@ -203,20 +210,29 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
+        # pre-concatenated projections (precat_attention_weights), None until set
+        self.register_parameter("wqkv", None)
+        self.register_parameter("wkv", None)
 
     def forward(self, x, context=None):
         """Projections in int8 (``ops/quant.py``) fuse as the plain ones do:
         the self-attention's Q/K/V and the banked READ pass's K/V (context
         ``[h; bank]``) are one w8a8 product over the concatenated ``w8`` and
         ``sw``, with one activation scale over the whole input, as JAX's
-        ``cross_attn_apply``; the cross-attention's K/V stay plain."""
+        ``cross_attn_apply``; the cross-attention's K/V stay plain.  A
+        pre-concatenated ``wqkv`` (self-attention) or ``wkv`` (K/V over a
+        context) stands in for the per-call concatenation of the plain
+        weights; the int8 branch comes first, and an ``attn1`` called with a
+        context concatenates its K/V at call time, as JAX's ``attn1`` has no
+        ``wkv``."""
         if context is None:
             # self-attention: Q/K/V as one GEMM over the concatenated weights
             qkv = (self.to_q, self.to_k, self.to_v)
             if isinstance(self.to_q, LinearW8A8):
                 y = linear_w8a8(x, torch.cat([m.w8 for m in qkv]), torch.cat([m.sw for m in qkv]))
             else:
-                y = F.linear(x, torch.cat([m.weight for m in qkv]))
+                w = self.wqkv if self.wqkv is not None else torch.cat([m.weight for m in qkv])
+                y = F.linear(x, w)
             q, k, v = y.chunk(3, dim=-1)
         else:
             q = self.to_q(x)
@@ -224,10 +240,48 @@ class Attention(nn.Module):
                 kv = linear_w8a8(context, torch.cat([self.to_k.w8, self.to_v.w8]),
                                  torch.cat([self.to_k.sw, self.to_v.sw]))
             else:
-                kv = F.linear(context, torch.cat([self.to_k.weight, self.to_v.weight]))
+                w = (self.wkv if self.wkv is not None
+                     else torch.cat([self.to_k.weight, self.to_v.weight]))
+                kv = F.linear(context, w)
             k, v = kv.chunk(2, dim=-1)
         out = attention(q, k, v, num_heads=self.heads)
         return self.to_out[0](out)
+
+
+def precat_attention_weights(model: nn.Module) -> nn.Module:
+    """Add pre-concatenated projection weights beside every attention of
+    ``model``'s transformer blocks (a UNet, a ControlNet, or any module
+    holding them): each ``attn1`` gets ``wqkv`` = ``cat([to_q, to_k,
+    to_v].weight)`` [3·inner, C] and each ``attn2`` gets ``wkv`` =
+    ``cat([to_k, to_v].weight)`` [2·inner, ctx], the [out, in] layout of
+    JAX's [C, 3·inner] and [ctx, 2·inner] kernels.  Counterpart of
+    ``videosd_tpu/models/unet.py::precat_attention_weights``.
+
+    Changes ``model`` in place and returns it.  The originals stay; an
+    attention that already has its fused weight, or whose projections are
+    int8 (:class:`LinearW8A8`), is left as it is, as JAX skips w8a8 trees.
+    The fused weights are parameters that train, with the originals'
+    ``requires_grad``: differentiating through a precat model gives
+    gradients to ``wqkv``/``wkv``, and none to ``attn1``'s ``to_q``/
+    ``to_k``/``to_v`` (nor ``attn2``'s ``to_k``/``to_v``), while a
+    checkpoint (``io/checkpoint.py::save_bundle``, the weight plans) holds
+    only the originals: JAX's hazard, kept.  Likewise a later in-place load
+    of the originals (``load_state_dict``, a LoRA fusion) does not refresh
+    the fused copies: apply this to final weights.  Not applied by default:
+    JAX measured it neutral on the TPU and does not apply it either."""
+    with torch.no_grad():
+        for block in model.modules():
+            if not isinstance(block, BasicTransformerBlock):
+                continue
+            for attn, name, parts in ((block.attn1, "wqkv", ("to_q", "to_k", "to_v")),
+                                      (block.attn2, "wkv", ("to_k", "to_v"))):
+                if getattr(attn, name) is not None or isinstance(attn.to_q, LinearW8A8):
+                    continue
+                weights = [getattr(attn, p).weight for p in parts]
+                fused = nn.Parameter(torch.cat(weights),
+                                     requires_grad=weights[0].requires_grad)
+                setattr(attn, name, fused)
+    return model
 
 
 class _GEGLUProj(nn.Module):

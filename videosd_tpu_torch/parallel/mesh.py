@@ -35,8 +35,6 @@ Placement differences from the JAX package (the numbers are the same):
 * the text towers stay whole on the engine's own device: they run once per
   prompt, and their rules are listed in :data:`PARAM_RULES` only so that
   :func:`param_spec` answers as JAX's does;
-* JAX's pre-concatenated ``wqkv``/``wkv`` rules have no counterpart: the
-  port concatenates each rank's own slices at run time;
 * training (``train/step.py``) keeps the whole model, its gradients and
   its optimizer state where the caller's model lives (the master), and
   the placements are copies loaded from it before each step; the data
@@ -309,6 +307,9 @@ def make_mesh(n_devices: int | None = None, *, model_parallel: int = 1, devices=
 # half (parallel/tensor.py), not a contiguous 1/m of the whole.
 PARAM_RULES: list[tuple[str, tuple]] = [
     (r"(to_q|to_k|to_v|q_proj|k_proj|v_proj)\.weight$", ("model", None)),
+    # pre-concatenated QKV/KV weights (models/unet.py::precat_attention_weights),
+    # column parallel like their parts: rank r holds its rows of each part
+    (r"(wqkv|wkv)$", ("model", None)),
     (r"(q_proj|k_proj|v_proj)\.bias$", ("model",)),
     (r"(to_out\.0|out_proj)\.weight$", (None, "model")),
     (r"ff\.net\.0\.proj\.weight$", ("model", None)),

@@ -10,7 +10,11 @@ inserts the collectives.  The port writes the same Megatron layout out:
   ``to_out``'s weight (row parallel).  Its shard is an ``Attention`` of h/m
   heads without output bias, so the fused self-attention QKV GEMM and the
   banked READ pass's fused K/V concatenate the rank's *own* slices, and K1
-  runs on the rank's own heads;
+  runs on the rank's own heads.  A pre-concatenated ``wqkv``/``wkv``
+  (``precat_attention_weights``) splits the same way: rank r's is the
+  concatenation of its q, k and v rows (not a contiguous cut of the whole),
+  gathered once at placement (JAX's GSPMD split of the sharded concat,
+  laid out per rank);
 * feed-forward (``FeedForward``, GEGLU): ``net.0.proj``'s output is
   ``[a | gate]``, so rank r takes rows ``[r*i/m, (r+1)*i/m)`` of both halves
   (``i`` hidden units; a contiguous 1/m of the whole would hand one rank all
@@ -103,6 +107,16 @@ def split_layer(mod: nn.Module, devices: list) -> tuple[TensorParallel, dict]:
             for name in ("to_q", "to_k", "to_v"):
                 local[f"shards.{r}.{name}.weight"] = (r, (f"{name}.weight", 0, rows))
             local[f"shards.{r}.to_out.0.weight"] = (r, ("to_out.0.weight", 1, rows))
+            # a fused weight's slice: the rank's rows of each part it stacks
+            for name, parts in (("wqkv", 3), ("wkv", 2)):
+                fused = getattr(mod, name)
+                if fused is not None:
+                    setattr(shards[-1], name, nn.Parameter(
+                        torch.empty(parts * per, fused.shape[1], dtype=fused.dtype, device=dev),
+                        requires_grad=False))
+                    own = tuple(range(i * inner + r * per, i * inner + (r + 1) * per)
+                                for i in range(parts))
+                    local[f"shards.{r}.{name}"] = (r, (name, 0, own))
     else:
         proj, out = mod.net[0].proj, mod.net[2]
         inner = out.in_features

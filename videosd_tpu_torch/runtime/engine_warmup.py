@@ -7,19 +7,27 @@ signature's CUDA graph (``FrameProgram``).  Cold buckets warm on daemon
 threads while the dispatch thread keeps replaying the ready ones: the
 captures run in ``thread_local`` mode on a side stream and make no
 device-wide sync, and one device captures one graph at a time
-(``pipelines/lcm_img2img.py::_Bucket``).  Also the nearest-ready fallback
-ranking.
+(``pipelines/lcm_img2img.py::_Bucket``).  With config
+``compile_subprocess`` a background warm-up first runs the spec in a child
+process (``tools/warm_spec.py``) on the engine's device.  Also the
+nearest-ready fallback ranking.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
+import time
 
 import numpy as np
 import torch
 
-__all__ = ["WarmupMixin"]
+__all__ = ["WARM_CHILD_TIMEOUT_S", "WarmupMixin"]
+
+# seconds the parent waits for a warm-up child (JAX's hour): a child past
+# it is killed and the parent warms in-process
+WARM_CHILD_TIMEOUT_S = 3600.0
 
 
 class WarmupMixin:
@@ -186,6 +194,12 @@ class WarmupMixin:
                 # bounded concurrency (config compile_concurrency); waiting
                 # threads are idle and the spec stays in _compiling for dedup
                 with self._compile_sem:
+                    if self.config.compile_subprocess:
+                        # the child builds the kernel library and runs the
+                        # spec once before this process does; a failure
+                        # falls through to the in-process warm-up, which
+                        # runs the same kernels
+                        self._warm_spec_subprocess(spec, ref_mode=ref_mode)
                     self._warm_spec(spec, ref_mode=ref_mode)
             except Exception:
                 logging.getLogger("videosd_tpu_torch.engine").exception(
@@ -201,6 +215,69 @@ class WarmupMixin:
         self._bg_threads = {th for th in self._bg_threads if th.is_alive()}
         self._bg_threads.add(t)
         t.start()
+
+    def _warm_spec_subprocess(self, spec, *, ref_mode: bool) -> bool:
+        """Run ``spec`` once in a child process (``python -m
+        videosd_tpu_torch.tools.warm_spec``) on this engine's device, as
+        JAX's ``_warm_spec_subprocess`` does.  See config
+        ``compile_subprocess`` for what it leaves behind.  Returns True when
+        the child exited 0 (its JSON line is logged at INFO), False
+        otherwise, with the child's stderr tail in the log; never raises for
+        the child's failure."""
+        import dataclasses
+        import json
+        import subprocess
+        import sys
+        import tempfile
+
+        log = logging.getLogger("videosd_tpu_torch.engine")
+        cfg = dataclasses.asdict(self.config)
+        # runtime state that may have diverged from the config file but
+        # belongs to the program's identity
+        cfg["input_format"] = self.input_format
+        cfg["output_format"] = self.output_format
+        cfg["frame_hw"] = list(self.frame_hw)
+        cfg["compile"] = False  # the child warms exactly one spec
+        cfg["compile_subprocess"] = False
+        req = {
+            "cfg": cfg,
+            "spec": dataclasses.asdict(spec),
+            "ref_mode": ref_mode,
+            "device": str(self.device),
+        }
+        with tempfile.NamedTemporaryFile(
+            "w", suffix=".json", prefix="warm_spec_", delete=False
+        ) as f:
+            json.dump(req, f)
+            path = f.name
+        # the directory holding the package, so `-m` finds it from any cwd
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "videosd_tpu_torch.tools.warm_spec", "--json", path],
+                capture_output=True, text=True, timeout=WARM_CHILD_TIMEOUT_S, cwd=root,
+            )
+        except subprocess.TimeoutExpired:
+            log.warning("subprocess warm of %s timed out (%.0f s)", spec, WARM_CHILD_TIMEOUT_S)
+            return False
+        finally:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        if proc.returncode != 0:
+            log.warning(
+                "subprocess warm of %s failed rc=%d: %s",
+                spec, proc.returncode, (proc.stderr or "")[-2000:],
+            )
+            return False
+        lines = (proc.stdout or "").strip().splitlines()
+        log.info(
+            "subprocess-warmed %s in %.1f s: %s",
+            spec, time.perf_counter() - t0, lines[-1] if lines else "",
+        )
+        return True
 
     def _dummy_batch(self, spec):
         b = spec.batch
